@@ -20,17 +20,35 @@ limit:
 5. the serving path end to end: a synthetic 64->256 npy pack from
    --seed, then ``fastdiffsr_tpu_torch.cli.infer`` on CUDA at full width,
    T=20, with launch counters that must show 49 K3 and 4 K2 launches per
-   UNet eval.
+   UNet eval;
+6. K1 (GroupNorm -> Swish) against its plain version at every distinct
+   K1 shape of one full-width training forward at batch 4, in f32 and
+   bf16, with the kernel's, the plain version's and the two library calls'
+   (F.group_norm then F.silu) times and the least time the card could take;
+7. gn_swish_custom's gradients against autograd of gn_swish_reference at
+   the largest K1 shape;
+8. one full-width train step from the same weights, batch, noise level
+   and noise, dropout off, with FASTDIFFSR_TPU_FUSED_NORM '' and 'pallas':
+   loss, gradient norm, gradients and updated parameters must agree, and
+   the 'pallas' step must launch K1 45 times;
+9. training end to end: ``fastdiffsr_tpu_torch.cli.sr_mfe -p train`` on
+   CUDA with the train config at full width, batch 4, T=20, fused_norm
+   'pallas', on a synthetic pack from --seed (45 K1 launches per step,
+   steady steps/s and peak memory), a checkpoint that reloads bit-equal,
+   then ``-p val`` from it on a few images (PSNR/SSIM, 49 K3 and 4 K2
+   launches per UNet eval).
 
 The line before the last is one JSON object of per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Per-shape details go to
-build/chip_smoke.json. Any failed check exits non-zero.
+build/chip_smoke.json. Any failed check exits non-zero. Phases 1-5 take
+about a minute on an H100, phases 6-9 under two more.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -47,11 +65,28 @@ STATS_RTOL = 2e-5          # |dstats| <= rtol * max(sum y^2) + 1e-3
 # fused vs plain UNet eval: f32 atol; bf16 relative to max|y| (every block
 # rounds its input to bf16, 2^-8 relative, through ~25 blocks)
 UNET_TOL = {"f32": 2e-3, "bf16": 0.05}
+# K1 |dy|: f32 atol (statistics summed in another order move mean and
+# 1/std by a few float32 steps); bf16 one bf16 step of |y| + 1e-5
+K1_TOL = {"f32": 1e-4, "bf16": (2 ** -7, 1e-5)}
+K1_GRAD_RTOL = 1e-4        # |dgrad| <= rtol * max|grad|
+# one train step, '' vs 'pallas': relative loss / gradient-norm / per-
+# tensor gradient gaps, and updated parameters in units of lr. Adam's
+# first step is lr * g / (|g| + 1e-8) per element: an element whose
+# gradient exceeds twice its tensor's '' vs 'pallas' gradient gap plus
+# 1e-6 keeps its sign and a magnitude >> 1e-8 in both, so it must move
+# the same within 1e-2 lr; the others (their share is printed) may move
+# either way.
+STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-3, "param": 1e-2}
 B_KERNEL = 16       # batch of the kernel checks (phases 2-3)
 B_UNET = 4          # batch of the UNet check (phase 4)
 SERVE_BATCH = 16    # phase 5: batches of 16, the first one is set-up
 SERVE_BATCHES = 2
 REPS = 10           # timed launches per kernel shape
+B_TRAIN = 4         # phases 6-9: the train config's batch
+TRAIN_STEPS = 24    # phase 9
+TRAIN_IMAGES = 16
+VAL_IMAGES = 2
+K1_PER_FORWARD = 45  # 44 ResnetBlock Blocks + the final Block
 
 
 def card_line() -> str:
@@ -238,26 +273,323 @@ def phase_k2(sigs, B, reps, card, seed):
     return rows, ok
 
 
-def write_pack(droot, n, seed):
-    """Synthetic 64->256 pair set: smooth random HR tiles and their
-    bicubic x4 down-and-up images, as uint8 npy packs."""
-    import numpy as np
+def record_k1(net, x, level):
+    """Run one forward of ``net`` and return the distinct K1 call
+    signatures (H, W, C, groups) of its Blocks with their call counts,
+    and how many Blocks saw a non-contiguous NHWC view."""
+    import torch
+
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import Block
+    sigs, strided = {}, [0]
+
+    def hook(mod, args):
+        h = args[0]
+        sig = (h.shape[2], h.shape[3], h.shape[1], mod.block[0].num_groups)
+        sigs[sig] = sigs.get(sig, 0) + 1
+        strided[0] += not h.permute(0, 2, 3, 1).is_contiguous()
+
+    hooks = [m.register_forward_pre_hook(hook) for m in net.modules()
+             if isinstance(m, Block)]
+    try:
+        with torch.no_grad():
+            net(x, level)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sigs, strided[0]
+
+
+def phase_k1(sigs, B, reps, card, seed):
     import torch
     import torch.nn.functional as F
-    os.makedirs(droot, exist_ok=True)
-    g = torch.Generator().manual_seed(seed)
-    small = torch.rand((n, 3, 16, 16), generator=g)
-    hr = F.interpolate(small, size=256, mode="bicubic", align_corners=False)
-    lr = F.interpolate(hr, size=64, mode="bicubic", antialias=True,
-                       align_corners=False)
-    sr = F.interpolate(lr, size=256, mode="bicubic", align_corners=False)
 
-    def u8(t):
-        return (t.clamp(0, 1) * 255).round().to(torch.uint8).permute(
-            0, 2, 3, 1).numpy()
+    from fastdiffsr_tpu_torch.ops.groupnorm import (gn_swish, gn_swish_plain,
+                                                    gn_swish_reference)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    rows, ok = [], True
+    for (H, W, C, G), count in sorted(sigs.items()):
+        for dt_name, dt in (("f32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            x = (torch.randn((B, H, W, C), generator=g, device=dev) * 2
+                 + 0.5).to(dt)
+            scale = torch.randn(C, generator=g, device=dev) * 0.1 + 1
+            bias = torch.randn(C, generator=g, device=dev) * 0.1
+            got = gn_swish(x, scale, bias, G)
+            torch.cuda.synchronize()
+            want = gn_swish_plain(x, scale, bias, G)
+            dy = (got.float() - want.float()).abs()
+            err = dy.max().item()
+            if dt_name == "f32":
+                row_ok = err <= K1_TOL["f32"]
+            else:
+                rel, atol = K1_TOL["bf16"]
+                row_ok = bool((dy <= want.float().abs() * rel + atol).all())
+            row_ok &= bool(torch.isfinite(got).all())
+            ok &= row_ok
+            del got, want, dy
+            ms = time_ms(lambda: gn_swish(x, scale, bias, G), reps)
+            plain_ms = time_ms(lambda: gn_swish_plain(x, scale, bias, G),
+                               reps)
+            # the backward of gn_swish_custom recomputes this forward
+            ref_ms = time_ms(lambda: gn_swish_reference(x, scale, bias, G),
+                             reps)
+            x_nchw = x.permute(0, 3, 1, 2)           # channels-last view
+            s_lib, b_lib = scale.to(dt), bias.to(dt)
+            lib_ms = time_ms(lambda: F.silu(F.group_norm(x_nchw, G, s_lib,
+                                                         b_lib, 1e-5)), reps)
+            es = 2 if dt_name == "bf16" else 4
+            n = B * H * W * C
+            # x read once, y written once; ~11 float32 operations per
+            # element on the CUDA cores (statistics, normalise, affine,
+            # swish), whatever the storage type
+            b_ms, b_by = bound(11.0 * n, 2.0 * n * es + 8 * C, "f32")
+            rows.append({"H": H, "W": W, "C": C, "groups": G,
+                         "calls_per_forward": count, "dtype": dt_name,
+                         "B": B, "max_abs_err": err, "ok": row_ok, "ms": ms,
+                         "plain_ms": plain_ms, "two_call_library_ms": lib_ms,
+                         "reference_ms": ref_ms,
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"[K1] {card} | {dt_name} B={B} {H}x{W} C={C} G={G} "
+                  f"x{count}/forward | max|dy|={err:.3g} "
+                  f"{'ok' if row_ok else 'FAIL'} | kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms F.group_norm+F.silu (two library "
+                  f"calls) {lib_ms:.4f} ms gn_swish_reference {ref_ms:.4f} "
+                  f"ms bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+            del x, x_nchw
+    return rows, ok
 
-    np.save(os.path.join(droot, "hr_256.npy"), u8(hr))
-    np.save(os.path.join(droot, "sr_64_256.npy"), u8(sr))
+
+def phase_k1_grad(sig, B, card, seed):
+    import torch
+
+    from fastdiffsr_tpu_torch.ops.groupnorm import (gn_swish_custom,
+                                                    gn_swish_reference)
+    H, W, C, G = sig
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    x = torch.randn((B, H, W, C), generator=g, device=dev)
+    s = torch.randn(C, generator=g, device=dev) * 0.1 + 1
+    b = torch.randn(C, generator=g, device=dev) * 0.1
+    cot = torch.randn(x.shape, generator=g, device=dev)
+    grads = []
+    for fn in (gn_swish_custom, gn_swish_reference):
+        leaves = [t.clone().requires_grad_() for t in (x, s, b)]
+        (fn(*leaves, G) * cot).sum().backward()
+        grads.append([t.grad for t in leaves])
+    errs = [((a - r).abs().max() / r.abs().max()).item()
+            for a, r in zip(*grads)]
+    ok = max(errs) <= K1_GRAD_RTOL
+    print(f"[K1 grad] {card} | f32 B={B} {H}x{W} C={C} G={G} | "
+          f"gn_swish_custom vs autograd of gn_swish_reference: max|d|/max|g|"
+          f" x {errs[0]:.3g} scale {errs[1]:.3g} bias {errs[2]:.3g} "
+          f"(tol {K1_GRAD_RTOL}) {'ok' if ok else 'FAIL'}", flush=True)
+    return {"shape": [B, H, W, C], "groups": G, "rel_err": errs,
+            "ok": ok}, ok
+
+
+def phase_train_parity(cfg, B, card, seed):
+    """One full-width train step with fused_norm '' and 'pallas' from the
+    same weights, batch and injected draws, dropout off."""
+    import torch
+
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers)
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.train import (create_train_state,
+                                            make_optimizer, make_train_step)
+    dev = torch.device("cuda")
+    unet_opt = dict(cfg["model"]["unet"], dropout=0.0)
+    opt_cfg = cfg["train"]["optimizer"]
+    lr = float(opt_cfg["lr"])
+    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                          ScheduleBuffers.create(
+                              cfg["model"]["beta_schedule"]["train"],
+                              device=dev))
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    r = int(cfg["datasets"]["train"]["r_resolution"])
+    batch = {k: torch.rand((B, r, r, 3), generator=g, device=dev) * 2 - 1
+             for k in ("HR", "SR")}
+    gamma, _ = eng.sample_gammas(g, B)
+    noise = torch.randn((B, r, r, 3), generator=g, device=dev)
+    step = make_train_step(eng, ema_start=0)
+    out = {}
+    for mode in ("", "pallas"):
+        net = unet_from_config(unet_opt, device=dev, seed=seed,
+                               fused_norm=mode)
+        state = create_train_state(net, make_optimizer(net.parameters(),
+                                                       opt_cfg))
+        kernels.reset_launch_counts()
+        _, m = step(state, batch, None, noise=noise, gamma=gamma)
+        torch.cuda.synchronize()
+        out[mode] = {"loss": m["l_pix"].item(),
+                     "grad_norm": m["grad_norm"].item(),
+                     "k1": kernels.LAUNCHES["gn_swish"],
+                     "grads": {k: p.grad for k, p in net.named_parameters()},
+                     "params": {k: p.detach()
+                                for k, p in net.named_parameters()}}
+        del state, net
+    a, b = out[""], out["pallas"]
+    d_loss = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+    d_gn = abs(a["grad_norm"] - b["grad_norm"]) / a["grad_norm"]
+    d_grad = max(((a["grads"][k] - b["grads"][k]).abs().max()
+                  / a["grads"][k].abs().max().clamp_min(1e-30)).item()
+                 for k in a["grads"])
+    n_el = n_near0 = 0
+    d_par = d_near0 = 0.0
+    for k in a["params"]:
+        dp = (a["params"][k] - b["params"][k]).abs()
+        ga = a["grads"][k]
+        clear = ga.abs() > 2 * (ga - b["grads"][k]).abs().max() + 1e-6
+        n_el += dp.numel()
+        n_near0 += int((~clear).sum())
+        if clear.any():
+            d_par = max(d_par, dp[clear].max().item())
+        if not clear.all():
+            d_near0 = max(d_near0, dp[~clear].max().item())
+    share = n_near0 / n_el
+    ok = (d_loss <= STEP_TOL["loss"] and d_gn <= STEP_TOL["grad_norm"]
+          and d_grad <= STEP_TOL["grad"] and d_par <= STEP_TOL["param"] * lr
+          and a["k1"] == 0 and b["k1"] == K1_PER_FORWARD)
+    print(f"[train step] {card} | full width B={B} {r}x{r} f32, dropout off,"
+          f" injected gamma+noise, '' vs 'pallas': loss {a['loss']:.6f} vs "
+          f"{b['loss']:.6f} (rel {d_loss:.3g}), grad_norm "
+          f"{a['grad_norm']:.6g} vs {b['grad_norm']:.6g} (rel {d_gn:.3g}), "
+          f"max per-tensor |dgrad|/max|g| {d_grad:.3g}, updated params max "
+          f"|d| {d_par / lr:.3g} lr (tol {STEP_TOL['param']}) where |g| "
+          f"clears the gap, {d_near0 / lr:.3g} lr on the {share:.3g} of "
+          f"elements where it does not | K1 "
+          f"launches {a['k1']} / {b['k1']} (want 0 / {K1_PER_FORWARD}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    del out, a, b
+    torch.cuda.empty_cache()
+    return {"rel_loss": d_loss, "rel_grad_norm": d_gn,
+            "rel_grad": d_grad, "param_max_over_lr": d_par / lr,
+            "near_zero_grad_share": share,
+            "near_zero_param_max_over_lr": d_near0 / lr, "ok": ok}, ok
+
+
+def phase_train(cfg, card, seed):
+    """cli.sr_mfe -p train then -p val, on CUDA at full width."""
+    import torch
+
+    from fastdiffsr_tpu_torch.cli import sr_mfe
+    from fastdiffsr_tpu_torch.data import write_pack
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.train import create_train_state, make_optimizer
+    from fastdiffsr_tpu_torch.train.checkpoint import load_state
+    dev = torch.device("cuda")
+    work = os.path.join(ROOT, "build", "smoke")
+    ds = cfg["datasets"]["train"]
+    droot = write_pack(os.path.join(work, f"train_pack_{seed}"),
+                       TRAIN_IMAGES, seed + 7, int(ds["l_resolution"]),
+                       int(ds["r_resolution"]))
+    cfg = json.loads(json.dumps(cfg))
+    cfg["name"] = "chip_smoke_train"
+    cfg["datasets"]["train"].update(dataroot=droot, datatype="npy",
+                                    batch_size=B_TRAIN)
+    cfg["datasets"]["val"].update(dataroot=droot, datatype="npy",
+                                  data_len=VAL_IMAGES)
+    cfg["train"].update(n_iter=TRAIN_STEPS, val_freq=10 ** 9,
+                        save_checkpoint_freq=10 ** 9, print_freq=8)
+    T = int(cfg["model"]["beta_schedule"]["val"]["n_timestep"])
+    run_cfg = os.path.join(work, "chip_smoke_train.json")
+    with open(run_cfg, "w") as f:
+        json.dump(cfg, f)
+    env_before = os.environ.get("FASTDIFFSR_TPU_FUSED_NORM")
+    os.environ["FASTDIFFSR_TPU_FUSED_NORM"] = "pallas"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        summary = sr_mfe.main(["-p", "train", "-c", run_cfg, "--device",
+                               "cuda", "--seed", str(seed)])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        if env_before is None:
+            os.environ.pop("FASTDIFFSR_TPU_FUSED_NORM")
+        else:
+            os.environ["FASTDIFFSR_TPU_FUSED_NORM"] = env_before
+    losses = summary["l_pix"]
+    want_k1 = K1_PER_FORWARD * TRAIN_STEPS
+    ckpt = summary["checkpoint"]
+    payload = torch.load(os.path.join(ckpt, "state.pt"), map_location=dev,
+                         weights_only=True)
+    init = unet_from_config(cfg["model"]["unet"], device=dev, seed=seed,
+                            fused_norm="").state_dict()
+    changed = sum(not torch.equal(init[k], payload["params"][k])
+                  for k in init)
+    net = unet_from_config(cfg["model"]["unet"], device=dev, seed=seed + 1,
+                           fused_norm="")
+    state = load_state(ckpt, create_train_state(
+        net, make_optimizer(net.parameters(), cfg["train"]["optimizer"])))
+    opt_sd = state.optimizer.state_dict()["state"]
+    bit_equal = (
+        state.step == TRAIN_STEPS == payload["step"]
+        and all(torch.equal(v, payload["params"][k])
+                for k, v in net.state_dict().items())
+        and all(torch.equal(v, payload["ema_params"][k])
+                for k, v in state.ema_params.items())
+        and all(torch.equal(opt_sd[i][n], payload["opt_state"]["state"][i][n])
+                for i in opt_sd for n in ("exp_avg", "exp_avg_sq")))
+    del state, net, payload, init
+    rate = summary["steady_steps_per_s"]
+    train_ok = (summary["steps"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+                and all(map(math.isfinite, losses)) and changed > 0
+                and bit_equal and launches["gn_swish"] == want_k1
+                and launches["fused_gn_swish_conv3x3"] == 0
+                and launches["channel_stats"] == 0 and rate is not None)
+    print(f"[train] {card} | cli.sr_mfe -p train cuda f32 full width, B="
+          f"{B_TRAIN}, T={T}, fused_norm=pallas, {TRAIN_STEPS} steps: l_pix "
+          f"first {losses[0]:.4f} last {losses[-1]:.4f} mean "
+          f"{sum(losses) / len(losses):.4f}, {changed} param tensors changed,"
+          f" checkpoint {os.path.basename(ckpt)} reloads bit-equal "
+          f"{bit_equal} | K1 launches {launches['gn_swish']} (want {want_k1}"
+          f"), K3 {launches['fused_gn_swish_conv3x3']}, K2 "
+          f"{launches['channel_stats']} | steady {rate:.3f} steps/s "
+          f"({rate * B_TRAIN:.2f} img/s) excluding the first step; wall "
+          f"{wall:.1f} s | peak {peak_gib:.2f} GiB "
+          f"{'ok' if train_ok else 'FAIL'}", flush=True)
+    k1_launches = launches["gn_swish"]
+
+    cfg["path"]["resume_state"] = ckpt
+    val_cfg = os.path.join(work, "chip_smoke_val.json")
+    with open(val_cfg, "w") as f:
+        json.dump(cfg, f)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    res = sr_mfe.main(["-p", "val", "-c", val_cfg, "--device", "cuda",
+                       "--seed", str(seed)])
+    torch.cuda.synchronize()
+    vwall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    want_k3, want_k2 = 49 * T * VAL_IMAGES, 4 * T * VAL_IMAGES
+    val_ok = (math.isfinite(res.get("psnr", math.nan))
+              and math.isfinite(res.get("ssim", math.nan))
+              and launches["fused_gn_swish_conv3x3"] == want_k3
+              and launches["channel_stats"] == want_k2
+              and launches["gn_swish"] == 0)
+    print(f"[val] {card} | cli.sr_mfe -p val cuda f32 fused from "
+          f"{os.path.basename(ckpt)}, {VAL_IMAGES} images, T={T}: psnr "
+          f"{res.get('psnr', math.nan):.4f} ssim {res.get('ssim', math.nan):.4f}"
+          f" | K3 launches {launches['fused_gn_swish_conv3x3']} (want "
+          f"{want_k3}), K2 {launches['channel_stats']} (want {want_k2}), K1 "
+          f"{launches['gn_swish']} | wall {vwall:.1f} s "
+          f"{'ok' if val_ok else 'FAIL'}", flush=True)
+    detail = {"steps": TRAIN_STEPS, "batch": B_TRAIN, "T": T,
+              "l_pix": losses, "steady_steps_per_s": rate, "wall_s": wall,
+              "peak_gib": peak_gib, "k1_launches": k1_launches,
+              "bit_equal": bit_equal, "val": res, "val_wall_s": vwall,
+              "val_launches": launches}
+    return detail, k1_launches, train_ok and val_ok
 
 
 def main(argv=None) -> int:
@@ -277,6 +609,7 @@ def main(argv=None) -> int:
     from fastdiffsr_tpu_torch.models.unet_fastdiffsr_fused import (
         fused_apply, prepare_fused_params)
     from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.data import write_pack
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -395,16 +728,69 @@ def main(argv=None) -> int:
                        "wall_s": wall, "peak_gib": peak_gib,
                        "launches": launches}
 
-    def total(rows, key, dt="bf16"):
-        return sum(r[key] * r["calls_per_eval"] for r in rows
-                   if r["dtype"] == dt)
+    del summary
+    torch.cuda.empty_cache()
 
-    def by(rows):
-        ops = sum(r["bound_ms"] * r["calls_per_eval"] for r in rows
-                  if r["dtype"] == "bf16" and r["bound_by"] == "operations")
-        return "operations" if ops >= total(rows, "bound_ms") / 2 else "bytes"
+    # 6.-9. the training path
+    train_cfg = load_json_config(os.path.join(
+        ROOT, "fastdiffsr_tpu_torch", "configs",
+        "sr_fastdiffsr_train_64_256.json"))
+    r = int(train_cfg["datasets"]["train"]["r_resolution"])
+    tnet = unet_from_config(train_cfg["model"]["unet"], device=dev,
+                            seed=args.seed, fused_norm="pallas")
+    x = torch.randn((B_TRAIN, r, r, 6), generator=gx, device=dev)
+    level = torch.rand((B_TRAIN,), generator=gx, device=dev)
+    k1_sigs, strided = record_k1(tnet, x, level)
+    n_k1 = sum(k1_sigs.values())
+    shapes_ok = n_k1 == K1_PER_FORWARD and strided == 0
+    ok &= shapes_ok
+    print(f"[shapes] {card} | one training forward: {n_k1} K1 calls in "
+          f"{len(k1_sigs)} shapes (want {K1_PER_FORWARD}), {strided} "
+          f"Blocks with a non-contiguous NHWC input "
+          f"{'ok' if shapes_ok else 'FAIL'}", flush=True)
+    del tnet, x
+    k1_rows, k1_ok = phase_k1(k1_sigs, B_TRAIN, REPS, card, args.seed)
+    largest = max(k1_sigs, key=lambda sg: sg[0] * sg[1] * sg[2])
+    detail["k1_grad"], grad_ok = phase_k1_grad(largest, B_TRAIN, card,
+                                               args.seed)
+    detail["k1"] = k1_rows
+    detail["train_step"], step_ok = phase_train_parity(train_cfg, B_TRAIN,
+                                                       card, args.seed)
+    detail["train"], k1_launches, train_ok = phase_train(train_cfg, card,
+                                                         args.seed)
+    ok &= k1_ok and grad_ok and step_ok and train_ok
 
+    def total(rows, key, dt="bf16", per="calls_per_eval"):
+        return sum(r[key] * r[per] for r in rows if r["dtype"] == dt)
+
+    def by(rows, dt="bf16", per="calls_per_eval"):
+        ops = sum(r["bound_ms"] * r[per] for r in rows
+                  if r["dtype"] == dt and r["bound_by"] == "operations")
+        return ("operations" if ops >= total(rows, "bound_ms", dt, per) / 2
+                else "bytes")
+
+    k1_tot = {k: total(k1_rows, k, "f32", "calls_per_forward")
+              for k in ("ms", "plain_ms", "bound_ms", "two_call_library_ms",
+                        "reference_ms")}
+    print(f"[K1 total] {card} | f32 per training forward (B={B_TRAIN}): "
+          f"kernel {k1_tot['ms']:.3f} ms, plain {k1_tot['plain_ms']:.3f} ms,"
+          f" F.group_norm+F.silu {k1_tot['two_call_library_ms']:.3f} ms, "
+          f"gn_swish_reference (recomputed in the backward) "
+          f"{k1_tot['reference_ms']:.3f} ms, bound {k1_tot['bound_ms']:.3f} "
+          "ms", flush=True)
+    detail["k1_total_f32"] = k1_tot
     kern = [
+        {"name": "gn_swish", "route": "cuda",
+         "source": "fastdiffsr_tpu_torch/csrc/gn_swish.cu",
+         "replaces": "fastdiffsr_tpu/ops/groupnorm.py:54",
+         "launches": k1_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in k1_rows
+                            if r["dtype"] == "f32"),
+         "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],
+         "bound_ms": k1_tot["bound_ms"],
+         "bound_by": by(k1_rows, "f32", "calls_per_forward"),
+         "library_ms": None,
+         "two_call_library_ms": k1_tot["two_call_library_ms"]},
         {"name": "fused_gn_swish_conv3x3", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/fused_conv.cu",
          "replaces": "fastdiffsr_tpu/ops/fused_conv.py:107",

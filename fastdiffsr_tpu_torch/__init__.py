@@ -9,8 +9,10 @@ runs its plain PyTorch version.
 
 Ported so far: the T-step ancestral serving path of the ``fastdiffsr``
 variant (config, schedules, engine, UNet and its fused inference forward,
-data, metrics, ``cli/infer.py``) with kernels K2 (channel statistics) and
-K3 (fused GroupNorm -> Swish -> 3x3 conv) in ``csrc/``.
+data, metrics, ``cli/infer.py``) and its training path (training loss,
+optimizers, EMA, train steps, checkpoints, ``cli/sr_mfe.py``), with
+kernels K1 (GroupNorm -> Swish), K2 (channel statistics) and K3 (fused
+GroupNorm -> Swish -> 3x3 conv) in ``csrc/``.
 """
 
 __version__ = "0.1.0"

@@ -49,6 +49,35 @@ def build_all(opt, device="cuda", dtype=torch.float32, seed: int = 0):
     return eng_val, net
 
 
+def load_params(net, path: str, use_ema: bool = False) -> None:
+    """Load a UNet state dict file, or the (EMA) params of a checkpoint
+    directory, into ``net``."""
+    if os.path.isdir(path):
+        from ..train.checkpoint import load_params_only
+        sd = load_params_only(path, use_ema=use_ema)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    net.load_state_dict(sd)
+
+
+def make_denoiser(net, fused: bool, dtype):
+    """denoise(x_in, level) of ``net``'s current parameters: the fused
+    forward (K3/K2 on CUDA) or the plain UNet forward, without grad."""
+    if fused:
+        from ..models.unet_fastdiffsr_fused import (fused_apply,
+                                                    prepare_fused_params)
+        fparams = prepare_fused_params(net, dtype)
+
+        def denoise(x_in, level):
+            return fused_apply(fparams, x_in, level)
+        return denoise
+
+    def denoise(x_in, level):
+        with torch.no_grad():
+            return net(x_in, level)
+    return denoise
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", type=str, required=True)
@@ -65,6 +94,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the initial params and the per-image "
                              "noise generators")
+    parser.add_argument("-use_ema", action="store_true",
+                        help="load the EMA params of a checkpoint directory")
     args = parser.parse_args(argv)
 
     from ..config import parse
@@ -78,25 +109,14 @@ def main(argv=None) -> dict:
 
     from .. import metrics as M
     from ..data import create_dataloader, create_dataset
-    from ..models.unet_fastdiffsr_fused import (fused_apply,
-                                                prepare_fused_params)
     from ..train import make_sample_fn, pad_batch_with_keys
 
     eng_val, net = build_all(opt, device=device, dtype=dtype, seed=args.seed)
     if opt["path"]["resume_state"]:
-        net.load_state_dict(torch.load(opt["path"]["resume_state"],
-                                       map_location=device,
-                                       weights_only=True))
-        logger.info(f"loaded params from {opt['path']['resume_state']}")
-    if args.fused:
-        fparams = prepare_fused_params(net, dtype)
-
-        def denoise(x_in, level):
-            return fused_apply(fparams, x_in, level)
-    else:
-        def denoise(x_in, level):
-            with torch.no_grad():
-                return net(x_in, level)
+        load_params(net, opt["path"]["resume_state"], args.use_ema)
+        logger.info(f"loaded {'EMA ' if args.use_ema else ''}params from "
+                    f"{opt['path']['resume_state']}")
+    denoise = make_denoiser(net, args.fused, dtype)
     logger.info(f"infer: device={device} forward="
                 f"{'fused' if args.fused else 'plain'} dtype={args.dtype}")
 

@@ -12,18 +12,21 @@ tesr         noise       continuous_gamma hr            charb.   2000
 gdp          x0          discrete_t       hr            l2       1000
 ===========  ==========  ===============  ============  =======  ====
 
-and the ancestral sampler. PyTorch runs eagerly, so the T steps are a
-Python loop around the denoiser instead of one ``lax.scan`` program.
+the training loss (:meth:`DiffusionEngine.training_loss`) and the
+ancestral sampler. PyTorch runs eagerly, so the T steps are a Python loop
+around the denoiser instead of one ``lax.scan`` program.
 
 Noise: JAX keys become ``torch.Generator``s. The sampler takes one
 generator per image and draws that image's initial noise and then one
 draw per step from it, in a fixed order, so an image's result depends on
 its own generator only and not on how images are batched (the contract
 of ``rng_is_batched`` there). Tests inject ``init_noise`` / ``noise_seq``
-to feed both packages the same draws.
+to feed both packages the same draws. The training loss draws its noise
+and noise level from one generator; tests inject ``noise`` and
+``gamma``/``t`` instead.
 
-Training losses, DDIM, DPM-Solver++ and ``interpolate`` are not ported
-yet. Layout is NHWC throughout.
+DDIM, DPM-Solver++, ``interpolate`` and the auxiliary SSIM loss are not
+ported yet. Layout is NHWC throughout.
 """
 
 from __future__ import annotations
@@ -93,11 +96,90 @@ def normal_per_generator(generators: Sequence[torch.Generator], shape,
 
 
 class DiffusionEngine:
-    """Sampling math for one (spec, schedule)."""
+    """Training and sampling math for one (spec, schedule)."""
 
-    def __init__(self, spec: DiffusionSpec, buffers: ScheduleBuffers):
+    def __init__(self, spec: DiffusionSpec, buffers: ScheduleBuffers,
+                 aux_ssim_weight: float = 0.0):
+        if aux_ssim_weight:
+            raise NotImplementedError(
+                "model.diffusion.aux_ssim_weight needs ops/dssim.py, which "
+                "is not ported yet (ROADMAP.md queue 5, opt-in ops)")
         self.spec = spec
         self.buffers = buffers
+
+    # forward process and training loss
+
+    def q_sample(self, x_start: torch.Tensor, gamma: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """x_t = gamma * x0 + sqrt(1 - gamma^2) * eps, one gamma per
+        sample (reference diffusion.py:233-240)."""
+        gamma = gamma.reshape((-1,) + (1,) * (x_start.dim() - 1))
+        return gamma * x_start + torch.sqrt(1.0 - gamma ** 2) * noise
+
+    def sample_gammas(self, generator: torch.Generator, batch: int):
+        """Training noise levels: one t ~ U{1..T} per call, then one
+        gamma per sample ~ U[sqrt_acp_prev[t-1], sqrt_acp_prev[t]]
+        (reference diffusion.py:248-257). Returns (gamma (B,), t (1,))."""
+        b = self.buffers
+        dev = b.betas.device
+        t = torch.randint(1, b.num_timesteps + 1, (1,), generator=generator,
+                          device=dev)
+        lo = b.sqrt_alphas_cumprod_prev[t - 1]
+        hi = b.sqrt_alphas_cumprod_prev[t]
+        u = torch.rand((batch,), generator=generator, device=dev)
+        return lo + (hi - lo) * u, t
+
+    def training_loss(self, denoise_fn: DenoiseFn, batch: dict,
+                      generator: Optional[torch.Generator] = None, *,
+                      noise: Optional[torch.Tensor] = None,
+                      gamma: Optional[torch.Tensor] = None,
+                      t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean loss of one batch {'HR': (B,H,W,C), 'SR': (B,H,W,C)}
+        (reference model/model.py:47-52 + diffusion.py:269: the sum over
+        b*c*h*w divided by that count).
+
+        ``noise`` and then the noise level (``gamma`` for continuous-gamma
+        conditioning, ``t`` (B,) for discrete-t) are drawn from
+        ``generator`` unless given."""
+        spec = self.spec
+        x_hr, img_lr_up = batch["HR"], batch["SR"]
+        x_start = (img2res(x_hr, img_lr_up) if spec.target_space == "residual"
+                   else x_hr)
+        bsz = x_start.shape[0]
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=x_start.device)
+        if spec.conditioning == "continuous_gamma":
+            if gamma is None:
+                gamma, _ = self.sample_gammas(generator, bsz)
+            x_noisy = self.q_sample(x_start, gamma, noise)
+            level = gamma
+        else:   # discrete_t: per-sample t ~ U{0..T-1}
+            b = self.buffers
+            if t is None:
+                t = torch.randint(0, b.num_timesteps, (bsz,),
+                                  generator=generator, device=x_start.device)
+            shape1 = (-1,) + (1,) * (x_start.dim() - 1)
+            x_noisy = (b.sqrt_alphas_cumprod[t].reshape(shape1) * x_start
+                       + b.sqrt_one_minus_alphas_cumprod[t].reshape(shape1)
+                       * noise)
+            level = t.float()
+        pred = denoise_fn(self._pack(x_noisy, img_lr_up), level)
+        target = x_start if spec.prediction == "x0" else noise
+        return self._loss(target, pred)
+
+    def _loss(self, target: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+        diff = target.float() - pred.float()
+        if self.spec.loss == "l1":
+            return diff.abs().mean()
+        if self.spec.loss == "l2":
+            return (diff ** 2).mean()
+        if self.spec.loss == "charbonnier":
+            return torch.sqrt(diff ** 2
+                              + self.spec.charbonnier_eps ** 2).mean()
+        raise NotImplementedError(self.spec.loss)
+
+    # reverse process
 
     def _pack(self, x: torch.Tensor,
               cond: Optional[torch.Tensor]) -> torch.Tensor:

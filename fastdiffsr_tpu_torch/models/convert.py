@@ -13,12 +13,16 @@ kernel (I,O) -> Linear weight (O,I); the CLAM Dense kernels -> 1x1 conv
 weights (O,I,1,1); GroupNorm scale/bias -> weight/bias. The fused forward
 turns the conv weights back to HWIO once, in
 ``unet_fastdiffsr_fused.prepare_fused_params``.
+
+:func:`optax_state_to_torch` converts the optimizer state of a JAX
+checkpoint: optax's moment trees have the params' structure and go
+through the same key map.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -103,3 +107,24 @@ def flax_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected Flax param {'/'.join(path)}")
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
+
+
+def optax_state_to_torch(opt_state: Sequence,
+                         param_names: Sequence[str]) -> dict:
+    """The ``state`` entry of a torch optimizer state dict from an optax
+    chain state (a tuple of optax states, e.g. ``(ScaleByAdamState(count,
+    mu, nu), EmptyState())``, or stand-ins with the same class names and
+    fields). ``param_names`` lists the torch parameter names in the
+    optimizer's order. Adam's moments become ``exp_avg``/``exp_avg_sq``
+    with ``step`` = count, as torch.optim.Adam/AdamW keep them."""
+    by_name = {type(s).__name__: s for s in opt_state}
+    if "ScaleByAdamState" not in by_name:
+        raise NotImplementedError(
+            f"optax state {sorted(by_name)}: only Adam/AdamW moments are "
+            "converted")
+    count, mu, nu = by_name["ScaleByAdamState"]
+    mu, nu = flax_params_to_torch(mu), flax_params_to_torch(nu)
+    step = float(np.asarray(count))
+    return {i: {"step": torch.tensor(step), "exp_avg": mu[name],
+                "exp_avg_sq": nu[name]}
+            for i, name in enumerate(param_names)}

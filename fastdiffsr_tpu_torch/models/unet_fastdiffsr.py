@@ -17,9 +17,18 @@ The forward takes and returns NHWC (B,H,W,C) like the JAX package and
 works on NCHW views of channels-last memory inside. ``dtype`` is the
 compute type: GroupNorm statistics and Swish run in float32
 (``ops.groupnorm.gn_swish_reference``) and each conv or linear layer runs
-in ``dtype`` with its parameters cast, as the Flax modules do. Dropout is
-kept for the parameter tree's sake and is the identity in eval mode;
-only eval is ported. The JAX package's opt-in rewrites (fold,
+in ``dtype`` with its parameters cast, as the Flax modules do.
+
+``fused_norm`` selects the GroupNorm -> Swish of every ``Block``, as the
+JAX package's ``FASTDIFFSR_TPU_FUSED_NORM`` does: '' and 'xla' run
+``gn_swish_reference``; 'pallas' runs kernel K1 through
+``ops.groupnorm.gn_swish_custom`` (forward on the kernel, backward the
+VJP of the reference). The parameter tree is the same in every mode.
+
+In train mode (``net.train()``) the dropout of each ResnetBlock's
+``block2`` draws its mask from the ``torch.Generator`` passed to
+``forward(..., generator=)``; its masks differ from Flax's by design.
+In eval mode dropout is the identity. The JAX package's opt-in rewrites (fold,
 skip_concat, quant, conv_split, stats_barrier, the tconv/d2s2 Upsample)
 are not ported: the Upsample here is the literal nearest x2 + 3x3 conv.
 """
@@ -27,13 +36,15 @@ are not ported: the Upsample here is the literal nearest x2 + 3x3 conv.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.groupnorm import gn_swish_reference
+from ..ops.groupnorm import gn_swish_custom, gn_swish_reference
+
+FUSED_NORM_MODES = ("", "xla", "pallas")
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -75,21 +86,38 @@ class PositionalEncoding(nn.Module):
 
 
 class Block(nn.Module):
-    """GroupNorm -> Swish -> Dropout -> 3x3 conv (reference unet.py:89-101)."""
+    """GroupNorm -> Swish -> Dropout -> 3x3 conv (reference unet.py:89-101).
+
+    The GroupNorm runs on the NHWC view of ``x``, which is contiguous
+    because the UNet keeps its maps channels-last."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, fused_norm: str = ""):
         super().__init__()
+        if fused_norm not in FUSED_NORM_MODES:
+            raise ValueError(f"fused_norm={fused_norm!r} "
+                             f"(want one of {FUSED_NORM_MODES})")
+        self.fused_norm = fused_norm
         self.block = nn.Sequential(
             nn.GroupNorm(groups, dim), Swish(),
             nn.Dropout(dropout) if dropout else nn.Identity(),
             nn.Conv2d(dim, dim_out, 3, padding=1))
 
-    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         gn = self.block[0]
-        h = gn_swish_reference(x.permute(0, 2, 3, 1), gn.weight, gn.bias,
-                               gn.num_groups, gn.eps)
-        h = self.block[2](h.permute(0, 3, 1, 2))
+        gn_swish = (gn_swish_custom if self.fused_norm == "pallas"
+                    else gn_swish_reference)
+        h = gn_swish(x.permute(0, 2, 3, 1), gn.weight, gn.bias,
+                     gn.num_groups, gn.eps).permute(0, 3, 1, 2)
+        drop = self.block[2]
+        if self.training and isinstance(drop, nn.Dropout) and drop.p > 0:
+            if generator is None:
+                raise ValueError("train-mode dropout draws its mask from an "
+                                 "explicit generator: pass generator=")
+            keep = torch.empty_like(h).bernoulli_(1.0 - drop.p,
+                                                  generator=generator)
+            h = h * keep / (1.0 - drop.p)
         return _conv(h, self.block[3], dtype)
 
 
@@ -110,19 +138,21 @@ class ResnetBlock(nn.Module):
     (reference unet.py:104-120)."""
 
     def __init__(self, dim: int, dim_out: int, noise_level_emb_dim: int,
-                 dropout: float = 0.0, norm_groups: int = 32):
+                 dropout: float = 0.0, norm_groups: int = 32,
+                 fused_norm: str = ""):
         super().__init__()
         self.noise_func = FeatureWiseAffine(noise_level_emb_dim, dim_out)
-        self.block1 = Block(dim, dim_out, groups=norm_groups)
+        self.block1 = Block(dim, dim_out, groups=norm_groups,
+                            fused_norm=fused_norm)
         self.block2 = Block(dim_out, dim_out, groups=norm_groups,
-                            dropout=dropout)
+                            dropout=dropout, fused_norm=fused_norm)
         self.res_conv = (nn.Conv2d(dim, dim_out, 1) if dim != dim_out
                          else nn.Identity())
 
-    def forward(self, x, time_emb, dtype):
+    def forward(self, x, time_emb, dtype, generator=None):
         h = self.block1(x, dtype)
         h = self.noise_func(h, time_emb, dtype)
-        h = self.block2(h, dtype)
+        h = self.block2(h, dtype, generator)
         skip = (x if isinstance(self.res_conv, nn.Identity)
                 else _conv(x, self.res_conv, dtype))
         return h + skip
@@ -167,17 +197,18 @@ class ResnetBlocWithAttn(nn.Module):
     (reference unet.py:206-222)."""
 
     def __init__(self, dim, dim_out, *, noise_level_emb_dim, norm_groups,
-                 dropout=0.0, with_attn=False):
+                 dropout=0.0, with_attn=False, fused_norm=""):
         super().__init__()
         self.res_block = ResnetBlock(dim, dim_out, noise_level_emb_dim,
-                                     dropout=dropout, norm_groups=norm_groups)
+                                     dropout=dropout, norm_groups=norm_groups,
+                                     fused_norm=fused_norm)
         self.with_attn = with_attn
         if with_attn:
             self.ca = CLAM(dim_out)
             self.sa = SLAM()
 
-    def forward(self, x, time_emb, dtype):
-        x = self.res_block(x, time_emb, dtype)
+    def forward(self, x, time_emb, dtype, generator=None):
+        x = self.res_block(x, time_emb, dtype, generator)
         if self.with_attn:
             x = self.sa(self.ca(x, dtype), dtype)
         return x
@@ -213,13 +244,14 @@ class FastDiffSRUNet(nn.Module):
     mults [1,2,4,4], 2 res blocks, dropout 0.2, groups 32). Input x:
     (B,H,W,in_channel) NHWC = concat(bicubic cond, noisy); noise_level:
     (B,) continuous sqrt(alpha_bar). Output (B,H,W,out_channel) float32.
+    ``fused_norm``: see the module docstring.
     """
 
     def __init__(self, in_channel: int = 6, out_channel: int = 3,
                  inner_channel: int = 64, norm_groups: int = 32,
                  channel_mults: Sequence[int] = (1, 2, 4, 4),
                  res_blocks: int = 2, dropout: float = 0.2,
-                 dtype=torch.float32):
+                 dtype=torch.float32, fused_norm: str = ""):
         super().__init__()
         self.in_channel = in_channel
         self.out_channel = out_channel
@@ -228,7 +260,10 @@ class FastDiffSRUNet(nn.Module):
         self.channel_mults = tuple(channel_mults)
         self.res_blocks = res_blocks
         self.dtype = dtype
+        self.fused_norm = fused_norm
         noise_dim = inner_channel
+        rb = dict(noise_level_emb_dim=noise_dim, norm_groups=norm_groups,
+                  dropout=dropout, fused_norm=fused_norm)
         self.noise_level_mlp = nn.Sequential(
             PositionalEncoding(inner_channel),
             nn.Linear(inner_channel, inner_channel * 4), Swish(),
@@ -241,9 +276,7 @@ class FastDiffSRUNet(nn.Module):
         for ind in range(num_mults):
             ch = inner_channel * channel_mults[ind]
             for _ in range(res_blocks):
-                downs.append(ResnetBlocWithAttn(
-                    pre, ch, noise_level_emb_dim=noise_dim,
-                    norm_groups=norm_groups, dropout=dropout))
+                downs.append(ResnetBlocWithAttn(pre, ch, **rb))
                 feat_channels.append(ch)
                 pre = ch
             if ind != num_mults - 1:
@@ -251,24 +284,20 @@ class FastDiffSRUNet(nn.Module):
                 feat_channels.append(pre)
         self.downs = nn.ModuleList(downs)
         self.mid = nn.ModuleList([
-            ResnetBlocWithAttn(pre, pre, noise_level_emb_dim=noise_dim,
-                               norm_groups=norm_groups, dropout=dropout,
-                               with_attn=True),
-            ResnetBlocWithAttn(pre, pre, noise_level_emb_dim=noise_dim,
-                               norm_groups=norm_groups, dropout=dropout)])
+            ResnetBlocWithAttn(pre, pre, with_attn=True, **rb),
+            ResnetBlocWithAttn(pre, pre, **rb)])
         ups = []
         for ind in reversed(range(num_mults)):
             ch = inner_channel * channel_mults[ind]
             for _ in range(res_blocks + 1):
-                ups.append(ResnetBlocWithAttn(
-                    pre + feat_channels.pop(), ch,
-                    noise_level_emb_dim=noise_dim, norm_groups=norm_groups,
-                    dropout=dropout))
+                ups.append(ResnetBlocWithAttn(pre + feat_channels.pop(), ch,
+                                              **rb))
                 pre = ch
             if ind >= 1:
                 ups.append(Upsample(pre))
         self.ups = nn.ModuleList(ups)
-        self.final_conv = Block(pre, out_channel, groups=norm_groups)
+        self.final_conv = Block(pre, out_channel, groups=norm_groups,
+                                fused_norm=fused_norm)
 
     def noise_embedding(self, noise_level: torch.Tensor) -> torch.Tensor:
         mlp = self.noise_level_mlp
@@ -276,8 +305,9 @@ class FastDiffSRUNet(nn.Module):
         t = swish(_linear(t, mlp[1], self.dtype))
         return _linear(t, mlp[3], self.dtype)
 
-    def forward(self, x: torch.Tensor,
-                noise_level: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, noise_level: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in train mode."""
         dt = self.dtype
         if noise_level.dim() == 2:
             noise_level = noise_level[:, 0]
@@ -287,17 +317,18 @@ class FastDiffSRUNet(nn.Module):
         feats = []
         for layer in self.downs:
             if isinstance(layer, ResnetBlocWithAttn):
-                x = layer(x, t, dt)
+                x = layer(x, t, dt, generator)
             elif isinstance(layer, Downsample):
                 x = layer(x, dt)
             else:
                 x = _conv(x, layer, dt)
             feats.append(x)
         for layer in self.mid:
-            x = layer(x, t, dt)
+            x = layer(x, t, dt, generator)
         for layer in self.ups:
             if isinstance(layer, ResnetBlocWithAttn):
-                x = layer(torch.cat([x, feats.pop()], dim=1), t, dt)
+                x = layer(torch.cat([x, feats.pop()], dim=1), t, dt,
+                          generator)
             else:
                 x = layer(x, dt)
         out = self.final_conv(x, dt)
@@ -326,11 +357,16 @@ def init_params(net: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def unet_from_config(unet_opt: dict, dtype=torch.float32, device="cuda",
-                     seed: int = 0) -> FastDiffSRUNet:
+                     seed: int = 0,
+                     fused_norm: Optional[str] = None) -> FastDiffSRUNet:
     """Build from a reference-schema ``model.unet`` config dict, with
-    seeded initial parameters, in eval mode on ``device``."""
+    seeded initial parameters, in eval mode on ``device``. ``fused_norm``
+    defaults to ``FASTDIFFSR_TPU_FUSED_NORM`` (``default_fused_norm``)."""
     from ..device import resolve_device
+    from ..ops.groupnorm import default_fused_norm
     dev = resolve_device(device)
+    if fused_norm is None:
+        fused_norm = default_fused_norm()
     net = FastDiffSRUNet(
         in_channel=unet_opt.get("in_channel", 6),
         out_channel=unet_opt.get("out_channel", 3),
@@ -340,5 +376,5 @@ def unet_from_config(unet_opt: dict, dtype=torch.float32, device="cuda",
                                          (1, 2, 4, 4))),
         res_blocks=unet_opt.get("res_blocks", 2),
         dropout=unet_opt.get("dropout", 0.0),
-        dtype=dtype)
+        dtype=dtype, fused_norm=fused_norm)
     return init_params(net, seed).to(dev).eval()

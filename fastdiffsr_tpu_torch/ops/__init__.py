@@ -1,5 +1,6 @@
 from .fused_conv import fused_gn_swish_conv3x3, group_stats_to_norm
-from .groupnorm import channel_stats, gn_swish_reference
+from .groupnorm import (channel_stats, gn_swish, gn_swish_custom,
+                        gn_swish_reference)
 
 __all__ = ["fused_gn_swish_conv3x3", "group_stats_to_norm", "channel_stats",
-           "gn_swish_reference"]
+           "gn_swish", "gn_swish_custom", "gn_swish_reference"]

@@ -3,21 +3,31 @@
 Counterpart of ``fastdiffsr_tpu/ops/groupnorm.py``:
 
 - :func:`gn_swish_reference` is the plain GroupNorm -> Swish with float32
-  statistics (``_gn_swish_reference`` there);
+  two-pass statistics (``_gn_swish_reference`` there);
 - :func:`channel_stats` is K2 (``channel_stats_pallas`` there): per-channel
   (sum, sum of squares) over H,W, (B,H,W,C) -> (B,2,C) float32. On a CUDA
   tensor it launches the kernel in ``csrc/channel_stats.cu`` or raises;
-  the plain version runs only for tensors on the CPU.
+  the plain version runs only for tensors on the CPU;
+- :func:`gn_swish` is K1 (``_gn_swish_pallas`` there): channel sums (K2's
+  kernel), :func:`~.fused_conv.group_stats_to_norm`, then normalise,
+  affine and swish in ``csrc/gn_swish.cu``. :func:`gn_swish_plain` is the
+  same formulation in plain PyTorch;
+- :func:`gn_swish_custom` makes K1 differentiable, as ``gn_swish_custom``
+  there: the forward is K1 and the backward is the VJP of
+  :func:`gn_swish_reference`, recomputed from the saved x, scale and bias;
+- :func:`default_fused_norm` reads ``FASTDIFFSR_TPU_FUSED_NORM``.
 
 Groups are contiguous channel slices, as in ``torch.nn.GroupNorm``.
-The GroupNorm+Swish kernel K1 of the training path is not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from . import kernels
+from .fused_conv import group_stats_to_norm
 
 
 def gn_swish_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -41,17 +51,17 @@ def channel_stats_plain(x: torch.Tensor) -> torch.Tensor:
                        dim=1)
 
 
-def channel_stats(x: torch.Tensor) -> torch.Tensor:
-    """Per-channel (sum, sum of squares) over H,W: (B,H,W,C) -> (B,2,C)."""
-    if x.device.type == "cpu":
-        return channel_stats_plain(x)
+def _check_nhwc(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"channel_stats: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"channel_stats: dtype {x.dtype} "
-                        "(want float32 or bfloat16)")
+        raise TypeError(f"{what}: dtype {x.dtype} (want float32 or bfloat16)")
     if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("channel_stats: want a contiguous NHWC map")
+        raise ValueError(f"{what}: want a contiguous NHWC map")
+
+
+def _channel_stats_cuda(x: torch.Tensor) -> torch.Tensor:
+    """K2's kernels on a checked CUDA map (no launch count)."""
     B, H, W, C = x.shape
     lib = kernels.load()
     n_tiles = lib.fdsr_channel_stats_tiles(H * W)
@@ -64,5 +74,102 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
             H * W, C, int(x.dtype == torch.bfloat16),
             kernels.stream_of(x.device))
     kernels.check(lib, code, "channel_stats")
+    return stats
+
+
+def channel_stats(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel (sum, sum of squares) over H,W: (B,H,W,C) -> (B,2,C)."""
+    if x.device.type == "cpu":
+        return channel_stats_plain(x)
+    _check_nhwc(x, "channel_stats")
+    stats = _channel_stats_cuda(x)
     kernels.count_launch("channel_stats")
     return stats
+
+
+def gn_swish_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of K1: float32 channel sums, the
+    channel->group collapse of ``group_stats_to_norm``, then normalise,
+    affine and swish, one rounded operation at a time as the kernel does.
+    (:func:`gn_swish_reference` computes the same function with a
+    two-pass variance.)"""
+    h, w = x.shape[1:3]
+    mean_c, inv_c = group_stats_to_norm(channel_stats_plain(x), h * w,
+                                        groups, eps)
+    y = (x.float() - mean_c[:, None, None, :]) * inv_c[:, None, None, :]
+    y = y * scale.float() + bias.float()
+    return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+def gn_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """K1: swish(GroupNorm(x) * scale + bias) of a (B,H,W,C) map, float32
+    statistics, output in x.dtype. scale, bias: (C,)."""
+    if x.device.type == "cpu":
+        return gn_swish_plain(x, scale, bias, groups, eps)
+    _check_nhwc(x, "gn_swish")
+    B, H, W, C = x.shape
+    if C % groups:
+        raise ValueError(f"gn_swish: {C} channels in {groups} groups")
+    if C > 3072:
+        raise ValueError(f"gn_swish: C={C} exceeds the kernel's 3072")
+    scale = scale.detach().float().contiguous()
+    bias = bias.detach().float().contiguous()
+    if (scale.shape != (C,) or bias.shape != (C,)
+            or scale.device != x.device or bias.device != x.device):
+        raise ValueError(f"gn_swish: scale and bias must be ({C},) on "
+                         f"{x.device}")
+    mean_c, inv_c = group_stats_to_norm(_channel_stats_cuda(x), H * W,
+                                        groups, eps)
+    y = torch.empty_like(x)
+    lib = kernels.load()
+    p = kernels.ptr
+    with torch.cuda.device(x.device):
+        code = lib.fdsr_gn_swish_apply(
+            p(x), p(mean_c), p(inv_c), p(scale), p(bias), p(y), B, H * W, C,
+            int(x.dtype == torch.bfloat16), kernels.stream_of(x.device))
+    kernels.check(lib, code, "gn_swish")
+    kernels.count_launch("gn_swish")
+    return y
+
+
+class _GNSwish(torch.autograd.Function):
+    """Forward K1; backward the VJP of :func:`gn_swish_reference`."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.groups, ctx.eps = groups, eps
+        return gn_swish(x, scale, bias, groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+            y = gn_swish_reference(*leaves, ctx.groups, ctx.eps)
+            grads = torch.autograd.grad(y, leaves, g)
+        return (*grads, None, None)
+
+
+def gn_swish_custom(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable K1 (see the module docstring)."""
+    return _GNSwish.apply(x, scale, bias, groups, eps)
+
+
+def default_fused_norm() -> str:
+    """Model-level fused-norm mode from ``FASTDIFFSR_TPU_FUSED_NORM``, with
+    the JAX package's values: '' and 'xla' run :func:`gn_swish_reference`
+    (float32 statistics, output in the compute type), 'pallas' runs K1
+    through :func:`gn_swish_custom`. 'stats' and 'dot' are not ported."""
+    mode = os.environ.get("FASTDIFFSR_TPU_FUSED_NORM", "")
+    if mode not in ("", "xla", "pallas", "stats", "dot"):
+        raise ValueError(f"FASTDIFFSR_TPU_FUSED_NORM={mode!r} "
+                         "(want '', 'xla', 'pallas', 'stats' or 'dot')")
+    if mode in ("stats", "dot"):
+        raise NotImplementedError(
+            f"FASTDIFFSR_TPU_FUSED_NORM={mode!r} is not ported yet "
+            "(ROADMAP.md queue 5, opt-in ops)")
+    return mode

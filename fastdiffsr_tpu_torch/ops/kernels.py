@@ -27,11 +27,11 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parent.parent.parent
              / "build" / "kernels")
-SOURCES = ("fused_conv.cu", "channel_stats.cu")
+SOURCES = ("fused_conv.cu", "channel_stats.cu", "gn_swish.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"fused_gn_swish_conv3x3": 0, "channel_stats": 0}
+LAUNCHES = {"fused_gn_swish_conv3x3": 0, "channel_stats": 0, "gn_swish": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -122,6 +122,9 @@ def load() -> ctypes.CDLL:
             lib.fdsr_channel_stats_tiles.restype = i
             lib.fdsr_channel_stats.argtypes = [p, p, p, i, i, i, i, p]
             lib.fdsr_channel_stats.restype = i
+            lib.fdsr_gn_swish_apply.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                                p]
+            lib.fdsr_gn_swish_apply.restype = i
             lib.fdsr_error_string.argtypes = [i]
             lib.fdsr_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -12,8 +12,9 @@ import torch
 from fastdiffsr_tpu_torch.ops import kernels
 from fastdiffsr_tpu_torch.ops.fused_conv import (
     fused_gn_swish_conv3x3, fused_gn_swish_conv3x3_plain)
-from fastdiffsr_tpu_torch.ops.groupnorm import (channel_stats,
-                                                channel_stats_plain)
+from fastdiffsr_tpu_torch.ops.groupnorm import (
+    channel_stats, channel_stats_plain, gn_swish, gn_swish_custom,
+    gn_swish_plain, gn_swish_reference)
 
 pytestmark = pytest.mark.gpu
 
@@ -95,12 +96,65 @@ def test_channel_stats_kernel_matches_plain(cuda, shape, dt):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [((2, 32, 32, 64), 32),
+                                          ((2, 16, 16, 192), 32),
+                                          ((3, 6, 6, 24), 4),
+                                          ((2, 9, 7, 6), 3)])
+def test_gn_swish_kernel_matches_plain(cuda, shape, groups, dt):
+    """K1 against its plain version. f32: atol 1e-4 (statistics summed in
+    another order shift mean and 1/std by a few float32 steps); bf16: one
+    bf16 step of |y| (2^-7 |y| + 1e-5), since a float32 value a few steps
+    off can round to the neighbouring bf16 value. C=6 takes the scalar
+    path of the kernel."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dt)
+    C = shape[-1]
+    scale = torch.randn(C, generator=g, device=cuda) * 0.1 + 1
+    bias = torch.randn(C, generator=g, device=cuda) * 0.1
+    before = kernels.LAUNCHES["gn_swish"]
+    got = gn_swish(x, scale, bias, groups)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gn_swish"] == before + 1
+    want = gn_swish_plain(x, scale, bias, groups)
+    assert got.dtype == dt and got.shape == shape
+    y, yw = got.float(), want.float()
+    if dt == torch.float32:
+        torch.testing.assert_close(y, yw, rtol=0, atol=1e-4)
+    else:
+        assert ((y - yw).abs() <= yw.abs() * 2 ** -7 + 1e-5).all()
+
+
+def test_gn_swish_custom_gradient_on_card(cuda):
+    """gn_swish_custom's gradients are the VJP of gn_swish_reference:
+    against autograd of the reference, atol 1e-4 of max |g|."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 16, 16, 64, generator=g, device=cuda)
+    s = torch.randn(64, generator=g, device=cuda) * 0.1 + 1
+    b = torch.randn(64, generator=g, device=cuda) * 0.1
+    cot = torch.randn(x.shape, generator=g, device=cuda)
+    grads = []
+    for fn in (gn_swish_custom, gn_swish_reference):
+        leaves = [t.clone().requires_grad_() for t in (x, s, b)]
+        (fn(*leaves, 16) * cot).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, r in zip(*grads):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-4 * r.abs().max().item())
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn(1, 8, 8, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         channel_stats(x)
     with pytest.raises(ValueError, match="contiguous"):
         channel_stats(torch.randn(1, 8, 16, 8, device=cuda).transpose(1, 2))
+    one = torch.ones(16, device=cuda)
+    with pytest.raises(TypeError):
+        gn_swish(x, one, one, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_swish(torch.randn(1, 16, 8, 8, device=cuda).permute(0, 2, 3, 1),
+                 one[:8], one[:8], 4)
     w = torch.randn(3, 3, 8, 8, device=cuda)
     with pytest.raises(ValueError, match="weight shape"):
         fused_gn_swish_conv3x3(torch.randn(1, 8, 8, 16, device=cuda), None,
