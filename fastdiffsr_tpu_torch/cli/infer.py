@@ -62,7 +62,7 @@ def load_params(net, path: str, use_ema: bool = False) -> None:
 
 def make_denoiser(net, fused: bool, dtype):
     """denoise(x_in, level) of ``net``'s current parameters: the fused
-    forward (K3/K2 on CUDA) or the plain UNet forward, without grad."""
+    forward (K3/K2 on CUDA) or the unfused UNet forward, without grad."""
     if fused:
         from ..models.unet_fastdiffsr_fused import (fused_apply,
                                                     prepare_fused_params)
@@ -89,7 +89,8 @@ def main(argv=None) -> dict:
     fwd.add_argument("--fused", dest="fused", action="store_true",
                      default=True, help="fused K3/K2 forward (default)")
     fwd.add_argument("--plain", dest="fused", action="store_false",
-                     help="plain PyTorch UNet forward")
+                     help="unfused UNet forward (K1 under each "
+                          "GroupNorm -> Swish on CUDA)")
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the initial params and the per-image "
@@ -99,10 +100,11 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     from ..config import parse
-    from ..device import resolve_device
+    from ..device import resolve_device, use_ieee_float32
     from ..utils.logging import setup_logger
 
     device = resolve_device(args.device)
+    use_ieee_float32()
     dtype = DTYPES[args.dtype]
     opt = parse(args.config, "val", debug=args.debug)
     logger = setup_logger("base", opt["path"]["log"], "infer", screen=True)

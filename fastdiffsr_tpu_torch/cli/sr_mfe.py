@@ -6,9 +6,9 @@
     python -m fastdiffsr_tpu_torch.cli.sr_mfe -p val -c <config.json> \\
         [-use_ema] [--device cuda|cpu] [--seed N]
 
-It runs on CUDA unless ``--device cpu`` is given. Training runs the plain
-UNet forward in float32 with dropout; its GroupNorm -> Swish follows
-``FASTDIFFSR_TPU_FUSED_NORM`` ('pallas' runs kernel K1). The loop reads
+It runs on CUDA unless ``--device cpu`` is given. Training runs the UNet
+forward in float32 (TF32 off, ``device.use_ieee_float32``) with dropout;
+every GroupNorm -> Swish of it runs kernel K1. The loop reads
 the data loader, or a uint8 copy of the train set on the device with
 ``datasets.train.device_cache: true``; prints l_pix with its windowed
 mean every ``print_freq`` steps, validates every ``val_freq`` steps,
@@ -169,7 +169,7 @@ def main(argv=None) -> dict:
                                   "(ROADMAP.md queue 9, tooling)")
 
     from ..config import dict2str, infer_scale, parse
-    from ..device import resolve_device
+    from ..device import resolve_device, use_ieee_float32
     from ..train import (create_train_state, make_cached_train_step,
                          make_optimizer, make_train_step, step_generator)
     from ..train.checkpoint import load_state, save_state
@@ -177,6 +177,7 @@ def main(argv=None) -> dict:
     from .infer import load_params, make_denoiser
 
     device = resolve_device(args.device)
+    use_ieee_float32()
     opt = parse(args.config, args.phase, debug=args.debug)
     logger = setup_logger("base", opt["path"]["log"], "train", screen=True)
     val_logger = setup_logger("val", opt["path"]["log"], "val")
@@ -188,8 +189,7 @@ def main(argv=None) -> dict:
     tb = make_tb_writer(opt["path"]["tb_logger"])
     scale = infer_scale(opt)
     eng_train, eng_val, net = build_all(opt, device, args.seed)
-    logger.info(f"device {device}, fused_norm {net.fused_norm!r}, "
-                f"scale x{scale}")
+    logger.info(f"device {device}, float32 without TF32, scale x{scale}")
 
     if args.phase == "val":
         if opt["path"]["resume_state"]:

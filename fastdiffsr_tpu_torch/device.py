@@ -3,6 +3,11 @@
 Entry points take ``device`` and default to ``"cuda"``. Asking for CUDA
 where none is visible raises: the port never moves to the CPU on its own.
 Only an explicit ``"cpu"`` runs there (the tests do).
+
+:func:`use_ieee_float32` fixes what "float32" means for the entry points:
+PyTorch lets cuDNN run float32 convolutions in TF32 by default, and the
+port's float32 results, its parity checks against the JAX package and its
+measured training rates all assume full float32.
 """
 
 from __future__ import annotations
@@ -19,3 +24,9 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (want cuda or cpu)")
     return dev
+
+
+def use_ieee_float32() -> None:
+    """Run float32 convolutions and matmuls in full float32 (no TF32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -15,22 +15,23 @@ Flax tree of the JAX package onto it. The reference's dead
 
 The forward takes and returns NHWC (B,H,W,C) like the JAX package and
 works on NCHW views of channels-last memory inside. ``dtype`` is the
-compute type: GroupNorm statistics and Swish run in float32
-(``ops.groupnorm.gn_swish_reference``) and each conv or linear layer runs
-in ``dtype`` with its parameters cast, as the Flax modules do.
+compute type: GroupNorm statistics and Swish run in float32 and each
+conv or linear layer runs in ``dtype`` with its parameters cast, as the
+Flax modules do.
 
-``fused_norm`` selects the GroupNorm -> Swish of every ``Block``, as the
-JAX package's ``FASTDIFFSR_TPU_FUSED_NORM`` does: '' and 'xla' run
-``gn_swish_reference``; 'pallas' runs kernel K1 through
+The GroupNorm -> Swish of every ``Block`` is kernel K1 through
 ``ops.groupnorm.gn_swish_custom`` (forward on the kernel, backward the
-VJP of the reference). The parameter tree is the same in every mode.
+VJP of ``gn_swish_reference``), as the JAX package's
+``FASTDIFFSR_TPU_FUSED_NORM=pallas`` mode; on CPU tensors it runs K1's
+plain PyTorch version.
 
 In train mode (``net.train()``) the dropout of each ResnetBlock's
 ``block2`` draws its mask from the ``torch.Generator`` passed to
 ``forward(..., generator=)``; its masks differ from Flax's by design.
-In eval mode dropout is the identity. The JAX package's opt-in rewrites (fold,
-skip_concat, quant, conv_split, stats_barrier, the tconv/d2s2 Upsample)
-are not ported: the Upsample here is the literal nearest x2 + 3x3 conv.
+In eval mode dropout is the identity. The JAX package's opt-in rewrites
+(fold, skip_concat, quant, conv_split, stats_barrier, the tconv/d2s2
+Upsample) are not ported: the Upsample here is the literal nearest x2 +
+3x3 conv.
 """
 
 from __future__ import annotations
@@ -42,9 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.groupnorm import gn_swish_custom, gn_swish_reference
-
-FUSED_NORM_MODES = ("", "xla", "pallas")
+from ..ops.groupnorm import gn_swish_custom
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -88,16 +87,12 @@ class PositionalEncoding(nn.Module):
 class Block(nn.Module):
     """GroupNorm -> Swish -> Dropout -> 3x3 conv (reference unet.py:89-101).
 
-    The GroupNorm runs on the NHWC view of ``x``, which is contiguous
-    because the UNet keeps its maps channels-last."""
+    The GroupNorm -> Swish (K1) runs on the NHWC view of ``x``, which is
+    contiguous because the UNet keeps its maps channels-last."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 32,
-                 dropout: float = 0.0, fused_norm: str = ""):
+                 dropout: float = 0.0):
         super().__init__()
-        if fused_norm not in FUSED_NORM_MODES:
-            raise ValueError(f"fused_norm={fused_norm!r} "
-                             f"(want one of {FUSED_NORM_MODES})")
-        self.fused_norm = fused_norm
         self.block = nn.Sequential(
             nn.GroupNorm(groups, dim), Swish(),
             nn.Dropout(dropout) if dropout else nn.Identity(),
@@ -106,10 +101,8 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, dtype,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         gn = self.block[0]
-        gn_swish = (gn_swish_custom if self.fused_norm == "pallas"
-                    else gn_swish_reference)
-        h = gn_swish(x.permute(0, 2, 3, 1), gn.weight, gn.bias,
-                     gn.num_groups, gn.eps).permute(0, 3, 1, 2)
+        h = gn_swish_custom(x.permute(0, 2, 3, 1), gn.weight, gn.bias,
+                            gn.num_groups, gn.eps).permute(0, 3, 1, 2)
         drop = self.block[2]
         if self.training and isinstance(drop, nn.Dropout) and drop.p > 0:
             if generator is None:
@@ -138,14 +131,12 @@ class ResnetBlock(nn.Module):
     (reference unet.py:104-120)."""
 
     def __init__(self, dim: int, dim_out: int, noise_level_emb_dim: int,
-                 dropout: float = 0.0, norm_groups: int = 32,
-                 fused_norm: str = ""):
+                 dropout: float = 0.0, norm_groups: int = 32):
         super().__init__()
         self.noise_func = FeatureWiseAffine(noise_level_emb_dim, dim_out)
-        self.block1 = Block(dim, dim_out, groups=norm_groups,
-                            fused_norm=fused_norm)
+        self.block1 = Block(dim, dim_out, groups=norm_groups)
         self.block2 = Block(dim_out, dim_out, groups=norm_groups,
-                            dropout=dropout, fused_norm=fused_norm)
+                            dropout=dropout)
         self.res_conv = (nn.Conv2d(dim, dim_out, 1) if dim != dim_out
                          else nn.Identity())
 
@@ -197,11 +188,10 @@ class ResnetBlocWithAttn(nn.Module):
     (reference unet.py:206-222)."""
 
     def __init__(self, dim, dim_out, *, noise_level_emb_dim, norm_groups,
-                 dropout=0.0, with_attn=False, fused_norm=""):
+                 dropout=0.0, with_attn=False):
         super().__init__()
         self.res_block = ResnetBlock(dim, dim_out, noise_level_emb_dim,
-                                     dropout=dropout, norm_groups=norm_groups,
-                                     fused_norm=fused_norm)
+                                     dropout=dropout, norm_groups=norm_groups)
         self.with_attn = with_attn
         if with_attn:
             self.ca = CLAM(dim_out)
@@ -244,14 +234,13 @@ class FastDiffSRUNet(nn.Module):
     mults [1,2,4,4], 2 res blocks, dropout 0.2, groups 32). Input x:
     (B,H,W,in_channel) NHWC = concat(bicubic cond, noisy); noise_level:
     (B,) continuous sqrt(alpha_bar). Output (B,H,W,out_channel) float32.
-    ``fused_norm``: see the module docstring.
     """
 
     def __init__(self, in_channel: int = 6, out_channel: int = 3,
                  inner_channel: int = 64, norm_groups: int = 32,
                  channel_mults: Sequence[int] = (1, 2, 4, 4),
                  res_blocks: int = 2, dropout: float = 0.2,
-                 dtype=torch.float32, fused_norm: str = ""):
+                 dtype=torch.float32):
         super().__init__()
         self.in_channel = in_channel
         self.out_channel = out_channel
@@ -260,10 +249,9 @@ class FastDiffSRUNet(nn.Module):
         self.channel_mults = tuple(channel_mults)
         self.res_blocks = res_blocks
         self.dtype = dtype
-        self.fused_norm = fused_norm
         noise_dim = inner_channel
         rb = dict(noise_level_emb_dim=noise_dim, norm_groups=norm_groups,
-                  dropout=dropout, fused_norm=fused_norm)
+                  dropout=dropout)
         self.noise_level_mlp = nn.Sequential(
             PositionalEncoding(inner_channel),
             nn.Linear(inner_channel, inner_channel * 4), Swish(),
@@ -296,8 +284,7 @@ class FastDiffSRUNet(nn.Module):
             if ind >= 1:
                 ups.append(Upsample(pre))
         self.ups = nn.ModuleList(ups)
-        self.final_conv = Block(pre, out_channel, groups=norm_groups,
-                                fused_norm=fused_norm)
+        self.final_conv = Block(pre, out_channel, groups=norm_groups)
 
     def noise_embedding(self, noise_level: torch.Tensor) -> torch.Tensor:
         mlp = self.noise_level_mlp
@@ -357,16 +344,11 @@ def init_params(net: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def unet_from_config(unet_opt: dict, dtype=torch.float32, device="cuda",
-                     seed: int = 0,
-                     fused_norm: Optional[str] = None) -> FastDiffSRUNet:
+                     seed: int = 0) -> FastDiffSRUNet:
     """Build from a reference-schema ``model.unet`` config dict, with
-    seeded initial parameters, in eval mode on ``device``. ``fused_norm``
-    defaults to ``FASTDIFFSR_TPU_FUSED_NORM`` (``default_fused_norm``)."""
+    seeded initial parameters, in eval mode on ``device``."""
     from ..device import resolve_device
-    from ..ops.groupnorm import default_fused_norm
     dev = resolve_device(device)
-    if fused_norm is None:
-        fused_norm = default_fused_norm()
     net = FastDiffSRUNet(
         in_channel=unet_opt.get("in_channel", 6),
         out_channel=unet_opt.get("out_channel", 3),
@@ -376,5 +358,5 @@ def unet_from_config(unet_opt: dict, dtype=torch.float32, device="cuda",
                                          (1, 2, 4, 4))),
         res_blocks=unet_opt.get("res_blocks", 2),
         dropout=unet_opt.get("dropout", 0.0),
-        dtype=dtype, fused_norm=fused_norm)
+        dtype=dtype)
     return init_params(net, seed).to(dev).eval()

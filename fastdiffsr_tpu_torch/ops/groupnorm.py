@@ -14,15 +14,14 @@ Counterpart of ``fastdiffsr_tpu/ops/groupnorm.py``:
   same formulation in plain PyTorch;
 - :func:`gn_swish_custom` makes K1 differentiable, as ``gn_swish_custom``
   there: the forward is K1 and the backward is the VJP of
-  :func:`gn_swish_reference`, recomputed from the saved x, scale and bias;
-- :func:`default_fused_norm` reads ``FASTDIFFSR_TPU_FUSED_NORM``.
+  :func:`gn_swish_reference`, recomputed from the saved x, scale and bias.
+  Every UNet ``Block`` runs it; :func:`gn_swish_reference` stands in for
+  it where a test or an on-card check needs the UNet without the kernel.
 
 Groups are contiguous channel slices, as in ``torch.nn.GroupNorm``.
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -158,18 +157,3 @@ def gn_swish_custom(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """Differentiable K1 (see the module docstring)."""
     return _GNSwish.apply(x, scale, bias, groups, eps)
 
-
-def default_fused_norm() -> str:
-    """Model-level fused-norm mode from ``FASTDIFFSR_TPU_FUSED_NORM``, with
-    the JAX package's values: '' and 'xla' run :func:`gn_swish_reference`
-    (float32 statistics, output in the compute type), 'pallas' runs K1
-    through :func:`gn_swish_custom`. 'stats' and 'dot' are not ported."""
-    mode = os.environ.get("FASTDIFFSR_TPU_FUSED_NORM", "")
-    if mode not in ("", "xla", "pallas", "stats", "dot"):
-        raise ValueError(f"FASTDIFFSR_TPU_FUSED_NORM={mode!r} "
-                         "(want '', 'xla', 'pallas', 'stats' or 'dot')")
-    if mode in ("stats", "dot"):
-        raise NotImplementedError(
-            f"FASTDIFFSR_TPU_FUSED_NORM={mode!r} is not ported yet "
-            "(ROADMAP.md queue 5, opt-in ops)")
-    return mode

@@ -7,8 +7,9 @@ state). :func:`make_cached_train_step` draws its batch from a uint8 set
 that lives on the device, as the JAX package's device-resident mode does.
 A step's random draws come from one ``torch.Generator`` seeded from (run
 seed, step) by :func:`step_generator`, the counterpart of
-``fold_in(rng, step)`` there: chaining ``n_sub`` steps in one call gives
-the same draws as ``n_sub`` calls.
+``fold_in(rng, step)`` there, so a resumed run draws what an unbroken
+one would. The JAX package's ``n_sub`` (several steps in one dispatch)
+has no counterpart: a call per step costs nothing extra here.
 
 :func:`pad_batch_with_keys` is the shared val/infer batching contract: a
 tail batch is padded to the full batch size and every image gets its own
@@ -83,8 +84,7 @@ def make_train_step(engine: DiffusionEngine, ema_decay: float = 0.9999,
 
 
 def make_cached_train_step(engine: DiffusionEngine, batch_size: int,
-                           ema_decay: float = 0.9999, ema_start: int = 5000,
-                           hflip: bool = True, n_sub: int = 1):
+                           ema_decay: float = 0.9999, ema_start: int = 5000):
     """Device-resident-dataset train step: returns
     train_step(state, data, seed) -> (state, metrics).
 
@@ -93,8 +93,7 @@ def make_cached_train_step(engine: DiffusionEngine, batch_size: int,
     ``batch_size`` indices WITH replacement, maps them to [-1, 1] as
     ``u8 / 127.5 - 1`` and flips each pair horizontally with
     probability 1/2, from ``step_generator(seed, state.step)``, and then
-    runs :func:`make_train_step`'s body with the same generator. One call
-    chains ``n_sub`` steps; its metrics are then stacked (n_sub,)."""
+    runs :func:`make_train_step`'s body with the same generator."""
     body = make_train_step(engine, ema_decay, ema_start)
 
     def assemble(data, gen):
@@ -102,24 +101,14 @@ def make_cached_train_step(engine: DiffusionEngine, batch_size: int,
         dev = data["HR"].device
         idx = torch.randint(0, n, (batch_size,), generator=gen, device=dev)
         batch = {k: v[idx].float() / 127.5 - 1.0 for k, v in data.items()}
-        if hflip:
-            flip = torch.rand((batch_size,), generator=gen, device=dev) < 0.5
-            sel = flip[:, None, None, None]
-            batch = {k: torch.where(sel, v.flip(2), v)
-                     for k, v in batch.items()}
-        return batch
+        flip = torch.rand((batch_size,), generator=gen, device=dev) < 0.5
+        sel = flip[:, None, None, None]
+        return {k: torch.where(sel, v.flip(2), v) for k, v in batch.items()}
 
     def train_step(state: TrainState, data: Dict[str, torch.Tensor],
                    seed: int):
-        metrics = []
-        for _ in range(n_sub):
-            gen = step_generator(seed, state.step, data["HR"].device)
-            state, m = body(state, assemble(data, gen), gen)
-            metrics.append(m)
-        if n_sub == 1:
-            return state, metrics[0]
-        return state, {k: torch.stack([m[k] for m in metrics])
-                       for k in metrics[0]}
+        gen = step_generator(seed, state.step, data["HR"].device)
+        return body(state, assemble(data, gen), gen)
 
     return train_step
 

@@ -14,7 +14,7 @@ from fastdiffsr_tpu_torch.ops.fused_conv import (
     fused_gn_swish_conv3x3, fused_gn_swish_conv3x3_plain)
 from fastdiffsr_tpu_torch.ops.groupnorm import (
     channel_stats, channel_stats_plain, gn_swish, gn_swish_custom,
-    gn_swish_plain, gn_swish_reference)
+    gn_swish_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -126,15 +126,16 @@ def test_gn_swish_kernel_matches_plain(cuda, shape, groups, dt):
 
 
 def test_gn_swish_custom_gradient_on_card(cuda):
-    """gn_swish_custom's gradients are the VJP of gn_swish_reference:
-    against autograd of the reference, atol 1e-4 of max |g|."""
+    """gn_swish_custom (K1 forward, VJP of gn_swish_reference) against
+    autograd of gn_swish_plain, K1's own formulation: atol 1e-4 of max
+    |g| (the two variance formulas differ in their last float32 bits)."""
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(2, 16, 16, 64, generator=g, device=cuda)
     s = torch.randn(64, generator=g, device=cuda) * 0.1 + 1
     b = torch.randn(64, generator=g, device=cuda) * 0.1
     cot = torch.randn(x.shape, generator=g, device=cuda)
     grads = []
-    for fn in (gn_swish_custom, gn_swish_reference):
+    for fn in (gn_swish_custom, gn_swish_plain):
         leaves = [t.clone().requires_grad_() for t in (x, s, b)]
         (fn(*leaves, 16) * cot).sum().backward()
         grads.append([t.grad for t in leaves])

@@ -61,11 +61,13 @@ def _run_dir(tmp_path):
     return sorted((tmp_path / "experiments").iterdir())[-1]
 
 
-@pytest.mark.parametrize("fused_norm", ["", "pallas"])
-def test_debug_train_then_val(tmp_path, monkeypatch, fused_norm):
+@pytest.mark.parametrize("use_ema", [False, True])
+def test_debug_train_then_val(tmp_path, monkeypatch, use_ema):
     """-debug synthesizes the data, trains 8 steps with validation every
-    2 and saves I{iter}_E{epoch}; -p val then reads the checkpoint."""
-    monkeypatch.setenv("FASTDIFFSR_TPU_FUSED_NORM", fused_norm)
+    2 and saves I{iter}_E{epoch}; -p val then reads the checkpoint's
+    params or EMA params. Both phases run float32 without TF32."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     cfg = _write(tmp_path, _config(tmp_path, n_iter=100))   # -debug: 8
     out = sr_mfe.main(["-p", "train", "-c", cfg, "-debug", "--device", "cpu",
                        "-gpu", "0"])
@@ -78,16 +80,20 @@ def test_debug_train_then_val(tmp_path, monkeypatch, fused_norm):
         "I3_E1", "I6_E2", "I8_E3"}
     log = (run / "logs" / "train.log").read_text()
     assert "l_pix" in log and "(avg " in log
-    assert f"fused_norm {fused_norm!r}" in log and "-gpu 0 accepted" in log
+    assert "float32 without TF32" in log and "-gpu 0 accepted" in log
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
     assert (run / "logs" / "val.log").read_text().count("# Validation #") == 4
 
     vcfg = json.loads(open(cfg).read())
     vcfg["path"]["resume_state"] = out["checkpoint"]
     res = sr_mfe.main(["-p", "val", "-c", _write(tmp_path, vcfg, "v.json"),
-                       "-debug", "--device", "cpu", "-use_ema"])
+                       "-debug", "--device", "cpu"]
+                      + (["-use_ema"] if use_ema else []))
     assert set(res) >= {"psnr", "ssim", "mse", "ergas"}
     assert np.isfinite([res["psnr"], res["ssim"]]).all()
-    assert "loaded EMA params" in (run / "logs" / "train.log").read_text()
+    loaded = f"loaded {'EMA ' if use_ema else ''}params from"
+    assert loaded in (run / "logs" / "train.log").read_text()
 
 
 def test_resume_continues_the_run(tmp_path):
@@ -156,10 +162,10 @@ def test_val_reads_a_jax_checkpoint(tmp_path):
         np.testing.assert_allclose(res[0][k], res[1][k], rtol=1e-6)
 
 
-def test_infer_reads_trainer_checkpoints(tmp_path):
+def test_infer_reads_trainer_checkpoints(tmp_path, monkeypatch):
     """cli.infer takes an I{iter}_E{epoch} directory as resume_state: its
     params, or its EMA params with -use_ema (which differ after training
-    with EMA decay 0.5)."""
+    with EMA decay 0.5), and runs float32 without TF32."""
     write_pack(str(tmp_path / "pack"), 6, 5, 8, 16)
     cfg = _config(tmp_path, "pack")
     ck = sr_mfe.main(["-p", "train", "-c", _write(tmp_path, cfg),
@@ -167,12 +173,14 @@ def test_infer_reads_trainer_checkpoints(tmp_path):
     cfg["path"]["resume_state"] = ck
     icfg = _write(tmp_path, cfg, "infer.json")
     outs = {}
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     for flags in ([], ["-use_ema"]):
         s = infer.main(["-c", icfg, "--device", "cpu", "--dtype", "f32",
                         *flags])
         assert s["images"] == 2
         outs[bool(flags)] = [np.asarray(bytearray(open(
             f"{s['results']}/{i}_sr.png", "rb").read())) for i in range(2)]
+    assert not torch.backends.cudnn.allow_tf32
     log = (_run_dir(tmp_path) / "logs" / "infer.log").read_text()
     assert f"loaded params from {ck}" in log
     assert f"loaded EMA params from {ck}" in log

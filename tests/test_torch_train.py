@@ -1,10 +1,12 @@
 """The port's training slice against the JAX package: K1's plain version
-and gradient, the UNet's fused_norm modes, the training loss and its
+and gradient, the UNet on K1 and on the plain GroupNorm, the training
+loss and its
 gradients, the optimizers, the EMA, the cached train step and the
 checkpoints. Tiny sizes (inner 8, groups 4, mults (1, 2), 1 res block,
 16x16, as tests/test_e2e_cli.py); inputs from numpy seeds, weights from
 the Flax init through ``flax_params_to_torch``."""
 
+import copy
 import functools
 import subprocess
 import sys
@@ -31,12 +33,12 @@ from fastdiffsr_tpu.train.state import make_optimizer as jax_make_optimizer
 from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine, DiffusionSpec,
                                             ScheduleBuffers)
 from fastdiffsr_tpu_torch.models.convert import flax_params_to_torch
+from fastdiffsr_tpu_torch.models import unet_fastdiffsr
 from fastdiffsr_tpu_torch.models.unet_fastdiffsr import (Block,
                                                          FastDiffSRUNet,
                                                          init_params)
 from fastdiffsr_tpu_torch.ops import kernels
-from fastdiffsr_tpu_torch.ops.groupnorm import (default_fused_norm,
-                                                gn_swish, gn_swish_custom,
+from fastdiffsr_tpu_torch.ops.groupnorm import (gn_swish, gn_swish_custom,
                                                 gn_swish_plain,
                                                 gn_swish_reference)
 from fastdiffsr_tpu_torch.train import (create_train_state,
@@ -73,8 +75,8 @@ def _flax_tree(seed=0):
     return FLAX_NET, jax.tree_util.tree_map(np.asarray, params["params"])
 
 
-def _torch_net(tree, dropout=0.0, fused_norm=""):
-    net = FastDiffSRUNet(**KW, dropout=dropout, fused_norm=fused_norm)
+def _torch_net(tree, dropout=0.0):
+    net = FastDiffSRUNet(**KW, dropout=dropout)
     net.load_state_dict(flax_params_to_torch(tree), strict=True)
     return net
 
@@ -89,9 +91,15 @@ def _torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _small_net(seed=0, dropout=0.0, fused_norm=""):
-    return init_params(FastDiffSRUNet(**KW, dropout=dropout,
-                                      fused_norm=fused_norm), seed)
+def _small_net(seed=0, dropout=0.0):
+    return init_params(FastDiffSRUNet(**KW, dropout=dropout), seed)
+
+
+def _use_reference_norm(monkeypatch):
+    """Every Block runs gn_swish_reference (plain PyTorch, autograd)
+    instead of K1's gn_swish_custom."""
+    monkeypatch.setattr(unet_fastdiffsr, "gn_swish_custom",
+                        gn_swish_reference)
 
 
 def _engine(variant="fastdiffsr"):
@@ -143,7 +151,7 @@ def test_gn_swish_plain_matches_jax_pallas_and_reference(case, dt):
             assert (np.abs(y - w) <= np.abs(w) * 2 ** -7 + 1e-5).all()
 
 
-@pytest.mark.parametrize("case", ["8x8_c16_g4", "6x6_c24_g4"])
+@pytest.mark.parametrize("case", sorted(GN_CASES))
 def test_gn_swish_custom_grad_matches_jax(case):
     """Gradients of sum(y * cotangent) for x, scale and bias against the
     JAX ``gn_swish_custom(..., 'pallas')`` in interpret mode: atol 1e-4."""
@@ -174,44 +182,69 @@ def test_gn_swish_raises_off_cpu_and_cuda():
         gn_swish(x, torch.ones(8), torch.zeros(8), 4)
 
 
-@pytest.mark.parametrize("mode,error", [("", None), ("xla", None),
-                                        ("pallas", None),
-                                        ("stats", NotImplementedError),
-                                        ("dot", NotImplementedError),
-                                        ("fused", ValueError)])
-def test_default_fused_norm_reads_the_environment(monkeypatch, mode, error):
-    """The JAX package's values and errors; the two opt-in modes that are
-    not ported raise and name their ROADMAP queue."""
-    monkeypatch.setenv("FASTDIFFSR_TPU_FUSED_NORM", mode)
-    if error is None:
-        assert default_fused_norm() == mode
-    else:
-        with pytest.raises(error, match="queue 5" if error is
-                           NotImplementedError else "want"):
-            default_fused_norm()
-
-
 # -------------------------------------------------------------- UNet --
 
-def test_unet_pallas_norm_matches_plain_norm():
-    """fused_norm 'pallas' (K1's plain version on the CPU) against '':
-    the same state-dict keys, outputs within 1e-5 (f32)."""
+def test_unet_pallas_norm_matches_plain_norm(monkeypatch):
+    """The UNet's Blocks on K1 (gn_swish_custom; its plain version on the
+    CPU) against the same UNet on gn_swish_reference: the same state-dict
+    keys as the converted Flax tree, outputs within 1e-5 (f32)."""
     _, tree = _flax_tree()
-    plain, fused = _torch_net(tree), _torch_net(tree, fused_norm="pallas")
-    assert list(plain.state_dict()) == list(fused.state_dict())
+    net = _torch_net(tree)
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((2, SIZE, SIZE, 6))
                          .astype(np.float32))
     lvl = torch.tensor([0.7, 0.2])
     with torch.no_grad():
-        torch.testing.assert_close(fused(x, lvl), plain(x, lvl), rtol=0,
-                                   atol=1e-5)
+        got = net(x, lvl)
+        _use_reference_norm(monkeypatch)
+        torch.testing.assert_close(got, net(x, lvl), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_every_block_runs_k1(monkeypatch, train):
+    """In train and eval mode, each Block's GroupNorm -> Swish goes through
+    gn_swish_custom (K1) once per forward, with no other path."""
+    calls = []
+
+    def recording(x, scale, bias, groups, eps=1e-5):
+        calls.append(x.shape)
+        return gn_swish_custom(x, scale, bias, groups, eps)
+
+    monkeypatch.setattr(unet_fastdiffsr, "gn_swish_custom", recording)
+    net = _small_net(dropout=0.2).train(train)
+    with torch.no_grad():
+        net(torch.randn(2, SIZE, SIZE, 6), torch.rand(2),
+            generator=torch.Generator().manual_seed(0))
+    assert len(calls) == sum(isinstance(m, Block) for m in net.modules())
+
+
+def test_chip_smoke_reference_norm_swaps_and_restores():
+    """The on-card checks' comparison arm: inside ``reference_norm`` the
+    Blocks run gn_swish_reference, afterwards K1 again."""
+    import chip_smoke
+    assert unet_fastdiffsr.gn_swish_custom is gn_swish_custom
+    with chip_smoke.reference_norm():
+        assert unet_fastdiffsr.gn_swish_custom is gn_swish_reference
+    assert unet_fastdiffsr.gn_swish_custom is gn_swish_custom
+    with pytest.raises(KeyError):
+        with chip_smoke.reference_norm():
+            raise KeyError("restored on error too")
+    assert unet_fastdiffsr.gn_swish_custom is gn_swish_custom
+
+
+def test_use_ieee_float32_turns_tf32_off(monkeypatch):
+    from fastdiffsr_tpu_torch.device import use_ieee_float32
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    use_ieee_float32()
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_unet_blocks_see_contiguous_nhwc_maps():
     """K1 and K2 read contiguous NHWC maps: every Block's input stays
     channels-last through a train-mode forward (dropout, skip concats)."""
-    net = _small_net(dropout=0.2, fused_norm="pallas").train()
+    net = _small_net(dropout=0.2).train()
     seen = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: seen.append(args[0].permute(0, 2, 3, 1)
@@ -247,18 +280,21 @@ def test_train_mode_dropout_draws_from_the_generator():
 
 # ------------------------------------------------------ training loss --
 
-LOSS_CASES = {"fastdiffsr": ("fastdiffsr", ""),
-              "fastdiffsr_pallas_norm": ("fastdiffsr", "pallas"),
-              "ddpm": ("ddpm", ""), "tesr": ("tesr", ""), "gdp": ("gdp", "")}
+# (variant, Blocks on gn_swish_reference instead of K1)
+LOSS_CASES = {"fastdiffsr": ("fastdiffsr", False),
+              "fastdiffsr_reference_norm": ("fastdiffsr", True),
+              "ddpm": ("ddpm", False), "tesr": ("tesr", False),
+              "gdp": ("gdp", False)}
 
 
 @pytest.mark.parametrize("case", sorted(LOSS_CASES))
 def test_training_loss_and_grads_match_jax(case, monkeypatch):
     """The port's training_loss and its parameter gradients against the
     JAX engine's, with the noise level and the noise injected (JAX's draws
-    patched) and dropout 0. Loss atol 1e-5; each gradient leaf within
-    1e-4 of its max |g|."""
-    variant, fused_norm = LOSS_CASES[case]
+    patched) and dropout 0, with the Blocks on K1 (the product path) and
+    on gn_swish_reference (the arm the on-card train-step check compares
+    with). Loss atol 1e-5; each gradient leaf within 1e-4 of its max |g|."""
+    variant, reference_norm = LOSS_CASES[case]
     flax_net, tree = _flax_tree(1)
     batch = _batch_np(4)
     rng = np.random.default_rng(5)
@@ -284,7 +320,9 @@ def test_training_loss_and_grads_match_jax(case, monkeypatch):
         jax.tree_util.tree_map(jnp.asarray, tree))
     monkeypatch.undo()
 
-    net = _torch_net(tree, fused_norm=fused_norm).train()
+    if reference_norm:
+        _use_reference_norm(monkeypatch)
+    net = _torch_net(tree).train()
     eng = _engine(variant)
     draws = ({"gamma": torch.from_numpy(gamma)}
              if spec.conditioning == "continuous_gamma"
@@ -374,8 +412,8 @@ def test_unknown_optimizer_raises():
 
 # ------------------------------------------------------- train steps --
 
-def _state(seed=0, dropout=0.0, lr=1e-3, fused_norm=""):
-    net = _small_net(seed, dropout, fused_norm)
+def _state(seed=0, dropout=0.0, lr=1e-3):
+    net = _small_net(seed, dropout)
     return create_train_state(net, make_optimizer(net.parameters(),
                                                   {"lr": lr}))
 
@@ -456,24 +494,25 @@ def test_cached_step_assembles_its_batch_from_the_step_generator():
         torch.testing.assert_close(seen[0][k], want, rtol=0, atol=0)
 
 
-def test_cached_step_chained_equals_sequential_steps():
-    """n_sub=3 in one call: the same steps, draws (dropout included),
-    losses, parameters and EMA as three n_sub=1 calls."""
+def test_cached_step_draws_follow_the_step_counter():
+    """Each call draws from step_generator(seed, state.step): a state
+    resumed at step 2 takes the same third step (batch, noise, dropout)
+    as an unbroken run."""
     data = _u8_data(9)
     a, b = _state(dropout=0.2), _state(dropout=0.2)
-    one = make_cached_train_step(_engine(), batch_size=4, ema_start=1)
-    three = make_cached_train_step(_engine(), batch_size=4, ema_start=1,
-                                   n_sub=3)
-    losses = [one(a, data, 11)[1]["l_pix"] for _ in range(3)]
-    _, m = three(b, data, 11)
-    assert a.step == b.step == 3 and m["l_pix"].shape == (3,)
-    torch.testing.assert_close(m["l_pix"], torch.stack(losses), rtol=0,
-                               atol=0)
+    step = make_cached_train_step(_engine(), batch_size=4, ema_start=1)
+    for _ in range(2):
+        step(a, data, 11)
+    b.net.load_state_dict(a.net.state_dict())
+    b.optimizer.load_state_dict(copy.deepcopy(a.optimizer.state_dict()))
+    b.ema_params = {k: v.clone() for k, v in a.ema_params.items()}
+    b.step = a.step
+    la, lb = (step(st, data, 11)[1]["l_pix"] for st in (a, b))
+    assert a.step == b.step == 3
+    assert torch.equal(la, lb)
     for k, p in a.net.named_parameters():
-        torch.testing.assert_close(p, dict(b.net.named_parameters())[k],
-                                   rtol=0, atol=0)
-        torch.testing.assert_close(a.ema_params[k], b.ema_params[k], rtol=0,
-                                   atol=0)
+        assert torch.equal(p, dict(b.net.named_parameters())[k]), k
+        assert torch.equal(a.ema_params[k], b.ema_params[k]), k
 
 
 # -------------------------------------------------------- checkpoints --

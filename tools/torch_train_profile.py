@@ -6,12 +6,15 @@
 Runs the full-width FastDiffSR train step (the port's
 configs/sr_fastdiffsr_train_64_256.json: inner 64, mults [1,2,4,4], 2 res
 blocks, dropout 0.2, 256x256, batch 4, f32, Adam, EMA) through
-``train.make_train_step`` with fused_norm '' and 'pallas' in turns
-('', 'pallas', 'pallas', ''), ``--steps`` timed steps per block after two
-warm-up steps, and prints steps/s and the peak device memory per block.
-Then it profiles ``--steps`` steps of each mode with torch.profiler and
-prints the device time by kernel class, the share of the window in which
-the device ran no kernel (idle share), and the top kernels. TF32 is off, as in chip_smoke.py.
+``train.make_train_step``, in two arms: the product path, whose Blocks
+run kernel K1, and the same step with the Blocks on gn_swish_reference
+(``chip_smoke.reference_norm``). The arms take turns ('reference', 'k1',
+'k1', 'reference'), ``--steps`` timed steps per block after two warm-up
+steps, and it prints steps/s and the peak device memory per block. Then
+it profiles ``--steps`` steps of each arm with torch.profiler and prints
+the device time by kernel class, the share of the window in which the
+device ran no kernel (idle share), and the top kernels. TF32 is off, as
+in the CLIs (``device.use_ieee_float32``).
 Every line carries the card's name and power limit; the numbers also go
 to build/train_profile.json. It needs a CUDA device and exits non-zero
 without one.
@@ -20,6 +23,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -70,7 +74,7 @@ def union_us(intervals) -> float:
     return total
 
 
-def make(mode, cfg, seed, dev):
+def make(cfg, seed, dev):
     import torch
 
     from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
@@ -79,8 +83,7 @@ def make(mode, cfg, seed, dev):
     from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
     from fastdiffsr_tpu_torch.train import (create_train_state,
                                             make_optimizer, make_train_step)
-    net = unet_from_config(cfg["model"]["unet"], device=dev, seed=seed,
-                           fused_norm=mode)
+    net = unet_from_config(cfg["model"]["unet"], device=dev, seed=seed)
     state = create_train_state(net, make_optimizer(
         net.parameters(), cfg["train"]["optimizer"]))
     eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
@@ -104,10 +107,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import reference_norm
     from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.device import use_ieee_float32
     from fastdiffsr_tpu_torch.train import step_generator
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    use_ieee_float32()
     torch.backends.cudnn.benchmark = True
     card = card_line()
     dev = torch.device("cuda")
@@ -119,36 +123,40 @@ def main(argv=None) -> int:
     g = torch.Generator(device=dev).manual_seed(args.seed)
     batch = {k: torch.rand((B, r, r, 3), generator=g, device=dev) * 2 - 1
              for k in ("HR", "SR")}
-    runs = {m: make(m, cfg, args.seed, dev) for m in ("", "pallas")}
+    arms = ("reference", "k1")
+    runs = {a: make(cfg, args.seed, dev) for a in arms}
 
-    def steps(mode, n):
-        state, step = runs[mode]
-        for _ in range(n):
-            step(state, batch, step_generator(args.seed, state.step, dev))
+    def steps(arm, n):
+        state, step = runs[arm]
+        with (reference_norm() if arm == "reference"
+              else contextlib.nullcontext()):
+            for _ in range(n):
+                step(state, batch, step_generator(args.seed, state.step,
+                                                  dev))
 
     out = {"card": card, "torch": torch.__version__, "batch": B,
            "steps": args.steps, "blocks": [], "profiles": {}}
-    for mode in ("", "pallas"):
-        steps(mode, 2)
+    for arm in arms:
+        steps(arm, 2)
     torch.cuda.synchronize()
-    for mode in ("", "pallas", "pallas", ""):
+    for arm in ("reference", "k1", "k1", "reference"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        steps(mode, args.steps)
+        steps(arm, args.steps)
         torch.cuda.synchronize()
         rate = args.steps / (time.time() - t0)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        out["blocks"].append({"fused_norm": mode, "steps_per_s": rate,
+        out["blocks"].append({"arm": arm, "steps_per_s": rate,
                               "peak_gib": peak})
-        print(f"[rate] {card} | fused_norm {mode!r}: {rate:.4f} steps/s "
+        print(f"[rate] {card} | {arm}: {rate:.4f} steps/s "
               f"({rate * B:.2f} img/s) over {args.steps} steps, B={B}, "
-              f"{r}x{r}, f32 | peak {peak:.2f} GiB (both modes' nets and "
+              f"{r}x{r}, f32 | peak {peak:.2f} GiB (both arms' nets and "
               "optimizer states are resident)", flush=True)
-    for mode in ("", "pallas"):
+    for arm in arms:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            steps(mode, args.steps)
+            steps(arm, args.steps)
             torch.cuda.synchronize()
         events = prof.events()
         kern = [e for e in events
@@ -156,7 +164,7 @@ def main(argv=None) -> int:
         spans = [(e.time_range.start, e.time_range.end) for e in events]
         window = max(s[1] for s in spans) - min(s[0] for s in spans)
         if not kern:
-            print(f"[profile] {card} | fused_norm {mode!r}: device time not "
+            print(f"[profile] {card} | {arm}: device time not "
                   "measured (the profiler saw no device events)", flush=True)
             continue
         busy = union_us((e.time_range.start, e.time_range.end) for e in kern)
@@ -172,8 +180,8 @@ def main(argv=None) -> int:
                     "ms_per_step_by_class": per_step,
                     "top_kernels_ms_per_step": {
                         n: us / args.steps / 1e3 for n, us in top}}
-        out["profiles"][mode or "plain"] = prof_out
-        print(f"[profile] {card} | fused_norm {mode!r}, {args.steps} steps: "
+        out["profiles"][arm] = prof_out
+        print(f"[profile] {card} | {arm}, {args.steps} steps: "
               f"window {window / 1e3 / args.steps:.2f} ms/step, device busy "
               f"{busy / 1e3 / args.steps:.2f} ms/step, idle share "
               f"{1 - busy / window:.3f} | ms/step by class: " + ", ".join(
