@@ -8,20 +8,22 @@ toolkit (nvcc); without a device it exits non-zero and prints no result.
 Phases, one line each, every number beside the card's name and power
 limit:
 
-1. build the kernels from fastdiffsr_tpu_torch/csrc with nvcc (sm_90a);
+1. build the kernels from fastdiffsr_tpu_torch/csrc with nvcc (sm_90a)
+   and print each kernel's registers and spill bytes;
 2. K3 (fused GroupNorm->Swish->conv3x3) against its plain PyTorch version
    at every distinct K3 shape of one full-width UNet eval at batch 16
-   (recorded from a fused forward), in bf16 and f32, with the kernel's,
-   the plain version's and one F.conv2d's times and the least time the
-   card could take;
+   (recorded from a fused forward), in bf16 (the wgmma kernel) and f32
+   (the CUDA-core kernel; each row names the kernel that ran), with the
+   kernel's, the plain version's and one F.conv2d's times and the least
+   time the card could take;
 3. the same for K2 (channel statistics) at its shapes;
 4. one full-width UNet eval at 256x256, fused forward against the plain
    UNet (its Blocks on gn_swish_reference), f32 (and bf16 fused against
    f32 plain);
 5. the serving path end to end: a synthetic 64->256 npy pack from
    --seed, then ``fastdiffsr_tpu_torch.cli.infer`` on CUDA at full width,
-   T=20, with launch counters that must show 49 K3 and 4 K2 launches per
-   UNet eval;
+   T=20, with launch counters that must show 49 K3 launches, all on the
+   wgmma kernel, and 4 K2 launches per UNet eval;
 6. K1 (GroupNorm -> Swish) against its plain version at every distinct
    K1 shape of one full-width training forward at batch 4, in f32 and
    bf16, with the kernel's, the plain version's and the two library calls'
@@ -48,10 +50,13 @@ Python, host gaps included. The plain versions and library calls are
 timed the same two ways. (torch.profiler is not used here: after it has
 run, kernel launches in the same process cost more host time.)
 
-The line before the last is one JSON object of per-kernel numbers; the
-last line is {"ok": true, "device": {...}}. Per-shape details go to
-build/chip_smoke.json. Any failed check exits non-zero. It takes about
-two and a half minutes on an H100, the kernel build included.
+The line before the last is one JSON object of per-kernel numbers (K3
+has two entries, one per hand-written kernel; ``kernel_route`` names the
+kernel), every number of it measured in this run or, for ``bound_ms``,
+computed from this run's shapes; the last line is {"ok": true, "device":
+{...}}. Per-shape details go to build/chip_smoke.json. Any failed check
+exits non-zero. The ``[time]`` line says how long the run took, the
+kernel build included: about two minutes on an H100.
 """
 
 from __future__ import annotations
@@ -107,6 +112,28 @@ def card_line() -> str:
          "--format=csv,noheader", "--id=0"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log):
+    """One string per kernel from nvcc's ``-Xptxas -v`` lines: its name,
+    registers, and the bytes it spills."""
+    import re
+    out, name, spill = [], "?", ""
+    for ln in log:
+        m = re.search(r"Compiling entry function '_ZN4fdsr\S*?\d\d"
+                      r"([a-z_]+_kernel)(\S*?)E[vP]", ln)
+        if m:
+            args = re.findall(r"Li(\d+)E|I(f|13__nv_bfloat16)", m.group(2))
+            name = m.group(1) + "<" + ",".join(
+                a or ("f32" if t == "f" else "bf16") for a, t in args) + ">"
+        elif "spill stores" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", ln).groups()
+            spill = f"spill {st}/{ld} B"
+        elif "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{name}: {regs} regs, {spill}")
+    return out
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -206,9 +233,13 @@ def record_calls(fp, x, level):
 
 
 def phase_k3(sigs, B, reps, card, seed):
+    """K3 against its plain version at every signature of ``sigs`` in bf16
+    and f32, then the device and wall times of the kernel, the plain
+    version and F.conv2d."""
     import torch
     import torch.nn.functional as F
 
+    from fastdiffsr_tpu_torch.ops import fused_conv
     from fastdiffsr_tpu_torch.ops.fused_conv import (
         fused_gn_swish_conv3x3, fused_gn_swish_conv3x3_plain)
     from fastdiffsr_tpu_torch.ops.groupnorm import channel_stats_plain
@@ -233,8 +264,11 @@ def phase_k3(sigs, B, reps, card, seed):
             kw = dict(groups=groups, apply_norm=norm, want_stats=want_stats,
                       shift=rnd(B, Co, s=0.1) if has_shift else None,
                       res=rnd(B, H, W, Co).to(dt) if has_res else None)
+            taken = dict(fused_conv.ROUTE_TAKEN)
             got = fused_gn_swish_conv3x3(*args, **kw)
             torch.cuda.synchronize()
+            route = [r for r, n in fused_conv.ROUTE_TAKEN.items()
+                     if n == taken[r] + 1][0]
             want = fused_gn_swish_conv3x3_plain(*args, **kw)
             if not want_stats:
                 got, want = (got,), (want,)
@@ -267,6 +301,7 @@ def phase_k3(sigs, B, reps, card, seed):
             b_lib = args[5].to(dt)
             lib_ms, lib_wall_ms = timed(
                 lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1), reps)
+            del xcat, x_nchw
             es = 2 if dt_name == "bf16" else 4
             flops = 2.0 * 9 * C * Co * B * H * W
             nbytes = (B * H * W * (C + Co * (2 if has_res else 1)) * es
@@ -275,7 +310,8 @@ def phase_k3(sigs, B, reps, card, seed):
             row = {"Cs": list(Cs), "H": H, "W": W, "Co": Co, "norm": norm,
                    "stats": want_stats, "shift": has_shift, "res": has_res,
                    "calls_per_eval": count, "dtype": dt_name, "B": B,
-                   "max_abs_err_y": err, "max_abs_err_stats": st_err,
+                   "kernel_route": route, "max_abs_err_y": err,
+                   "max_abs_err_stats": st_err,
                    "stats_tol": st_tol, "ok": row_ok, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "wall_ms": wall_ms, "plain_wall_ms": plain_wall_ms,
@@ -285,15 +321,15 @@ def phase_k3(sigs, B, reps, card, seed):
             rows.append(row)
             shape = (f"{dt_name} B={B} {H}x{W} C={'+'.join(map(str, Cs))} "
                      f"Co={Co} norm={int(norm)} x{count}/eval")
-            print(f"[K3] {card} | {shape} | max|dy|={err:.3g} max|dstats|="
-                  f"{st_err:.3g} (tol {st_tol:.3g}) "
+            print(f"[K3] {card} | {shape} {route} | max|dy|={err:.3g} "
+                  f"max|dstats|={st_err:.3g} (tol {st_tol:.3g}) "
                   f"{'ok' if row_ok else 'FAIL'} | device: kernel {ms:.3f} "
-                  f"ms ({row['tflops']:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
-                  f"F.conv2d {lib_ms:.3f} ms | wall: kernel {wall_ms:.3f} "
-                  f"ms plain {plain_wall_ms:.3f} ms F.conv2d "
-                  f"{lib_wall_ms:.3f} ms | bound {b_ms:.3f} ms ({b_by})",
-                  flush=True)
-            del xs, stats, args, kw, xcat, x_nchw
+                  f"ms ({row['tflops']:.1f} TFLOP/s, {b_ms / ms:.2f} of bound)"
+                  f" plain {plain_ms:.3f} ms F.conv2d {lib_ms:.3f} ms | "
+                  f"wall: kernel {wall_ms:.3f} ms plain "
+                  f"{plain_wall_ms:.3f} ms F.conv2d {lib_wall_ms:.3f} ms"
+                  f" | bound {b_ms:.3f} ms ({b_by})", flush=True)
+            del xs, stats, args, kw
     return rows, ok
 
 
@@ -550,7 +586,7 @@ def phase_train(cfg, card, seed):
     from fastdiffsr_tpu_torch.cli import sr_mfe
     from fastdiffsr_tpu_torch.data import write_pack
     from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
-    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.ops import fused_conv, kernels
     from fastdiffsr_tpu_torch.train import create_train_state, make_optimizer
     from fastdiffsr_tpu_torch.train.checkpoint import load_state
     dev = torch.device("cuda")
@@ -627,30 +663,35 @@ def phase_train(cfg, card, seed):
     with open(val_cfg, "w") as f:
         json.dump(cfg, f)
     kernels.reset_launch_counts()
+    routes0 = dict(fused_conv.ROUTE_TAKEN)
     t0 = time.time()
     res = sr_mfe.main(["-p", "val", "-c", val_cfg, "--device", "cuda",
                        "--seed", str(seed)])
     torch.cuda.synchronize()
     vwall = time.time() - t0
     launches = dict(kernels.LAUNCHES)
+    routes = {k: n - routes0[k] for k, n in fused_conv.ROUTE_TAKEN.items()}
     want_k3, want_k2 = 49 * T * VAL_IMAGES, 4 * T * VAL_IMAGES
     val_ok = (math.isfinite(res.get("psnr", math.nan))
               and math.isfinite(res.get("ssim", math.nan))
               and launches["fused_gn_swish_conv3x3"] == want_k3
+              and routes == {"wgmma": 0, "cuda_cores": want_k3}
               and launches["channel_stats"] == want_k2
               and launches["gn_swish"] == 0)
     print(f"[val] {card} | cli.sr_mfe -p val cuda f32 fused from "
           f"{os.path.basename(ckpt)}, {VAL_IMAGES} images, T={T}: psnr "
           f"{res.get('psnr', math.nan):.4f} ssim {res.get('ssim', math.nan):.4f}"
           f" | K3 launches {launches['fused_gn_swish_conv3x3']} (want "
-          f"{want_k3}), K2 {launches['channel_stats']} (want {want_k2}), K1 "
+          f"{want_k3}, all on the float32 CUDA-core kernel: "
+          f"{routes['cuda_cores']}), K2 {launches['channel_stats']} (want "
+          f"{want_k2}), K1 "
           f"{launches['gn_swish']} | wall {vwall:.1f} s "
           f"{'ok' if val_ok else 'FAIL'}", flush=True)
     detail = {"steps": TRAIN_STEPS, "batch": B_TRAIN, "T": T,
               "l_pix": losses, "steady_steps_per_s": rate, "wall_s": wall,
               "peak_gib": peak_gib, "k1_launches": k1_launches,
               "bit_equal": bit_equal, "val": res, "val_wall_s": vwall,
-              "val_launches": launches}
+              "val_launches": launches, "val_routes": routes}
     return detail, k1_launches, train_ok and val_ok
 
 
@@ -660,12 +701,13 @@ def main(argv=None) -> int:
                     help="seeds weights, inputs and the synthetic data")
     args = ap.parse_args(argv)
 
+    t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.ops import fused_conv, kernels
     from fastdiffsr_tpu_torch.cli import infer
     from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
     from fastdiffsr_tpu_torch.models.unet_fastdiffsr_fused import (
@@ -688,12 +730,12 @@ def main(argv=None) -> int:
     kernels.load()
     build_s = time.time() - t0
     log = (lib_path.parent / "build.log").read_text().splitlines()
-    ptxas = [ln.split(":", 1)[-1].strip() for ln in log
-             if "registers" in ln]
+    ptxas = ptxas_report(log)
     print(f"[build] {card} | build+load {build_s:.1f} s in this run "
           f"(nvcc {log[0]}) -> {lib_path} | ptxas: " + " ; ".join(ptxas),
           flush=True)
     detail["build_seconds"] = build_s
+    detail["ptxas"] = ptxas
 
     cfg_path = os.path.join(ROOT, "fastdiffsr_tpu_torch", "configs",
                             "sr_fastdiffsr_test_64_256.json")
@@ -760,17 +802,20 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    routes0 = dict(fused_conv.ROUTE_TAKEN)
     t0 = time.time()
     summary = infer.main(["-c", run_cfg, "--device", "cuda", "--dtype",
                           "bf16", "--seed", str(args.seed)])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(kernels.LAUNCHES)
+    routes = {k: n - routes0[k] for k, n in fused_conv.ROUTE_TAKEN.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     pngs = [p for p in os.listdir(summary["results"]) if p.endswith(".png")]
     want_k3 = 49 * T * SERVE_BATCHES
     want_k2 = 4 * T * SERVE_BATCHES
     serve_ok = (launches["fused_gn_swish_conv3x3"] == want_k3
+                and routes == {"wgmma": want_k3, "cuda_cores": 0}
                 and launches["channel_stats"] == want_k2
                 and summary["images"] == n_img and len(pngs) == n_img)
     ok &= serve_ok
@@ -779,7 +824,9 @@ def main(argv=None) -> int:
     print(f"[serve] {card} | cli.infer cuda bf16 fused, full width, T={T}, "
           f"{SERVE_BATCHES} batches of {SERVE_BATCH}: {summary['images']} "
           f"images finite, {len(pngs)} PNGs | K3 launches "
-          f"{launches['fused_gn_swish_conv3x3']} (want {want_k3}), K2 "
+          f"{launches['fused_gn_swish_conv3x3']} (want {want_k3}; "
+          f"{routes['wgmma']} on wgmma, {routes['cuda_cores']} on CUDA "
+          f"cores), K2 "
           f"{launches['channel_stats']} (want {want_k2}) | steady "
           f"{img_s:.3f} img/s, {summary['mean_latency_s']:.4f} s/img; "
           f"wall {wall:.1f} s incl. first batch | peak "
@@ -788,7 +835,7 @@ def main(argv=None) -> int:
                        "batches": SERVE_BATCHES, "img_per_s": img_s,
                        "mean_latency_s": summary["mean_latency_s"],
                        "wall_s": wall, "peak_gib": peak_gib,
-                       "launches": launches}
+                       "launches": launches, "routes": routes}
 
     del summary
     torch.cuda.empty_cache()
@@ -822,6 +869,11 @@ def main(argv=None) -> int:
                                                          args.seed)
     ok &= k1_ok and grad_ok and step_ok and train_ok
 
+    def k3_route_of(dt):
+        """The kernel every K3 row of that type ran on (or "mixed")."""
+        seen = {r["kernel_route"] for r in k3_rows if r["dtype"] == dt}
+        return seen.pop() if len(seen) == 1 else "mixed"
+
     def total(rows, key, dt="bf16", per="calls_per_eval"):
         return sum(r[key] * r[per] for r in rows if r["dtype"] == dt)
 
@@ -831,6 +883,14 @@ def main(argv=None) -> int:
         return ("operations" if ops >= total(rows, "bound_ms", dt, per) / 2
                 else "bytes")
 
+    for dt in ("bf16", "f32"):
+        print(f"[K3 total] {card} | {dt} per UNet eval (B={B_KERNEL}, 49 "
+              f"calls) on {k3_route_of(dt)}, device: kernel "
+              f"{total(k3_rows, 'ms', dt):.3f} ms, plain "
+              f"{total(k3_rows, 'plain_ms', dt):.3f} ms, F.conv2d "
+              f"{total(k3_rows, 'library_ms', dt):.3f} ms | wall: kernel "
+              f"{total(k3_rows, 'wall_ms', dt):.3f} ms | bound "
+              f"{total(k3_rows, 'bound_ms', dt):.3f} ms", flush=True)
     k1_tot = {k: total(k1_rows, k, "f32", "calls_per_forward")
               for k in ("ms", "plain_ms", "bound_ms", "two_call_library_ms",
                         "reference_ms", "wall_ms", "plain_wall_ms",
@@ -858,16 +918,32 @@ def main(argv=None) -> int:
          "library_ms": None,
          "two_call_library_ms": k1_tot["two_call_library_ms"],
          "wall_ms": k1_tot["wall_ms"]},
+        # K3 has two hand-written kernels: bf16 maps (serving) run on the
+        # tensor cores, f32 maps (validation) on the CUDA cores
         {"name": "fused_gn_swish_conv3x3", "route": "cuda",
-         "source": "fastdiffsr_tpu_torch/csrc/fused_conv.cu",
+         "source": "fastdiffsr_tpu_torch/csrc/fused_conv_wgmma.cu",
          "replaces": "fastdiffsr_tpu/ops/fused_conv.py:107",
-         "launches": launches["fused_gn_swish_conv3x3"],
+         "launches": routes["wgmma"],
+         "kernel_route": k3_route_of("bf16"),
          "max_abs_err": max(r["max_abs_err_y"] for r in k3_rows
-                            if r["dtype"] == "f32"),
+                            if r["dtype"] == "bf16"),
          "ms": total(k3_rows, "ms"), "plain_ms": total(k3_rows, "plain_ms"),
          "bound_ms": total(k3_rows, "bound_ms"), "bound_by": by(k3_rows),
          "library_ms": total(k3_rows, "library_ms"),
          "wall_ms": total(k3_rows, "wall_ms")},
+        {"name": "fused_gn_swish_conv3x3_f32", "route": "cuda",
+         "source": "fastdiffsr_tpu_torch/csrc/fused_conv.cu",
+         "replaces": "fastdiffsr_tpu/ops/fused_conv.py:107",
+         "launches": detail["train"]["val_routes"]["cuda_cores"],
+         "kernel_route": k3_route_of("f32"),
+         "max_abs_err": max(r["max_abs_err_y"] for r in k3_rows
+                            if r["dtype"] == "f32"),
+         "ms": total(k3_rows, "ms", "f32"),
+         "plain_ms": total(k3_rows, "plain_ms", "f32"),
+         "bound_ms": total(k3_rows, "bound_ms", "f32"),
+         "bound_by": by(k3_rows, "f32"),
+         "library_ms": total(k3_rows, "library_ms", "f32"),
+         "wall_ms": total(k3_rows, "wall_ms", "f32")},
         {"name": "channel_stats", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/channel_stats.cu",
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:143",
@@ -879,6 +955,9 @@ def main(argv=None) -> int:
          "library_ms": None, "wall_ms": total(k2_rows, "wall_ms")},
     ]
     detail["kernels"] = kern
+    detail["seconds"] = time.time() - t_start
+    print(f"[time] {card} | the run took {detail['seconds']:.1f} s, of which "
+          f"{build_s:.1f} s built the kernels", flush=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)
     if not ok:

@@ -54,27 +54,41 @@ channel_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
   }
 }
 
-__global__ void reduce_partials_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ out, int B,
-                                       int n_tiles, int C) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;   // over (B, 2, C)
-  if (i >= B * 2 * C) return;
-  const int c = i % C;
-  const int k = (i / C) % 2;
-  const int b = i / (2 * C);
-  const float* p = partial + ((size_t)b * n_tiles * 2 + k) * C + c;
+// Second pass of every statistics kernel. A block sums 32 channels of one
+// (image, moment): lane l of kRedLanes adds the tiles l, l + kRedLanes, ...
+// in order, then the lanes are added in order. The order is fixed, so the
+// result is the same on every run.
+constexpr int kRedLanes = 16;
+
+__global__ void __launch_bounds__(kChan * kRedLanes)
+reduce_partials_kernel(const float* __restrict__ partial,
+                       float* __restrict__ out, int n_tiles, int C) {
+  const int c = blockIdx.x * kChan + threadIdx.x;
+  const int k = blockIdx.y, b = blockIdx.z;
   float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) s += p[(size_t)t * 2 * C];
-  out[i] = s;
+  if (c < C) {
+    const float* p = partial + ((size_t)b * n_tiles * 2 + k) * C + c;
+    for (int t = threadIdx.y; t < n_tiles; t += kRedLanes)
+      s += p[(size_t)t * 2 * C];
+  }
+  __shared__ float red[kRedLanes][kChan + 1];
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < C) {
+    float tot = 0.f;
+#pragma unroll
+    for (int l = 0; l < kRedLanes; ++l) tot += red[l][threadIdx.x];
+    out[((size_t)b * 2 + k) * C + c] = tot;
+  }
 }
 
 }  // namespace
 
 void launch_reduce_partials(const float* partial, float* out, int B,
                             int n_tiles, int C, cudaStream_t stream) {
-  const int n = B * 2 * C;
-  reduce_partials_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      partial, out, B, n_tiles, C);
+  dim3 grid((C + kChan - 1) / kChan, 2, B);
+  dim3 block(kChan, kRedLanes);
+  reduce_partials_kernel<<<grid, block, 0, stream>>>(partial, out, n_tiles, C);
 }
 
 }  // namespace fdsr

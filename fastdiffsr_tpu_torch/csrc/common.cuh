@@ -34,10 +34,49 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Round a float32 value to T and back (identity for float32).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32<T>(from_f32<T>(v));
+// The GroupNorm group collapse, on the device, by all threads of a 1-D
+// block: on return s_mean[c] and s_inv[c] hold the mean and 1/std of the
+// group of channel c of one image, for c < C1 + C2, and the block is
+// synchronised. st1 holds (2, C1) float32 per-channel (sum, sum of squares)
+// over H,W of the first C1 channels and st2 (2, C2) of the rest (unread
+// when C2 = 0), so two maps are normalised as their channel concat without
+// building it. hw is the spatial count the sums cover. The same operations
+// in the same order as ops/fused_conv.py::group_stats_to_norm, each
+// rounded on its own: mean = sum / cnt, var = max(sumsq / cnt - mean^2,
+// 0), inv = rsqrt(var + eps). The channel sums are fetched with one load
+// per thread, all in flight together, and one thread per group adds them
+// up in shared memory: a group has a handful of channels, so every block
+// that needs the statistics redoes this instead of reading them from a
+// tensor that a chain of small PyTorch kernels would have to fill first.
+__device__ __forceinline__ void block_group_mean_inv(
+    const float* __restrict__ st1, const float* __restrict__ st2, int C1,
+    int C2, int hw, int groups, float eps, float* s_mean, float* s_inv) {
+  const int C = C1 + C2;
+  const int cg = C / groups;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const bool first = c < C1;
+    const float* st = first ? st1 + c : st2 + (c - C1);
+    s_mean[c] = st[0];
+    s_inv[c] = st[first ? C1 : C2];
+  }
+  __syncthreads();
+  const float cnt = static_cast<float>(hw * cg);
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    float s = 0.f, ss = 0.f;
+    for (int k = g * cg; k < (g + 1) * cg; ++k) {
+      s = __fadd_rn(s, s_mean[k]);
+      ss = __fadd_rn(ss, s_inv[k]);
+    }
+    const float mean = __fdiv_rn(s, cnt);
+    const float var =
+        fmaxf(__fsub_rn(__fdiv_rn(ss, cnt), __fmul_rn(mean, mean)), 0.f);
+    const float inv = rsqrtf(__fadd_rn(var, eps));
+    for (int k = g * cg; k < (g + 1) * cg; ++k) {
+      s_mean[k] = mean;
+      s_inv[k] = inv;
+    }
+  }
+  __syncthreads();
 }
 
 // (B, n_tiles, 2, C) partial sums -> (B, 2, C), summed over tiles in order.

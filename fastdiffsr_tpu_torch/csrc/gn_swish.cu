@@ -1,21 +1,24 @@
 // K1, pass 2: y = swish((x - mean_c) * inv_c * scale + bias) of an NHWC
-// map, cast to x's type.
+// map, cast to x's type, with mean_c and inv_c of GroupNorm taken from
+// pass 1's per-channel sums inside the kernel.
 //
 // Replaces fastdiffsr_tpu/ops/groupnorm.py::_gn_swish_pallas. That kernel
 // made two Pallas calls: per-(batch, HW tile) partial channel sums, then,
 // after a cross-tile sum and group_stats_to_norm in XLA, a normalise +
 // affine + swish pass per tile. Here pass 1 is K2's kernel
 // (channel_stats.cu, the same function: per-block partial sums and an
-// ordered reduce), the channel->group collapse stays in PyTorch
-// (ops/fused_conv.py::group_stats_to_norm), and this file is pass 2.
+// ordered reduce) and this file is pass 2; the channel->group collapse
+// between them is block_group_mean_inv (common.cuh), redone by every block of
+// pass 2, so a call is two launches with no PyTorch kernel in between.
 //
 // Bound on the H100: bytes. Each element costs ~10 flops and one exp,
 // far below the ~295 flop/byte ridge; the floor is reading x and writing
 // y once, 2*B*H*W*C*sizeof(T) / 3.35 TB/s (pass 1 reads x once more).
 //
-// Design: a grid over (HW tiles, B). A block first stages its image's
-// per-channel mean, inv_std, scale and bias (4*C floats) in shared
-// memory, then walks its tile with vector loads and stores: float4 for
+// Design: a grid over (HW tiles, B). A block first computes its image's
+// per-channel mean and inv_std from the channel sums and stages them with
+// scale and bias (4*C floats) in shared memory, then walks its tile with
+// vector loads and stores: float4 for
 // float32 and __nv_bfloat162 for bfloat16 (V channels per access, C % V
 // == 0; a scalar path takes other widths). Each product and sum is
 // rounded on its own (__fmul_rn / __fadd_rn, no FMA contraction) and
@@ -78,8 +81,7 @@ struct Vec<T, 1> {
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 gn_swish_apply_kernel(const T* __restrict__ x,
-                      const float* __restrict__ mean,
-                      const float* __restrict__ inv,
+                      const float* __restrict__ stats, int groups, float eps,
                       const float* __restrict__ scale,
                       const float* __restrict__ bias, T* __restrict__ y,
                       int HW, int C, int pixels_per_block) {
@@ -89,9 +91,9 @@ gn_swish_apply_kernel(const T* __restrict__ x,
   float* s_scale = smem + 2 * C;
   float* s_bias = smem + 3 * C;
   const int b = blockIdx.y;
+  block_group_mean_inv(stats + (size_t)b * 2 * C, nullptr, C, 0, HW, groups,
+                       eps, s_mean, s_inv);
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    s_mean[c] = mean[(size_t)b * C + c];
-    s_inv[c] = inv[(size_t)b * C + c];
     s_scale[c] = scale[c];
     s_bias[c] = bias[c];
   }
@@ -118,15 +120,15 @@ gn_swish_apply_kernel(const T* __restrict__ x,
 }
 
 template <typename T, int V>
-void launch(const void* x, const float* mean, const float* inv,
+void launch(const void* x, const float* stats, int groups, float eps,
             const float* scale, const float* bias, void* y, int B, int HW,
             int C, cudaStream_t stream) {
   const int ppb = C < kElemsPerBlock ? kElemsPerBlock / C : 1;
   dim3 grid((HW + ppb - 1) / ppb, B);
   const size_t smem = 4 * (size_t)C * sizeof(float);
   gn_swish_apply_kernel<T, V><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), mean, inv, scale, bias, static_cast<T*>(y),
-      HW, C, ppb);
+      static_cast<const T*>(x), stats, groups, eps, scale, bias,
+      static_cast<T*>(y), HW, C, ppb);
 }
 
 }  // namespace
@@ -135,25 +137,28 @@ void launch(const void* x, const float* mean, const float* inv,
 extern "C" {
 
 // x, y: (B, HW, C) in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1).
-// mean, inv: (B, C) float32 per-channel GroupNorm mean and 1/std;
-// scale, bias: (C,) float32. C * 16 bytes must fit the 48 KB of static
-// shared memory a block gets without opting in (C <= 3072).
-int fdsr_gn_swish_apply(const void* x, const float* mean, const float* inv,
-                        const float* scale, const float* bias, void* y,
-                        int B, int HW, int C, int is_bf16, void* stream) {
+// stats: (B, 2, C) float32 per-channel (sum, sum of squares) of x over HW;
+// groups divides C; scale, bias: (C,) float32. C * 16 bytes must fit the
+// 48 KB of shared memory a block gets without opting in (C <= 3072).
+int fdsr_gn_swish_apply(const void* x, const float* stats, int groups,
+                        float eps, const float* scale, const float* bias,
+                        void* y, int B, int HW, int C, int is_bf16,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (C % 2 == 0)
-      fdsr::launch<__nv_bfloat16, 2>(x, mean, inv, scale, bias, y, B, HW, C,
-                                     s);
+      fdsr::launch<__nv_bfloat16, 2>(x, stats, groups, eps, scale, bias, y, B,
+                                     HW, C, s);
     else
-      fdsr::launch<__nv_bfloat16, 1>(x, mean, inv, scale, bias, y, B, HW, C,
-                                     s);
+      fdsr::launch<__nv_bfloat16, 1>(x, stats, groups, eps, scale, bias, y, B,
+                                     HW, C, s);
   } else {
     if (C % 4 == 0)
-      fdsr::launch<float, 4>(x, mean, inv, scale, bias, y, B, HW, C, s);
+      fdsr::launch<float, 4>(x, stats, groups, eps, scale, bias, y, B, HW, C,
+                             s);
     else
-      fdsr::launch<float, 1>(x, mean, inv, scale, bias, y, B, HW, C, s);
+      fdsr::launch<float, 1>(x, stats, groups, eps, scale, bias, y, B, HW, C,
+                             s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,13 +10,17 @@ whole UNet ``Block`` of the inference forward:
 ``x`` is an NHWC map or a tuple of maps read as one channel concat (the
 up path's skip concat) without building it. The GroupNorm statistics come
 in as channel sums (``stats_in``, from the previous call's epilogue or
-from ``channel_stats``); :func:`group_stats_to_norm` collapses them to the
-per-channel affine that the kernel applies on load.
+from ``channel_stats``); the kernels collapse them to the per-channel
+affine themselves (``block_group_mean_inv`` in ``csrc/common.cuh``), and
+:func:`group_stats_to_norm` is the plain version of that collapse.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/fused_conv.cu`` or raises. The plain PyTorch version
+On a CUDA tensor the wrapper launches a hand-written kernel or raises.
+:func:`k3_route` names which: bfloat16 maps go to the tensor-core
+implicit GEMM of ``csrc/fused_conv_wgmma.cu`` (``"wgmma"``), float32 maps
+to the IEEE float32 kernel of ``csrc/fused_conv.cu`` (``"cuda_cores"``),
+which must not pass through TF32. The plain PyTorch version
 (:func:`fused_gn_swish_conv3x3_plain`) runs only for tensors on the CPU;
-it is also the kernel's oracle on the card.
+it is also the kernels' oracle on the card.
 """
 
 from __future__ import annotations
@@ -29,6 +33,24 @@ import torch.nn.functional as F
 from . import kernels
 
 Maps = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+ROUTE_TAKEN = {"wgmma": 0, "cuda_cores": 0}
+
+
+def k3_route(dtype: torch.dtype, Cs: Sequence[int], Co: int) -> str:
+    """Which hand-written kernel takes a K3 call on the card: ``"wgmma"``
+    (bfloat16, tensor cores) or ``"cuda_cores"`` (float32 FMA). The
+    tensor-core kernel pads ragged widths (C = 6, Co = 3) in shared memory
+    and masks ragged H, W, so the type alone decides. Raises for what
+    neither kernel takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_gn_swish_conv3x3: dtype {dtype} "
+                        "(want float32 or bfloat16)")
+    if len(Cs) > 2:
+        raise ValueError("fused_gn_swish_conv3x3 reads at most two sources")
+    if min(Cs) < 1 or Co < 1:
+        raise ValueError(f"fused_gn_swish_conv3x3: widths {tuple(Cs)}->{Co}")
+    return "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
 
 
 def group_stats_to_norm(stats: torch.Tensor, hw: int, groups: int,
@@ -102,11 +124,6 @@ def _fused_cuda(xs, gn_scale, gn_bias, stats_in, w, b, shift, res, groups,
     dev, dtype = x0.device, x0.dtype
     if dev.type != "cuda":
         raise ValueError(f"fused_gn_swish_conv3x3: unsupported device {dev}")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_gn_swish_conv3x3: dtype {dtype} "
-                        "(want float32 or bfloat16)")
-    if len(xs) > 2:
-        raise ValueError("fused_gn_swish_conv3x3 reads at most two sources")
     B, H, W = x0.shape[:3]
     for xx in xs:
         if (xx.dim() != 4 or tuple(xx.shape[:3]) != (B, H, W)
@@ -120,6 +137,7 @@ def _fused_cuda(xs, gn_scale, gn_bias, stats_in, w, b, shift, res, groups,
     if w.shape[:3] != (3, 3, C):
         raise ValueError(f"weight shape {tuple(w.shape)} is not (3,3,{C},Co)")
     Co = w.shape[-1]
+    route = k3_route(dtype, Cs, Co)
     w = w.to(dtype).contiguous()
     b = b.float().contiguous()
     if b.shape != (Co,):
@@ -133,32 +151,59 @@ def _fused_cuda(xs, gn_scale, gn_bias, stats_in, w, b, shift, res, groups,
                 or not res.is_contiguous()):
             raise ValueError("res must be a contiguous (B,H,W,Co) map of "
                              "x.dtype")
-    for t in (w, b, shift, res):
+    sts = [None, None]
+    if apply_norm:
+        if C % groups:
+            raise ValueError(f"{C} channels in {groups} groups")
+        gn_scale = gn_scale.detach().float().contiguous()
+        gn_bias = gn_bias.detach().float().contiguous()
+        if gn_scale.shape != (C,) or gn_bias.shape != (C,):
+            raise ValueError(f"GroupNorm scale and bias must be ({C},)")
+        given = stats_in if isinstance(stats_in, tuple) else (stats_in,)
+        if len(given) != len(xs):
+            raise ValueError("stats_in must match x, one per source")
+        for k, (st, c) in enumerate(zip(given, Cs)):
+            if (tuple(st.shape) != (B, 2, c) or st.dtype != torch.float32
+                    or not st.is_contiguous()):
+                raise ValueError(f"stats_in must be contiguous float32 "
+                                 f"(B,2,C) channel sums, got "
+                                 f"{tuple(st.shape)} {st.dtype}")
+            sts[k] = st
+    else:
+        gn_scale = gn_bias = None
+    for t in (w, b, shift, res, gn_scale, gn_bias, *sts):
         if t is not None and t.device != dev:
             raise ValueError("all operands must be on one device")
-    if apply_norm:
-        scale, bias = _norm_affine(xs, gn_scale, gn_bias, stats_in, groups,
-                                   eps)
-    else:
-        scale = bias = None
 
     lib = kernels.load()
+    if route == "wgmma":
+        launch, tiles, max_c = (lib.fdsr_fused_gn_swish_conv3x3_wgmma,
+                                lib.fdsr_fused_conv_wgmma_tiles,
+                                lib.fdsr_fused_conv_wgmma_max_channels())
+    else:
+        launch, tiles, max_c = (lib.fdsr_fused_gn_swish_conv3x3,
+                                lib.fdsr_fused_conv_tiles,
+                                lib.fdsr_fused_conv_max_channels())
+    if C > max_c:
+        raise ValueError(f"fused_gn_swish_conv3x3: {C} input channels exceed "
+                         f"the {route} kernel's {max_c}")
     y = torch.empty((B, H, W, Co), dtype=dtype, device=dev)
     partial = stats = None
     if want_stats:
-        n_tiles = lib.fdsr_fused_conv_tiles(H, W)
-        partial = torch.empty((B, n_tiles, 2, Co), dtype=torch.float32,
+        partial = torch.empty((B, tiles(H, W), 2, Co), dtype=torch.float32,
                               device=dev)
         stats = torch.empty((B, 2, Co), dtype=torch.float32, device=dev)
     p = kernels.ptr
     with torch.cuda.device(dev):
-        code = lib.fdsr_fused_gn_swish_conv3x3(
+        code = launch(
             p(xs[0]), p(xs[1]) if len(xs) > 1 else None, Cs[0],
-            Cs[1] if len(xs) > 1 else 0, p(scale), p(bias), int(apply_norm),
-            p(w), p(b), p(shift), p(res), p(y), p(partial), p(stats),
-            B, H, W, Co, int(dtype == torch.bfloat16), kernels.stream_of(dev))
-    kernels.check(lib, code, "fused_gn_swish_conv3x3")
+            Cs[1] if len(xs) > 1 else 0, p(sts[0]), p(sts[1]), p(gn_scale),
+            p(gn_bias), groups, eps, int(apply_norm), p(w), p(b), p(shift),
+            p(res), p(y), p(partial), p(stats), B, H, W, Co,
+            kernels.stream_of(dev))
+    kernels.check(lib, code, f"fused_gn_swish_conv3x3 ({route})")
     kernels.count_launch("fused_gn_swish_conv3x3")
+    ROUTE_TAKEN[route] += 1
     return (y, stats) if want_stats else y
 
 

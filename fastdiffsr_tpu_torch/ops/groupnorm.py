@@ -9,9 +9,10 @@ Counterpart of ``fastdiffsr_tpu/ops/groupnorm.py``:
   tensor it launches the kernel in ``csrc/channel_stats.cu`` or raises;
   the plain version runs only for tensors on the CPU;
 - :func:`gn_swish` is K1 (``_gn_swish_pallas`` there): channel sums (K2's
-  kernel), :func:`~.fused_conv.group_stats_to_norm`, then normalise,
-  affine and swish in ``csrc/gn_swish.cu``. :func:`gn_swish_plain` is the
-  same formulation in plain PyTorch;
+  kernel), then the channel->group collapse, normalise, affine and swish
+  in ``csrc/gn_swish.cu``: two launches. :func:`gn_swish_plain` is the
+  same formulation in plain PyTorch, with the collapse as
+  :func:`~.fused_conv.group_stats_to_norm`;
 - :func:`gn_swish_custom` makes K1 differentiable, as ``gn_swish_custom``
   there: the forward is K1 and the backward is the VJP of
   :func:`gn_swish_reference`, recomputed from the saved x, scale and bias.
@@ -119,15 +120,14 @@ def gn_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             or scale.device != x.device or bias.device != x.device):
         raise ValueError(f"gn_swish: scale and bias must be ({C},) on "
                          f"{x.device}")
-    mean_c, inv_c = group_stats_to_norm(_channel_stats_cuda(x), H * W,
-                                        groups, eps)
+    stats = _channel_stats_cuda(x)
     y = torch.empty_like(x)
     lib = kernels.load()
     p = kernels.ptr
     with torch.cuda.device(x.device):
         code = lib.fdsr_gn_swish_apply(
-            p(x), p(mean_c), p(inv_c), p(scale), p(bias), p(y), B, H * W, C,
-            int(x.dtype == torch.bfloat16), kernels.stream_of(x.device))
+            p(x), p(stats), groups, eps, p(scale), p(bias), p(y), B, H * W,
+            C, int(x.dtype == torch.bfloat16), kernels.stream_of(x.device))
     kernels.check(lib, code, "gn_swish")
     kernels.count_launch("gn_swish")
     return y

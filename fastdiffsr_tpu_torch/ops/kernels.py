@@ -27,7 +27,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parent.parent.parent
              / "build" / "kernels")
-SOURCES = ("fused_conv.cu", "channel_stats.cu", "gn_swish.cu")
+SOURCES = ("fused_conv.cu", "fused_conv_wgmma.cu", "channel_stats.cu",
+           "gn_swish.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -112,18 +113,28 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.fdsr_fused_conv_tiles.argtypes = [i, i]
-            lib.fdsr_fused_conv_tiles.restype = i
-            lib.fdsr_fused_gn_swish_conv3x3.argtypes = [
-                p, p, i, i, p, p, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
-            lib.fdsr_fused_gn_swish_conv3x3.restype = i
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            for fn in (lib.fdsr_fused_conv_tiles,
+                       lib.fdsr_fused_conv_wgmma_tiles):
+                fn.argtypes = [i, i]
+                fn.restype = i
+            # x1 x2 C1 C2 stats1 stats2 gamma beta groups eps apply_norm
+            # w conv_b shift res y partial stats B H W Co stream
+            for fn in (lib.fdsr_fused_gn_swish_conv3x3,
+                       lib.fdsr_fused_gn_swish_conv3x3_wgmma):
+                fn.argtypes = [p, p, i, i, p, p, p, p, i, f, i, p, p, p, p,
+                               p, p, p, i, i, i, i, p]
+                fn.restype = i
+            for fn in (lib.fdsr_fused_conv_max_channels,
+                       lib.fdsr_fused_conv_wgmma_max_channels):
+                fn.argtypes = []
+                fn.restype = i
             lib.fdsr_channel_stats_tiles.argtypes = [i]
             lib.fdsr_channel_stats_tiles.restype = i
             lib.fdsr_channel_stats.argtypes = [p, p, p, i, i, i, i, p]
             lib.fdsr_channel_stats.restype = i
-            lib.fdsr_gn_swish_apply.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                                p]
+            lib.fdsr_gn_swish_apply.argtypes = [p, p, i, f, p, p, p, i, i, i,
+                                                i, p]
             lib.fdsr_gn_swish_apply.restype = i
             lib.fdsr_error_string.argtypes = [i]
             lib.fdsr_error_string.restype = ctypes.c_char_p

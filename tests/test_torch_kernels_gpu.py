@@ -9,7 +9,7 @@ machine without them:
 import pytest
 import torch
 
-from fastdiffsr_tpu_torch.ops import kernels
+from fastdiffsr_tpu_torch.ops import fused_conv, kernels
 from fastdiffsr_tpu_torch.ops.fused_conv import (
     fused_gn_swish_conv3x3, fused_gn_swish_conv3x3_plain)
 from fastdiffsr_tpu_torch.ops.groupnorm import (
@@ -36,7 +36,14 @@ CASES = {
     "stem_c6": ((6,), 64, 1, False, True, False, False, 17, 33),
     "final_co3": ((64,), 3, 32, True, False, False, False, 16, 16),
     "co_not_multiple_of_tile": ((40,), 80, 8, True, True, False, True, 9, 7),
+    # two N tiles of 128, three row tiles, a shift and a residual
+    "co256": ((32,), 256, 8, True, True, True, True, 36, 20),
+    # one N tile of 128 and a source boundary inside a GroupNorm group
+    "two_sources_co128": ((64, 32), 128, 16, True, True, False, True, 18, 18),
+    "ragged_7x9": ((40,), 48, 8, True, True, True, False, 7, 9),
+    "upsample_conv": ((128,), 128, 32, False, True, False, False, 32, 32),
 }
+ROUTE = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -64,9 +71,16 @@ def test_fused_conv_kernel_matches_plain(cuda, case, dt):
               shift=rnd(B, Co, s=0.1) if with_shift else None,
               res=rnd(B, H, W, Co).to(dt) if with_res else None)
     before = kernels.LAUNCHES["fused_gn_swish_conv3x3"]
+    taken = fused_conv.ROUTE_TAKEN[ROUTE[dt]]
     got = fused_gn_swish_conv3x3(*args, **kw)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["fused_gn_swish_conv3x3"] == before + 1
+    assert fused_conv.ROUTE_TAKEN[ROUTE[dt]] == taken + 1
+    again = fused_gn_swish_conv3x3(*args, **kw)
+    torch.cuda.synchronize()
+    for g1, g2 in zip(got if want_stats else (got,),
+                      again if want_stats else (again,)):
+        assert torch.equal(g1, g2)      # no atomics: the same on every run
     want = fused_gn_swish_conv3x3_plain(*args, **kw)
     if not want_stats:
         got, want = (got,), (want,)
@@ -142,6 +156,119 @@ def test_gn_swish_custom_gradient_on_card(cuda):
     for a, r in zip(*grads):
         torch.testing.assert_close(a, r, rtol=0,
                                    atol=1e-4 * r.abs().max().item())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_statistics_flow_from_kernel_to_kernel(cuda, dt):
+    """K2's output goes straight into K3 and K1 (no PyTorch op between),
+    and K3's own statistics into the next K3: each against the plain
+    version fed the same tensors."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, H, W, C, Co, G = 2, 24, 40, 64, 64, 16
+    x = (torch.randn((B, H, W, C), generator=g, device=cuda) + 0.3).to(dt)
+    gs = torch.randn(C, generator=g, device=cuda) * 0.1 + 1
+    gb = torch.randn(C, generator=g, device=cuda) * 0.1
+    w = torch.randn((3, 3, C, Co), generator=g, device=cuda) * (9 * C) ** -.5
+    b = torch.randn(Co, generator=g, device=cuda) * 0.1
+    st = channel_stats(x)
+    y1, st1 = fused_gn_swish_conv3x3(x, gs, gb, st, w, b, groups=G)
+    y2, st2 = fused_gn_swish_conv3x3(y1, gs, gb, st1, w, b, groups=G, res=x)
+    torch.cuda.synchronize()
+    w1, wst1 = fused_gn_swish_conv3x3_plain(x, gs, gb, st, w, b, groups=G)
+    w2, _ = fused_gn_swish_conv3x3_plain(y1, gs, gb, st1, w, b, groups=G,
+                                         res=x)
+    tol = (lambda ref: 1e-3) if dt == torch.float32 else (
+        lambda ref: ref.abs() * 2 ** -6 + 2e-3)
+    assert ((y1.float() - w1.float()).abs() <= tol(w1.float())).all()
+    assert ((y2.float() - w2.float()).abs() <= tol(w2.float())).all()
+    scale = wst1[:, 1].abs().max().item()
+    torch.testing.assert_close(st1, wst1, rtol=0, atol=1e-4 * scale + 1e-3)
+    k1 = gn_swish(x, gs, gb, G)
+    k1w = gn_swish_plain(x, gs, gb, G)
+    if dt == torch.float32:
+        torch.testing.assert_close(k1, k1w, rtol=0, atol=1e-4)
+    else:
+        assert ((k1.float() - k1w.float()).abs()
+                <= k1w.float().abs() * 2 ** -7 + 1e-5).all()
+
+
+@pytest.mark.parametrize("beta", [-80.0, -95.0, -300.0, 95.0])
+def test_fused_conv_swish_far_from_zero(cuda, beta):
+    """A quarter of the channels get a GroupNorm bias far from zero. Below
+    -87 the e^-x of the swish leaves the range in which the tensor-core
+    kernel's reciprocal is exact, and the kernel holds the denominator at
+    2^126: the result stays finite and within the bf16 tolerance of the
+    plain version (two bf16 steps of the largest term)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, H, W, C, Co, G = 2, 20, 18, 64, 64, 16
+    x = torch.randn((B, H, W, C), generator=g, device=cuda).to(torch.bfloat16)
+    gs = torch.randn(C, generator=g, device=cuda) * 0.1 + 1
+    gb = torch.randn(C, generator=g, device=cuda) * 0.1
+    gb[::4] = beta
+    w = torch.randn((3, 3, C, Co), generator=g, device=cuda) * (9 * C) ** -.5
+    b = torch.randn(Co, generator=g, device=cuda) * 0.1
+    st = channel_stats(x)
+    y, ys = fused_gn_swish_conv3x3(x, gs, gb, st, w, b, groups=G)
+    torch.cuda.synchronize()
+    yw, _ = fused_gn_swish_conv3x3_plain(x, gs, gb, st, w, b, groups=G)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(ys).all()
+    tol = yw.float().abs() * 2 ** -6 + 2e-3 * max(1.0, beta)
+    assert ((y.float() - yw.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_fused_conv_channel_limit_is_the_kernels(cuda, dt):
+    """Each kernel says how many input channels its affine arrays hold; the
+    wrapper takes that many and raises for one chunk more."""
+    lib = kernels.load()
+    C = (lib.fdsr_fused_conv_wgmma_max_channels() if dt == torch.bfloat16
+         else lib.fdsr_fused_conv_max_channels())
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((1, 6, 5, C), generator=g, device=cuda).to(dt)
+    gs = torch.randn(C, generator=g, device=cuda) * 0.1 + 1
+    gb = torch.randn(C, generator=g, device=cuda) * 0.1
+    w = torch.randn((3, 3, C, 8), generator=g, device=cuda) * (9 * C) ** -.5
+    b = torch.zeros(8, device=cuda)
+    st = channel_stats_plain(x)
+    y, sty = fused_gn_swish_conv3x3(x, gs, gb, st, w, b, groups=8)
+    torch.cuda.synchronize()
+    yw, stw = fused_gn_swish_conv3x3_plain(x, gs, gb, st, w, b, groups=8)
+    assert ((y.float() - yw.float()).abs()
+            <= yw.float().abs() * 2 ** -6 + 2e-3).all()
+    torch.testing.assert_close(sty, stw, rtol=0, atol=1e-3)
+    with pytest.raises(ValueError, match="exceed"):
+        fused_gn_swish_conv3x3(
+            torch.zeros((1, 4, 4, C + 16), device=cuda, dtype=dt), None,
+            None, None, torch.zeros((3, 3, C + 16, 8), device=cuda), b,
+            apply_norm=False)
+
+
+def test_fused_conv_rejects_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(1, 8, 8, 16, device=cuda)
+    w = torch.randn(3, 3, 16, 8, device=cuda)
+    b = torch.zeros(8, device=cuda)
+    one = torch.ones(16, device=cuda)
+    st = channel_stats_plain(x)
+    with pytest.raises(ValueError, match="contiguous"):     # strided map
+        fused_gn_swish_conv3x3(
+            torch.randn(1, 8, 16, 8, device=cuda).transpose(2, 3), None,
+            None, None, w, b, apply_norm=False)
+    with pytest.raises(TypeError):                          # wrong dtype
+        fused_gn_swish_conv3x3(x.half(), None, None, None, w, b,
+                               apply_norm=False)
+    with pytest.raises(ValueError, match="stats_in"):       # float64 sums
+        fused_gn_swish_conv3x3(x, one, one, st.double(), w, b, groups=4)
+    with pytest.raises(ValueError, match="one device"):     # weights on CPU
+        fused_gn_swish_conv3x3(x, None, None, None, w.cpu(), b,
+                               apply_norm=False)
+    with pytest.raises(ValueError, match="res must be"):    # residual dtype
+        fused_gn_swish_conv3x3(x.bfloat16(), None, None, None, w, b,
+                               apply_norm=False,
+                               res=torch.zeros(1, 8, 8, 8, device=cuda))
+    with pytest.raises(ValueError, match="exceed"):         # too wide
+        fused_gn_swish_conv3x3(
+            torch.zeros(1, 4, 4, 2048, device=cuda), None, None, None,
+            torch.zeros(3, 3, 2048, 8, device=cuda), b, apply_norm=False)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
