@@ -15,7 +15,8 @@ limit:
    (recorded from a fused forward), in bf16 (the wgmma kernel) and f32
    (the CUDA-core kernel; each row names the kernel that ran), with the
    kernel's, the plain version's and one F.conv2d's times and the least
-   time the card could take;
+   time the card could take; then f32 again at batch 1, the validation
+   batch, where the f32 kernel takes smaller tiles;
 3. the same for K2 (channel statistics) at its shapes;
 4. one full-width UNet eval at 256x256, fused forward against the plain
    UNet (its Blocks on gn_swish_reference), f32 (and bf16 fused against
@@ -41,7 +42,7 @@ limit:
    synthetic pack from --seed (45 K1 launches per step, steady steps/s
    and peak memory), a checkpoint that reloads bit-equal, then ``-p val``
    from it on a few images (PSNR/SSIM, 49 K3 and 4 K2 launches per UNet
-   eval).
+   eval, seconds per image).
 
 Kernel times: ``ms`` is device time per call, the CUDA-event time of one
 replay of a CUDA graph that holds REPS calls (no host time between the
@@ -114,18 +115,34 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_of(mangled):
+    """'name<template args>' of a kernel from its mangled name. The name
+    is the one whose length prefix says it ends in '_kernel' (the prefix
+    may follow the digits of a namespace hash directly)."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):
+            n = int(mangled[i:m.end()])
+            name = mangled[m.end():m.end() + n]
+            if re.fullmatch(r"[a-z][a-z0-9_]*_kernel", name):
+                rest = mangled[m.end() + n:]      # template args, params
+                ends = [k for k in (rest.find("Ev"), rest.find("EP")) if k >= 0]
+                rest = rest[:min(ends)] if ends else rest
+                args = re.findall(r"Li(\d+)E|I(f|13__nv_bfloat16)", rest)
+                return name + "<" + ",".join(
+                    a or ("f32" if t == "f" else "bf16") for a, t in args) + ">"
+    return "?"
+
+
 def ptxas_report(log):
     """One string per kernel from nvcc's ``-Xptxas -v`` lines: its name,
     registers, and the bytes it spills."""
     import re
     out, name, spill = [], "?", ""
     for ln in log:
-        m = re.search(r"Compiling entry function '_ZN4fdsr\S*?\d\d"
-                      r"([a-z_]+_kernel)(\S*?)E[vP]", ln)
+        m = re.search(r"Compiling entry function '(_ZN4fdsr\S*)'", ln)
         if m:
-            args = re.findall(r"Li(\d+)E|I(f|13__nv_bfloat16)", m.group(2))
-            name = m.group(1) + "<" + ",".join(
-                a or ("f32" if t == "f" else "bf16") for a, t in args) + ">"
+            name = kernel_of(m.group(1))
         elif "spill stores" in ln:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                r"spill loads", ln).groups()
@@ -232,10 +249,10 @@ def record_calls(fp, x, level):
     return k3, k2
 
 
-def phase_k3(sigs, B, reps, card, seed):
-    """K3 against its plain version at every signature of ``sigs`` in bf16
-    and f32, then the device and wall times of the kernel, the plain
-    version and F.conv2d."""
+def phase_k3(sigs, B, reps, card, seed, dtypes=("bf16", "f32")):
+    """K3 against its plain version at every signature of ``sigs`` at batch
+    ``B`` in each of ``dtypes``, then the device and wall times of the
+    kernel, the plain version and F.conv2d."""
     import torch
     import torch.nn.functional as F
 
@@ -249,8 +266,9 @@ def phase_k3(sigs, B, reps, card, seed):
     for sig, count in sorted(sigs.items()):
         Cs, H, W, Co, norm, want_stats, has_shift, has_res, groups = sig
         C = sum(Cs)
-        for dt_name, dt in (("bf16", torch.bfloat16),
-                            ("f32", torch.float32)):
+        for dt_name in dtypes:
+            dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dt_name]
+
             def rnd(*shape, s=1.0):
                 return torch.randn(shape, generator=g, device=dev) * s
             xs = tuple(rnd(B, H, W, c).to(dt) for c in Cs)
@@ -331,6 +349,26 @@ def phase_k3(sigs, B, reps, card, seed):
                   f" | bound {b_ms:.3f} ms ({b_by})", flush=True)
             del xs, stats, args, kw
     return rows, ok
+
+
+def total(rows, key, dt="bf16", per="calls_per_eval"):
+    """Sum of ``key`` over the rows of type ``dt``, weighted by calls."""
+    return sum(r[key] * r[per] for r in rows if r["dtype"] == dt)
+
+
+def print_k3_totals(rows, card):
+    """One ``[K3 total ...]`` line per type of ``rows`` (one batch)."""
+    for dt in sorted({r["dtype"] for r in rows}):
+        B = rows[0]["B"]
+        routes = {r["kernel_route"] for r in rows if r["dtype"] == dt}
+        calls = sum(r["calls_per_eval"] for r in rows if r["dtype"] == dt)
+        print(f"[K3 total {dt} B={B}] {card} | per UNet eval ({calls} calls) on "
+              f"{'/'.join(sorted(routes))}, device: kernel "
+              f"{total(rows, 'ms', dt):.3f} ms, plain "
+              f"{total(rows, 'plain_ms', dt):.3f} ms, F.conv2d "
+              f"{total(rows, 'library_ms', dt):.3f} ms | wall: kernel "
+              f"{total(rows, 'wall_ms', dt):.3f} ms | bound "
+              f"{total(rows, 'bound_ms', dt):.3f} ms", flush=True)
 
 
 def phase_k2(sigs, B, reps, card, seed):
@@ -685,7 +723,9 @@ def phase_train(cfg, card, seed):
           f"{want_k3}, all on the float32 CUDA-core kernel: "
           f"{routes['cuda_cores']}), K2 {launches['channel_stats']} (want "
           f"{want_k2}), K1 "
-          f"{launches['gn_swish']} | wall {vwall:.1f} s "
+          f"{launches['gn_swish']} | {res.get('avg_time', math.nan):.3f} s "
+          f"per image after the first, wall {vwall:.1f} s "
+          f"({vwall / VAL_IMAGES:.3f} s per image) "
           f"{'ok' if val_ok else 'FAIL'}", flush=True)
     detail = {"steps": TRAIN_STEPS, "batch": B_TRAIN, "T": T,
               "l_pix": losses, "steady_steps_per_s": rate, "wall_s": wall,
@@ -760,9 +800,11 @@ def main(argv=None) -> int:
     ok &= n_k3 == 49 and n_k2 == 4
     del x
     k3_rows, k3_ok = phase_k3(k3_sigs, B, REPS, card, args.seed)
+    k3_b1_rows, k3_b1_ok = phase_k3(k3_sigs, 1, REPS, card, args.seed,
+                                    dtypes=("f32",))
     k2_rows, k2_ok = phase_k2(k2_sigs, B, REPS, card, args.seed)
-    ok &= k3_ok and k2_ok
-    detail["k3"], detail["k2"] = k3_rows, k2_rows
+    ok &= k3_ok and k3_b1_ok and k2_ok
+    detail["k3"], detail["k3_b1"], detail["k2"] = k3_rows, k3_b1_rows, k2_rows
 
     # 4. one full-width UNet eval, fused vs plain
     Bu = B_UNET
@@ -871,11 +913,9 @@ def main(argv=None) -> int:
 
     def k3_route_of(dt):
         """The kernel every K3 row of that type ran on (or "mixed")."""
-        seen = {r["kernel_route"] for r in k3_rows if r["dtype"] == dt}
+        seen = {r["kernel_route"] for r in k3_rows + k3_b1_rows
+                if r["dtype"] == dt}
         return seen.pop() if len(seen) == 1 else "mixed"
-
-    def total(rows, key, dt="bf16", per="calls_per_eval"):
-        return sum(r[key] * r[per] for r in rows if r["dtype"] == dt)
 
     def by(rows, dt="bf16", per="calls_per_eval"):
         ops = sum(r["bound_ms"] * r[per] for r in rows
@@ -883,14 +923,8 @@ def main(argv=None) -> int:
         return ("operations" if ops >= total(rows, "bound_ms", dt, per) / 2
                 else "bytes")
 
-    for dt in ("bf16", "f32"):
-        print(f"[K3 total] {card} | {dt} per UNet eval (B={B_KERNEL}, 49 "
-              f"calls) on {k3_route_of(dt)}, device: kernel "
-              f"{total(k3_rows, 'ms', dt):.3f} ms, plain "
-              f"{total(k3_rows, 'plain_ms', dt):.3f} ms, F.conv2d "
-              f"{total(k3_rows, 'library_ms', dt):.3f} ms | wall: kernel "
-              f"{total(k3_rows, 'wall_ms', dt):.3f} ms | bound "
-              f"{total(k3_rows, 'bound_ms', dt):.3f} ms", flush=True)
+    print_k3_totals(k3_rows, card)
+    print_k3_totals(k3_b1_rows, card)
     k1_tot = {k: total(k1_rows, k, "f32", "calls_per_forward")
               for k in ("ms", "plain_ms", "bound_ms", "two_call_library_ms",
                         "reference_ms", "wall_ms", "plain_wall_ms",
@@ -943,7 +977,10 @@ def main(argv=None) -> int:
          "bound_ms": total(k3_rows, "bound_ms", "f32"),
          "bound_by": by(k3_rows, "f32"),
          "library_ms": total(k3_rows, "library_ms", "f32"),
-         "wall_ms": total(k3_rows, "wall_ms", "f32")},
+         "wall_ms": total(k3_rows, "wall_ms", "f32"),
+         # per eval at batch 1, the validation batch
+         "ms_b1": total(k3_b1_rows, "ms", "f32"),
+         "library_ms_b1": total(k3_b1_rows, "library_ms", "f32")},
         {"name": "channel_stats", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/channel_stats.cu",
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:143",

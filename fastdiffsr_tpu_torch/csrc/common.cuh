@@ -7,10 +7,61 @@
 // result is the same on every run.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fdsr {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous global -> shared copies. The copy reads src_bytes of src and
+// zero-fills the rest of the destination (src_bytes = 0: zeros only).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 1 / d for 1 <= d <= 2^126: the reciprocal approximation refined by two
+// Newton steps, without the range check and branch of IEEE division (that
+// branch kept the elements of a vector from overlapping). It agreed with
+// IEEE 1 / d wherever the tests compared them; that it is rounded to
+// nearest for every d is not proven.
+__device__ __forceinline__ float rcp_newton(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  r = fmaf(r, fmaf(-d, r, 1.f), r);
+  return fmaf(r, fmaf(-d, r, 1.f), r);
+}
+
+// swish(x) = x * (1 / (1 + e^-x)) with the exact expf, each step rounded on
+// its own as the plain PyTorch version computes it; below x = -87 the
+// denominator is held at 2^126, where the result is under 1e-35 in size
+// either way
+__device__ __forceinline__ float swish_exact(float x) {
+  return __fmul_rn(x, rcp_newton(fminf(__fadd_rn(1.f, expf(-x)), 0x1p126f)));
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);

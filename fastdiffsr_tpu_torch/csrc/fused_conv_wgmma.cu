@@ -140,26 +140,6 @@ struct Geo {
                 "the epilogue's tile and partial sums fit the stages");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
                "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
@@ -287,23 +267,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
-}
-
-// 1 / d for 1 <= d <= 2^126: the reciprocal approximation refined by two
-// Newton steps, without the range check and branch of IEEE division. It
-// agreed with IEEE 1 / d wherever the tests compared them; that it is
-// rounded to nearest for every d is not proven.
-__device__ __forceinline__ float rcp_newton(float d) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
-  r = fmaf(r, fmaf(-d, r, 1.f), r);
-  return fmaf(r, fmaf(-d, r, 1.f), r);
-}
-
-// x * (1 / (1 + e^-x)); below x = -87 the denominator is held at 2^126,
-// where the result is under 1e-35 in size either way
-__device__ __forceinline__ float swish_exact(float x) {
-  return __fmul_rn(x, rcp_newton(fminf(__fadd_rn(1.f, expf(-x)), 0x1p126f)));
 }
 
 // swish(v * s + b) of the two bf16 values of one 32-bit word, rounded back

@@ -17,8 +17,11 @@ affine themselves (``block_group_mean_inv`` in ``csrc/common.cuh``), and
 On a CUDA tensor the wrapper launches a hand-written kernel or raises.
 :func:`k3_route` names which: bfloat16 maps go to the tensor-core
 implicit GEMM of ``csrc/fused_conv_wgmma.cu`` (``"wgmma"``), float32 maps
-to the IEEE float32 kernel of ``csrc/fused_conv.cu`` (``"cuda_cores"``),
-which must not pass through TF32. The plain PyTorch version
+to the register-blocked, pipelined implicit GEMM in IEEE float32 FFMA of
+``csrc/fused_conv.cu`` (``"cuda_cores"``), which must not pass through
+TF32; that kernel picks its tile from the grid a call gives, so the
+wrapper asks it for the tile count that sizes the partial statistics
+(``fdsr_fused_conv_tiles``). The plain PyTorch version
 (:func:`fused_gn_swish_conv3x3_plain`) runs only for tensors on the CPU;
 it is also the kernels' oracle on the card.
 """
@@ -39,10 +42,11 @@ ROUTE_TAKEN = {"wgmma": 0, "cuda_cores": 0}
 
 def k3_route(dtype: torch.dtype, Cs: Sequence[int], Co: int) -> str:
     """Which hand-written kernel takes a K3 call on the card: ``"wgmma"``
-    (bfloat16, tensor cores) or ``"cuda_cores"`` (float32 FMA). The
-    tensor-core kernel pads ragged widths (C = 6, Co = 3) in shared memory
-    and masks ragged H, W, so the type alone decides. Raises for what
-    neither kernel takes."""
+    (bfloat16, an implicit GEMM on the tensor cores) or ``"cuda_cores"``
+    (float32, an implicit GEMM in IEEE float32 FFMA, 8 pixels x 8 output
+    channels per thread, staged with cp.async). Both pad ragged widths
+    (C = 6, Co = 3) in shared memory and mask ragged H, W, so the type
+    alone decides. Raises for what neither kernel takes."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_gn_swish_conv3x3: dtype {dtype} "
                         "(want float32 or bfloat16)")
@@ -177,20 +181,22 @@ def _fused_cuda(xs, gn_scale, gn_bias, stats_in, w, b, shift, res, groups,
 
     lib = kernels.load()
     if route == "wgmma":
-        launch, tiles, max_c = (lib.fdsr_fused_gn_swish_conv3x3_wgmma,
-                                lib.fdsr_fused_conv_wgmma_tiles,
-                                lib.fdsr_fused_conv_wgmma_max_channels())
+        launch, max_c = (lib.fdsr_fused_gn_swish_conv3x3_wgmma,
+                         lib.fdsr_fused_conv_wgmma_max_channels())
     else:
-        launch, tiles, max_c = (lib.fdsr_fused_gn_swish_conv3x3,
-                                lib.fdsr_fused_conv_tiles,
-                                lib.fdsr_fused_conv_max_channels())
+        launch, max_c = (lib.fdsr_fused_gn_swish_conv3x3,
+                         lib.fdsr_fused_conv_max_channels())
     if C > max_c:
         raise ValueError(f"fused_gn_swish_conv3x3: {C} input channels exceed "
                          f"the {route} kernel's {max_c}")
     y = torch.empty((B, H, W, Co), dtype=dtype, device=dev)
     partial = stats = None
     if want_stats:
-        partial = torch.empty((B, tiles(H, W), 2, Co), dtype=torch.float32,
+        # the float32 kernel's tile, and so its tile count, depends on the
+        # grid the call gives
+        n_tiles = (lib.fdsr_fused_conv_wgmma_tiles(H, W) if route == "wgmma"
+                   else lib.fdsr_fused_conv_tiles(B, H, W, Co))
+        partial = torch.empty((B, n_tiles, 2, Co), dtype=torch.float32,
                               device=dev)
         stats = torch.empty((B, 2, Co), dtype=torch.float32, device=dev)
     p = kernels.ptr

@@ -114,9 +114,10 @@ def load() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.fdsr_fused_conv_wgmma_tiles.argtypes = [i, i]   # H W
+            lib.fdsr_fused_conv_tiles.argtypes = [i, i, i, i]   # B H W Co
             for fn in (lib.fdsr_fused_conv_tiles,
                        lib.fdsr_fused_conv_wgmma_tiles):
-                fn.argtypes = [i, i]
                 fn.restype = i
             # x1 x2 C1 C2 stats1 stats2 gamma beta groups eps apply_norm
             # w conv_b shift res y partial stats B H W Co stream

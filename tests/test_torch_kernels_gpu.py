@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from fastdiffsr_tpu_torch.ops import fused_conv, kernels
+from test_torch_k3_f32_tiling import cdiv, f32_tile
+from test_torch_k3_route import FULL_WIDTH
 from fastdiffsr_tpu_torch.ops.fused_conv import (
     fused_gn_swish_conv3x3, fused_gn_swish_conv3x3_plain)
 from fastdiffsr_tpu_torch.ops.groupnorm import (
@@ -44,17 +46,40 @@ CASES = {
     "upsample_conv": ((128,), 128, 32, False, True, False, False, 32, 32),
 }
 ROUTE = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
+# float32 cases for each tile of csrc/fused_conv.cu, as (source widths,
+# Co, groups, apply_norm, want_stats, shift, res, H, W, B, the tile that
+# test_torch_k3_f32_tiling.f32_tile says the launcher takes)
+F32_CASES = {
+    # batch 1, the validation batch: the small tile (four groups split each
+    # stage's channels), 64 blocks at 32^2 and 256 at 64^2
+    "b1_32x32_co256": ((256,), 256, 32, True, True, True, True, 32, 32, 1,
+                       "small"),
+    "b1_64x64_co256": ((256,), 256, 32, True, True, False, False, 64, 64, 1,
+                       "small"),
+    "b1_two_sources_256_256": ((256, 256), 256, 32, True, True, False,
+                               False, 32, 32, 1, "small"),
+    "wide_two_sources_256_256": ((256, 256), 256, 32, True, True, True,
+                                 False, 32, 32, 9, "wide"),
+    "wide64_two_sources_128_64": ((128, 64), 64, 32, True, True, True, True,
+                                  64, 64, 9, "wide64"),
+    "wide64_stem_c6": ((6,), 64, 1, False, True, False, False, 64, 64, 9,
+                       "wide64"),
+    "wide_no_norm": ((128,), 128, 32, False, True, False, False, 64, 64, 5,
+                     "wide"),
+    "narrow_final_co3": ((64,), 3, 32, True, False, False, False, 40, 70, 2,
+                         "narrow"),
+    "small_ragged_7x9": ((40,), 48, 8, True, True, True, True, 7, 9, 1,
+                         "small"),
+}
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_fused_conv_kernel_matches_plain(cuda, case, dt):
-    """f32: atol 1e-3 (summation order); bf16: two bf16 steps of |y|
-    (a sum that differs in its last float32 bits rounds to the
-    neighbouring bf16 value). Statistics: 1e-4 of the sum of squares'
-    scale."""
-    Cs, Co, G, norm, want_stats, with_shift, with_res, H, W = CASES[case]
-    B, C = 2, sum(Cs)
+def check_kernel_against_plain(cuda, dt, Cs, Co, G, norm, want_stats,
+                               with_shift, with_res, H, W, B):
+    """One K3 call on the card against its plain version: the launch is
+    counted on the route of its type, a second call gives the same bits,
+    y is within atol 1e-3 (f32) or two bf16 steps of |y| (bf16), the
+    statistics within 1e-4 of the sum of squares' scale."""
+    C = sum(Cs)
     g = torch.Generator(device=cuda).manual_seed(0)
 
     def rnd(*shape, s=1.0):
@@ -94,6 +119,39 @@ def test_fused_conv_kernel_matches_plain(cuda, case, dt):
         scale = want[1][:, 1].abs().max().item()
         torch.testing.assert_close(got[1], want[1], rtol=0,
                                    atol=1e-4 * scale + 1e-3)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_conv_kernel_matches_plain(cuda, case, dt):
+    """f32: atol 1e-3 (summation order); bf16: two bf16 steps of |y|
+    (a sum that differs in its last float32 bits rounds to the
+    neighbouring bf16 value). Statistics: 1e-4 of the sum of squares'
+    scale."""
+    check_kernel_against_plain(cuda, dt, *CASES[case], B=2)
+
+
+@pytest.mark.parametrize("case", sorted(F32_CASES))
+def test_fused_conv_f32_tiles_match_plain(cuda, case):
+    """The float32 kernel on each of its tiles, the one the launcher takes
+    for the case's grid; tolerances as in the test above."""
+    *args, B, tile = F32_CASES[case]
+    Cs, Co, H, W = args[0], args[1], args[7], args[8]
+    from test_torch_k3_f32_tiling import TILES
+    assert f32_tile(B, H, W, Co) == TILES[tile]
+    check_kernel_against_plain(cuda, torch.float32, *args, B=B)
+
+
+def test_f32_tile_count_is_the_launchers(cuda):
+    """The library's tile count, which sizes the partial statistics, is
+    that of the tile test_torch_k3_f32_tiling.f32_tile mirrors, at every
+    full-width shape at batch 16 and 1."""
+    lib = kernels.load()
+    for B in (16, 1):
+        for _, hw, Co in FULL_WIDTH:
+            th, tw, _, _ = f32_tile(B, hw, hw, Co)
+            assert lib.fdsr_fused_conv_tiles(B, hw, hw, Co) == (
+                cdiv(hw, th) * cdiv(hw, tw)), (B, hw, Co)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -159,12 +217,14 @@ def test_gn_swish_custom_gradient_on_card(cuda):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_statistics_flow_from_kernel_to_kernel(cuda, dt):
+@pytest.mark.parametrize("B,H,W", [(2, 24, 40), (9, 64, 64)])
+def test_statistics_flow_from_kernel_to_kernel(cuda, dt, B, H, W):
     """K2's output goes straight into K3 and K1 (no PyTorch op between),
     and K3's own statistics into the next K3: each against the plain
-    version fed the same tensors."""
+    version fed the same tensors. In f32 the first shape runs on the small
+    tile, the second on the 16x16 one."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    B, H, W, C, Co, G = 2, 24, 40, 64, 64, 16
+    C, Co, G = 64, 64, 16
     x = (torch.randn((B, H, W, C), generator=g, device=cuda) + 0.3).to(dt)
     gs = torch.randn(C, generator=g, device=cuda) * 0.1 + 1
     gb = torch.randn(C, generator=g, device=cuda) * 0.1
@@ -192,16 +252,17 @@ def test_statistics_flow_from_kernel_to_kernel(cuda, dt):
                 <= k1w.float().abs() * 2 ** -7 + 1e-5).all()
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("beta", [-80.0, -95.0, -300.0, 95.0])
-def test_fused_conv_swish_far_from_zero(cuda, beta):
+def test_fused_conv_swish_far_from_zero(cuda, beta, dt):
     """A quarter of the channels get a GroupNorm bias far from zero. Below
-    -87 the e^-x of the swish leaves the range in which the tensor-core
-    kernel's reciprocal is exact, and the kernel holds the denominator at
-    2^126: the result stays finite and within the bf16 tolerance of the
-    plain version (two bf16 steps of the largest term)."""
+    -87 the e^-x of the swish leaves the range in which the kernels'
+    reciprocal (rcp_newton) is exact, and they hold the denominator at
+    2^126: the result stays finite and within the tolerance of the plain
+    version (f32: atol 1e-3; bf16: two bf16 steps of the largest term)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     B, H, W, C, Co, G = 2, 20, 18, 64, 64, 16
-    x = torch.randn((B, H, W, C), generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.randn((B, H, W, C), generator=g, device=cuda).to(dt)
     gs = torch.randn(C, generator=g, device=cuda) * 0.1 + 1
     gb = torch.randn(C, generator=g, device=cuda) * 0.1
     gb[::4] = beta
@@ -212,6 +273,9 @@ def test_fused_conv_swish_far_from_zero(cuda, beta):
     torch.cuda.synchronize()
     yw, _ = fused_gn_swish_conv3x3_plain(x, gs, gb, st, w, b, groups=G)
     assert torch.isfinite(y.float()).all() and torch.isfinite(ys).all()
+    if dt == torch.float32:
+        torch.testing.assert_close(y, yw, rtol=0, atol=1e-3)
+        return
     tol = yw.float().abs() * 2 ** -6 + 2e-3 * max(1.0, beta)
     assert ((y.float() - yw.float()).abs() <= tol).all()
 
@@ -223,6 +287,7 @@ def test_fused_conv_channel_limit_is_the_kernels(cuda, dt):
     lib = kernels.load()
     C = (lib.fdsr_fused_conv_wgmma_max_channels() if dt == torch.bfloat16
          else lib.fdsr_fused_conv_max_channels())
+    assert C >= 1024      # the UNet's widest K3 input has 512
     g = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn((1, 6, 5, C), generator=g, device=cuda).to(dt)
     gs = torch.randn(C, generator=g, device=cuda) * 0.1 + 1

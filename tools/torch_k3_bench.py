@@ -7,8 +7,9 @@ shapes of one full-width UNet eval, without the rest of the smoke.
 Builds the kernels, records the K3 call signatures of one fused forward
 at batch 16 (49 calls in 23 shapes), holds each kernel against its plain
 version at every shape (or at those of ``--shapes``, indices into the
-sorted signatures) and prints chip_smoke's line per shape and type, then
-the per-eval totals. A failed comparison exits non-zero.
+sorted signatures) in bf16 and f32 at batch 16 and in f32 at batch 1 (the
+validation batch), and prints chip_smoke's line per shape, type and
+batch, then the per-eval totals. A failed comparison exits non-zero.
 """
 
 import argparse
@@ -53,16 +54,10 @@ def main(argv=None) -> int:
         sigs = {keep[int(k)]: sigs[keep[int(k)]]
                 for k in args.shapes.split(",")}
     rows, ok = cs.phase_k3(sigs, B, cs.REPS, card, 0)
-    for dt in ("bf16", "f32"):
-        tot = {k: sum(r[k] * r["calls_per_eval"] for r in rows
-                      if r["dtype"] == dt)
-               for k in ("ms", "wall_ms", "library_ms", "bound_ms")}
-        print(f"[K3 total] {card} | {dt} B={B} per eval "
-              f"({sum(sigs.values())} calls): device {tot['ms']:.3f} ms, wall "
-              f"{tot['wall_ms']:.3f} ms, F.conv2d {tot['library_ms']:.3f} ms, "
-              f"bound {tot['bound_ms']:.3f} ms {'ok' if ok else 'FAIL'}",
-              flush=True)
-    return 0 if ok else 1
+    rows_b1, ok_b1 = cs.phase_k3(sigs, 1, cs.REPS, card, 0, dtypes=("f32",))
+    cs.print_k3_totals(rows, card)
+    cs.print_k3_totals(rows_b1, card)
+    return 0 if ok and ok_b1 else 1
 
 
 if __name__ == "__main__":
