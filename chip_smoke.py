@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (fastdiffsr_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--gdp-reference]
 
 Run from the repository root. It needs one CUDA device and the CUDA
 toolkit (nvcc); without a device it exits non-zero and prints no result.
@@ -42,7 +42,37 @@ limit:
    synthetic pack from --seed (45 K1 launches per step, steady steps/s
    and peak memory), a checkpoint that reloads bit-equal, then ``-p val``
    from it on a few images (PSNR/SSIM, 49 K3 and 4 K2 launches per UNet
-   eval, seconds per image).
+   eval, seconds per image);
+10. the fast samplers: ``cli.infer`` at full width in bf16 on the fused
+   forward with DDIM and then DPM-Solver++ at 10 steps (49 K3 launches,
+   all on wgmma, and 4 K2 per eval), then ``sample_ddim`` and
+   ``sample_dpm`` on the fused f32 forward against the plain UNet (on
+   gn_swish_reference) from the same initial noise, with the bf16 fused
+   forward as a control that must fall outside the tolerance;
+11. K1 against its plain version at every distinct K1 shape of one SR3
+   (ddpm) and one guided (gdp) training forward at batch 4, 256x256, that
+   phase 6 did not measure, with the same columns, then in f32 at batch
+   1, the batch of their ``-p val`` runs, and K1's time per forward of
+   each net at both batches;
+12. the ddpm, tesr and gdp variants: per variant a train step on K1
+   against one on gn_swish_reference (randomized weights), then
+   ``cli.sr_mfe -p train`` at full width (45 K1 launches per step for
+   SR3, 29 for the guided UNet; steady steps/s; peak memory; a checkpoint
+   that reloads bit-equal) and ``-p val`` on one image (ddpm: ancestral
+   T=1000; tesr, gdp: DDIM 50 steps; K1 launches per eval, seconds per
+   image); then ``cli.infer`` of the ddpm config in bf16 on the plain
+   forward with DPM-Solver++ at 20 steps.
+
+Float32 is full float32 throughout (no TF32, as the CLIs set it). The
+CLIs set cuDNN's algorithm choice themselves (``device.
+set_cudnn_autotuning``): timed for ``-p train``, heuristics for ``-p val``
+and ``infer``. The script's own phases time them (``own_phases_regime``);
+PyTorch keeps the first plan of a shape, so ``-p val`` at batch 1 may
+reuse a plan timed for phase 2's F.conv2d at the same shape.
+
+``--gdp-reference`` runs, after the build, only the gdp variant's
+evaluation at its reference shape (ancestral T=1000 at 256x256 through
+``cli.infer``, one image, f32 and bf16), which is too long for every run.
 
 Kernel times: ``ms`` is device time per call, the CUDA-event time of one
 replay of a CUDA graph that holds REPS calls (no host time between the
@@ -57,13 +87,14 @@ kernel), every number of it measured in this run or, for ``bound_ms``,
 computed from this run's shapes; the last line is {"ok": true, "device":
 {...}}. Per-shape details go to build/chip_smoke.json. Any failed check
 exits non-zero. The ``[time]`` line says how long the run took, the
-kernel build included: about two minutes on an H100.
+kernel build included: about three minutes on an H100.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -104,7 +135,25 @@ B_TRAIN = 4         # phases 6-9: the train config's batch
 TRAIN_STEPS = 24    # phase 9
 TRAIN_IMAGES = 16
 VAL_IMAGES = 2
-K1_PER_FORWARD = 45  # 44 ResnetBlock Blocks + the final Block
+# K1 calls per UNet forward: FastDiffSR and SR3, 44 ResnetBlock Blocks +
+# the final Block; guided, 28 ResBlock in-norms + the final out-norm
+K1_PER_FORWARD = {"fastdiffsr": 45, "ddpm": 45, "tesr": 45, "gdp": 29}
+SAMPLER_STEPS = 10   # phase 10: DDIM / DPM-Solver++ steps
+B_SAMPLER = 2        # phase 10: batch of the fused-vs-plain sampler check
+# fused f32 vs plain sampling: each eval may differ by SAMPLER_EPS_GAP
+# (about twice the f32 fused-vs-plain gap of one eval in phase 4,
+# 4.65e-6), and step k carries it into x with the gain of
+# sampler_gains(); the tolerance is their product summed over the steps.
+# The first step's gain (~999 of the DDIM sum) is an upper bound that the
+# x0 clip removes wherever x0 saturates, so every run also takes a control
+# reading: the bf16 fused forward against the same plain f32 run must
+# exceed the tolerance, or the check could not tell a bf16-sized fault.
+SAMPLER_EPS_GAP = 1e-5
+VARIANT_STEPS = 6    # phase 12: full-width train steps per variant
+# phase 12: the val sampler of each variant (ddpm: its own T=1000)
+VARIANT_VAL = {"ddpm": None,
+               "tesr": {"sampler": "ddim", "ddim_steps": 50},
+               "gdp": {"sampler": "ddim", "ddim_steps": 50}}
 
 
 def card_line() -> str:
@@ -197,18 +246,45 @@ def timed(fn, reps: int):
     return device_ms(fn, reps), time_ms(fn, reps)
 
 
+def _k1_sites():
+    """The UNet modules whose GroupNorm -> Swish calls gn_swish_custom:
+    the FastDiffSR/SR3 Block and the guided UNet."""
+    from fastdiffsr_tpu_torch.models import unet_fastdiffsr, unet_guided
+    return (unet_fastdiffsr, unet_guided)
+
+
 @contextlib.contextmanager
-def reference_norm():
-    """Within the block, every UNet Block runs gn_swish_reference (plain
-    PyTorch, autograd) in place of K1's gn_swish_custom."""
-    from fastdiffsr_tpu_torch.models import unet_fastdiffsr as un
-    from fastdiffsr_tpu_torch.ops.groupnorm import gn_swish_reference
-    orig = un.gn_swish_custom
-    un.gn_swish_custom = gn_swish_reference
+def patched_k1(fn):
+    """Within the block, every UNet GroupNorm -> Swish that runs K1 calls
+    ``fn`` in place of gn_swish_custom."""
+    mods = _k1_sites()
+    orig = [m.gn_swish_custom for m in mods]
+    for m in mods:
+        m.gn_swish_custom = fn
     try:
         yield
     finally:
-        un.gn_swish_custom = orig
+        for m, o in zip(mods, orig):
+            m.gn_swish_custom = o
+
+
+def own_phases_regime():
+    """cuDNN's algorithm choice for the script's own phases: timed. A CLI
+    sets its own (``device.set_cudnn_autotuning``) and this is restored
+    after it. PyTorch keeps the plan of a convolution shape it met first
+    whatever the setting later is, so the own phases, which meet the
+    training shapes before ``-p train`` does, must time them as that CLI
+    would."""
+    from fastdiffsr_tpu_torch.device import set_cudnn_autotuning
+    set_cudnn_autotuning(True)
+
+
+def reference_norm():
+    """Within the block, every UNet Block (and the guided UNet's K1
+    norms) runs gn_swish_reference (plain PyTorch, autograd) in place of
+    K1's gn_swish_custom."""
+    from fastdiffsr_tpu_torch.ops.groupnorm import gn_swish_reference
+    return patched_k1(gn_swish_reference)
 
 
 def bound(flops: float, nbytes: float, dt: str):
@@ -414,31 +490,29 @@ def phase_k2(sigs, B, reps, card, seed):
 
 def record_k1(net, x, level):
     """Run one forward of ``net`` and return the distinct K1 call
-    signatures (H, W, C, groups) of its Blocks with their call counts,
-    and how many Blocks saw a non-contiguous NHWC view."""
+    signatures (H, W, C, groups) with their call counts, and how many
+    K1 calls got a map that is not a contiguous NHWC tensor."""
     import torch
 
-    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import Block
+    from fastdiffsr_tpu_torch.ops.groupnorm import gn_swish_custom
     sigs, strided = {}, [0]
 
-    def hook(mod, args):
-        h = args[0]
-        sig = (h.shape[2], h.shape[3], h.shape[1], mod.block[0].num_groups)
+    def rec(h, scale, bias, groups, eps=1e-5):
+        sig = (h.shape[1], h.shape[2], h.shape[3], groups)
         sigs[sig] = sigs.get(sig, 0) + 1
-        strided[0] += not h.permute(0, 2, 3, 1).is_contiguous()
+        strided[0] += not h.is_contiguous()
+        return gn_swish_custom(h, scale, bias, groups, eps)
 
-    hooks = [m.register_forward_pre_hook(hook) for m in net.modules()
-             if isinstance(m, Block)]
-    try:
-        with torch.no_grad():
-            net(x, level)
-    finally:
-        for h in hooks:
-            h.remove()
+    with torch.no_grad(), patched_k1(rec):
+        net(x, level)
     return sigs, strided[0]
 
 
-def phase_k1(sigs, B, reps, card, seed):
+def phase_k1(sigs, B, reps, card, seed, dtypes=("f32", "bf16")):
+    """K1 against its plain version at every signature of ``sigs`` at
+    batch ``B`` in each of ``dtypes``, then the device and wall times of
+    the kernel, the plain version, gn_swish_reference and F.group_norm +
+    F.silu."""
     import torch
     import torch.nn.functional as F
 
@@ -448,8 +522,8 @@ def phase_k1(sigs, B, reps, card, seed):
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     rows, ok = [], True
     for (H, W, C, G), count in sorted(sigs.items()):
-        for dt_name, dt in (("f32", torch.float32),
-                            ("bf16", torch.bfloat16)):
+        for dt_name in dtypes:
+            dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dt_name]
             x = (torch.randn((B, H, W, C), generator=g, device=dev) * 2
                  + 0.5).to(dt)
             scale = torch.randn(C, generator=g, device=dev) * 0.1 + 1
@@ -537,49 +611,82 @@ def phase_k1_grad(sig, B, card, seed):
             "ok": ok}, ok
 
 
+def randomize_params(net, seed: int):
+    """Every parameter seeded on its device: weights N(0, 1/fan_in),
+    GroupNorm scales 1 + 0.1 N, biases 0.1 N (the guided UNet's
+    zero-initialised layers would otherwise hide half of the net)."""
+    import torch
+    dev = next(net.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            for name, p in m.named_parameters(recurse=False):
+                z = torch.randn(p.shape, generator=g, device=dev)
+                if isinstance(m, torch.nn.GroupNorm) and name == "weight":
+                    p.copy_(1.0 + 0.1 * z)
+                elif name == "weight":
+                    p.copy_(z / math.sqrt(p[0].numel()))
+                else:
+                    p.copy_(0.1 * z)
+    return net
+
+
 def phase_train_parity(cfg, B, card, seed):
-    """One full-width train step with the Blocks on K1 and on
-    gn_swish_reference, from the same weights, batch and injected draws,
-    dropout off, Adam with eps STEP_ADAM_EPS."""
+    """One full-width train step with the K1 norms on K1 and on
+    gn_swish_reference, from the same weights (randomized for the SR3
+    and guided UNets), batch and injected draws, dropout off, Adam with
+    eps STEP_ADAM_EPS."""
     import torch
 
+    from fastdiffsr_tpu_torch.cli.infer import build_unet
     from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
                                                 DiffusionSpec,
                                                 ScheduleBuffers)
-    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
     from fastdiffsr_tpu_torch.ops import kernels
     from fastdiffsr_tpu_torch.train import create_train_state, make_train_step
     dev = torch.device("cuda")
-    unet_opt = dict(cfg["model"]["unet"], dropout=0.0)
+    variant = cfg["model"]["which_model_G"]
+    model_opt = dict(cfg["model"], unet=dict(cfg["model"]["unet"],
+                                             dropout=0.0))
     lr = float(cfg["train"]["optimizer"]["lr"])
-    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
-                          ScheduleBuffers.create(
-                              cfg["model"]["beta_schedule"]["train"],
-                              device=dev))
+    spec = DiffusionSpec.for_variant(variant)
+    eng = DiffusionEngine(spec, ScheduleBuffers.create(
+        cfg["model"]["beta_schedule"]["train"], device=dev))
     g = torch.Generator(device=dev).manual_seed(seed + 5)
     r = int(cfg["datasets"]["train"]["r_resolution"])
     batch = {k: torch.rand((B, r, r, 3), generator=g, device=dev) * 2 - 1
              for k in ("HR", "SR")}
-    gamma, _ = eng.sample_gammas(g, B)
+    if spec.conditioning == "continuous_gamma":
+        draws = {"gamma": eng.sample_gammas(g, B)[0]}
+    else:
+        draws = {"t": torch.randint(0, eng.buffers.num_timesteps, (B,),
+                                    generator=g, device=dev)}
     noise = torch.randn((B, r, r, 3), generator=g, device=dev)
     step = make_train_step(eng, ema_start=0)
+    want_k1 = K1_PER_FORWARD[variant]
     out = {}
+    net = build_unet(model_opt, device=dev, seed=seed)
+    if variant != "fastdiffsr":
+        randomize_params(net, seed + 6)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
     for arm in ("reference", "k1"):
-        net = unet_from_config(unet_opt, device=dev, seed=seed)
+        net.load_state_dict(start)
         state = create_train_state(net, torch.optim.Adam(
             net.parameters(), lr=lr, betas=(0.9, 0.999), eps=STEP_ADAM_EPS))
         kernels.reset_launch_counts()
         with (reference_norm() if arm == "reference"
               else contextlib.nullcontext()):
-            _, m = step(state, batch, None, noise=noise, gamma=gamma)
+            _, m = step(state, batch, None, noise=noise, **draws)
         torch.cuda.synchronize()
         out[arm] = {"loss": m["l_pix"].item(),
                     "grad_norm": m["grad_norm"].item(),
                     "k1": kernels.LAUNCHES["gn_swish"],
-                    "grads": {k: p.grad for k, p in net.named_parameters()},
-                    "params": {k: p.detach()
+                    "grads": {k: p.grad.clone()
+                              for k, p in net.named_parameters()},
+                    "params": {k: p.detach().clone()
                                for k, p in net.named_parameters()}}
-        del state, net
+        del state
+    del net, start
     a, b = out["reference"], out["k1"]
     d_loss = abs(a["loss"] - b["loss"]) / abs(a["loss"])
     d_gn = abs(a["grad_norm"] - b["grad_norm"]) / a["grad_norm"]
@@ -597,9 +704,12 @@ def phase_train_parity(cfg, B, card, seed):
                 for gr in a["grads"].values()) / n_el
     ok = (d_loss <= STEP_TOL["loss"] and d_gn <= STEP_TOL["grad_norm"]
           and d_grad <= STEP_TOL["grad"] and d_par <= STEP_TOL["param"] * lr
-          and a["k1"] == 0 and b["k1"] == K1_PER_FORWARD)
-    print(f"[train step] {card} | full width B={B} {r}x{r} f32, dropout off,"
-          f" injected gamma+noise, Blocks on gn_swish_reference vs K1: loss "
+          and a["k1"] == 0 and b["k1"] == want_k1)
+    label = "" if variant == "fastdiffsr" else f" {variant}"
+    weights = "" if variant == "fastdiffsr" else ", randomized weights"
+    print(f"[train step{label}] {card} | full width B={B} {r}x{r} f32, "
+          f"dropout off{weights}, injected {'+'.join(draws)}+noise, K1 "
+          f"norms on gn_swish_reference vs K1: loss "
           f"{a['loss']:.6f} vs {b['loss']:.6f} (rel {d_loss:.3g}), grad_norm "
           f"{a['grad_norm']:.6g} vs {b['grad_norm']:.6g} (rel {d_gn:.3g}), "
           f"max per-tensor |dgrad|/max|g| {d_grad:.3g} (max |dgrad| "
@@ -607,42 +717,60 @@ def phase_train_parity(cfg, B, card, seed):
           f"max |d| {d_par / lr:.3g} lr (tol {STEP_TOL['param']} lr; slope "
           f"bound lr*max|dgrad|/eps = {dg_abs / STEP_ADAM_EPS:.3g} lr; "
           f"{moved:.3g} of elements moved by more than the tol) | K1 "
-          f"launches {a['k1']} / {b['k1']} (want 0 / {K1_PER_FORWARD}) "
+          f"launches {a['k1']} / {b['k1']} (want 0 / {want_k1}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     del out, a, b
     torch.cuda.empty_cache()
-    return {"rel_loss": d_loss, "rel_grad_norm": d_gn,
+    return {"variant": variant, "rel_loss": d_loss, "rel_grad_norm": d_gn,
             "rel_grad": d_grad, "max_abs_grad_gap": dg_abs,
             "adam_eps": STEP_ADAM_EPS, "param_max_over_lr": d_par / lr,
             "share_moved_over_tol": moved, "ok": ok}, ok
 
 
-def phase_train(cfg, card, seed):
-    """cli.sr_mfe -p train then -p val, on CUDA at full width."""
+def evals_per_image(cfg) -> int:
+    """UNet evals per sampled image of a config's val sampler."""
+    import numpy as np
+    T = int(cfg["model"]["beta_schedule"]["val"]["n_timestep"])
+    diff = cfg["model"].get("diffusion") or {}
+    if (diff.get("sampler") or "ancestral") == "ancestral":
+        return T
+    steps = int(diff.get("ddim_steps") or T)
+    return len(np.unique(np.linspace(0, T - 1, steps).round()))
+
+
+def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
+                sampler=None):
+    """cli.sr_mfe -p train then -p val, on CUDA at full width, for the
+    config's variant; ``sampler`` ({sampler, ddim_steps}) overrides the
+    val sampler."""
     import torch
 
     from fastdiffsr_tpu_torch.cli import sr_mfe
+    from fastdiffsr_tpu_torch.cli.infer import build_unet
     from fastdiffsr_tpu_torch.data import write_pack
-    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
     from fastdiffsr_tpu_torch.ops import fused_conv, kernels
     from fastdiffsr_tpu_torch.train import create_train_state, make_optimizer
     from fastdiffsr_tpu_torch.train.checkpoint import load_state
     dev = torch.device("cuda")
+    variant = cfg["model"]["which_model_G"]
+    label = "" if variant == "fastdiffsr" else f" {variant}"
     work = os.path.join(ROOT, "build", "smoke")
     ds = cfg["datasets"]["train"]
     droot = write_pack(os.path.join(work, f"train_pack_{seed}"),
                        TRAIN_IMAGES, seed + 7, int(ds["l_resolution"]),
                        int(ds["r_resolution"]))
     cfg = json.loads(json.dumps(cfg))
-    cfg["name"] = "chip_smoke_train"
+    cfg["name"] = f"chip_smoke_train{label.replace(' ', '_')}"
     cfg["datasets"]["train"].update(dataroot=droot, datatype="npy",
                                     batch_size=B_TRAIN)
     cfg["datasets"]["val"].update(dataroot=droot, datatype="npy",
-                                  data_len=VAL_IMAGES)
-    cfg["train"].update(n_iter=TRAIN_STEPS, val_freq=10 ** 9,
+                                  data_len=val_images)
+    cfg["train"].update(n_iter=steps, val_freq=10 ** 9,
                         save_checkpoint_freq=10 ** 9, print_freq=8)
+    if sampler:
+        cfg["model"]["diffusion"].update(sampler)
     T = int(cfg["model"]["beta_schedule"]["val"]["n_timestep"])
-    run_cfg = os.path.join(work, "chip_smoke_train.json")
+    run_cfg = os.path.join(work, f"{cfg['name']}.json")
     with open(run_cfg, "w") as f:
         json.dump(cfg, f)
     torch.cuda.synchronize()
@@ -656,35 +784,36 @@ def phase_train(cfg, card, seed):
     launches = dict(kernels.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = summary["l_pix"]
-    want_k1 = K1_PER_FORWARD * TRAIN_STEPS
+    want_k1 = K1_PER_FORWARD[variant] * steps
     ckpt = summary["checkpoint"]
     payload = torch.load(os.path.join(ckpt, "state.pt"), map_location=dev,
                          weights_only=True)
-    init = unet_from_config(cfg["model"]["unet"], device=dev,
-                            seed=seed).state_dict()
-    changed = sum(not torch.equal(init[k], payload["params"][k])
-                  for k in init)
-    net = unet_from_config(cfg["model"]["unet"], device=dev, seed=seed + 1)
+    # the initial weights (the run's seed) differ from the trained ones
+    # in every tensor the steps changed; the reload must overwrite them
+    net = build_unet(cfg["model"], device=dev, seed=seed)
+    changed = sum(not torch.equal(v, payload["params"][k])
+                  for k, v in net.state_dict().items())
     state = load_state(ckpt, create_train_state(
-        net, make_optimizer(net.parameters(), cfg["train"]["optimizer"])))
+        net, make_optimizer(net.parameters(), cfg["train"]["optimizer"])),
+        variant)
     opt_sd = state.optimizer.state_dict()["state"]
     bit_equal = (
-        state.step == TRAIN_STEPS == payload["step"]
+        state.step == steps == payload["step"]
         and all(torch.equal(v, payload["params"][k])
                 for k, v in net.state_dict().items())
         and all(torch.equal(v, payload["ema_params"][k])
                 for k, v in state.ema_params.items())
         and all(torch.equal(opt_sd[i][n], payload["opt_state"]["state"][i][n])
                 for i in opt_sd for n in ("exp_avg", "exp_avg_sq")))
-    del state, net, payload, init
+    del state, net, payload
     rate = summary["steady_steps_per_s"]
-    train_ok = (summary["steps"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+    train_ok = (summary["steps"] == steps and len(losses) == steps
                 and all(map(math.isfinite, losses)) and changed > 0
                 and bit_equal and launches["gn_swish"] == want_k1
                 and launches["fused_gn_swish_conv3x3"] == 0
                 and launches["channel_stats"] == 0 and rate is not None)
-    print(f"[train] {card} | cli.sr_mfe -p train cuda f32 full width, B="
-          f"{B_TRAIN}, T={T}, TF32 off, {TRAIN_STEPS} steps: l_pix "
+    print(f"[train{label}] {card} | cli.sr_mfe -p train cuda f32 full width, "
+          f"B={B_TRAIN}, T={T}, TF32 off, {steps} steps: l_pix "
           f"first {losses[0]:.4f} last {losses[-1]:.4f} mean "
           f"{sum(losses) / len(losses):.4f}, {changed} param tensors changed,"
           f" checkpoint {os.path.basename(ckpt)} reloads bit-equal "
@@ -697,48 +826,361 @@ def phase_train(cfg, card, seed):
     k1_launches = launches["gn_swish"]
 
     cfg["path"]["resume_state"] = ckpt
-    val_cfg = os.path.join(work, "chip_smoke_val.json")
+    val_cfg = os.path.join(work, f"{cfg['name']}_val.json")
     with open(val_cfg, "w") as f:
         json.dump(cfg, f)
+    gc.collect()            # the train run's state, before the val peak
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     routes0 = dict(fused_conv.ROUTE_TAKEN)
     t0 = time.time()
     res = sr_mfe.main(["-p", "val", "-c", val_cfg, "--device", "cuda",
                        "--seed", str(seed)])
     torch.cuda.synchronize()
+    own_phases_regime()
     vwall = time.time() - t0
+    vpeak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = dict(kernels.LAUNCHES)
     routes = {k: n - routes0[k] for k, n in fused_conv.ROUTE_TAKEN.items()}
-    want_k3, want_k2 = 49 * T * VAL_IMAGES, 4 * T * VAL_IMAGES
+    n_eval = evals_per_image(cfg) * val_images
+    if variant == "fastdiffsr":
+        want = {"fused_gn_swish_conv3x3": 49 * n_eval,
+                "channel_stats": 4 * n_eval, "gn_swish": 0}
+        want_routes = {"wgmma": 0, "cuda_cores": 49 * n_eval}
+    else:
+        want = {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
+                "gn_swish": K1_PER_FORWARD[variant] * n_eval}
+        want_routes = {"wgmma": 0, "cuda_cores": 0}
     val_ok = (math.isfinite(res.get("psnr", math.nan))
               and math.isfinite(res.get("ssim", math.nan))
-              and launches["fused_gn_swish_conv3x3"] == want_k3
-              and routes == {"wgmma": 0, "cuda_cores": want_k3}
-              and launches["channel_stats"] == want_k2
-              and launches["gn_swish"] == 0)
-    print(f"[val] {card} | cli.sr_mfe -p val cuda f32 fused from "
-          f"{os.path.basename(ckpt)}, {VAL_IMAGES} images, T={T}: psnr "
+              and launches == want and routes == want_routes)
+    diff = cfg["model"].get("diffusion") or {}
+    samp = diff.get("sampler") or "ancestral"
+    s_img = res.get("avg_time", res.get("avg_time_incl_setup", math.nan))
+    steady = "after the first" if "avg_time" in res else "incl. set-up"
+    print(f"[val{label}] {card} | cli.sr_mfe -p val cuda f32 "
+          f"{'fused' if variant == 'fastdiffsr' else 'plain'} from "
+          f"{os.path.basename(ckpt)}, {val_images} images, {samp} "
+          f"{evals_per_image(cfg)} evals of T={T}: psnr "
           f"{res.get('psnr', math.nan):.4f} ssim {res.get('ssim', math.nan):.4f}"
           f" | K3 launches {launches['fused_gn_swish_conv3x3']} (want "
-          f"{want_k3}, all on the float32 CUDA-core kernel: "
-          f"{routes['cuda_cores']}), K2 {launches['channel_stats']} (want "
-          f"{want_k2}), K1 "
-          f"{launches['gn_swish']} | {res.get('avg_time', math.nan):.3f} s "
-          f"per image after the first, wall {vwall:.1f} s "
-          f"({vwall / VAL_IMAGES:.3f} s per image) "
-          f"{'ok' if val_ok else 'FAIL'}", flush=True)
-    detail = {"steps": TRAIN_STEPS, "batch": B_TRAIN, "T": T,
+          f"{want['fused_gn_swish_conv3x3']}, on the float32 CUDA-core "
+          f"kernel: {routes['cuda_cores']}), K2 {launches['channel_stats']} "
+          f"(want {want['channel_stats']}), K1 {launches['gn_swish']} (want "
+          f"{want['gn_swish']}) | {s_img:.3f} s per image {steady}, wall "
+          f"{vwall:.1f} s ({vwall / val_images:.3f} s per image) | peak "
+          f"{vpeak:.2f} GiB {'ok' if val_ok else 'FAIL'}", flush=True)
+    detail = {"variant": variant, "steps": steps, "batch": B_TRAIN, "T": T,
               "l_pix": losses, "steady_steps_per_s": rate, "wall_s": wall,
               "peak_gib": peak_gib, "k1_launches": k1_launches,
-              "bit_equal": bit_equal, "val": res, "val_wall_s": vwall,
+              "bit_equal": bit_equal, "val": res, "val_sampler": samp,
+              "val_evals_per_image": evals_per_image(cfg),
+              "val_wall_s": vwall, "val_peak_gib": vpeak,
               "val_launches": launches, "val_routes": routes}
     return detail, k1_launches, train_ok and val_ok
+
+
+def run_infer(cfg, name, card, args, tag, want, want_routes=None):
+    """cli.infer on ``cfg`` (written as ``name``) with the counters set to
+    0 just before and read just after; checks the launch counts against
+    ``want`` (and K3's routes) and prints one line."""
+    import torch
+
+    from fastdiffsr_tpu_torch.cli import infer
+    from fastdiffsr_tpu_torch.ops import fused_conv, kernels
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    run_cfg = os.path.join(work, f"{name}.json")
+    with open(run_cfg, "w") as f:
+        json.dump(cfg, f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    routes0 = dict(fused_conv.ROUTE_TAKEN)
+    t0 = time.time()
+    summary = infer.main(["-c", run_cfg, "--device", "cuda", *args])
+    torch.cuda.synchronize()
+    own_phases_regime()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    routes = {k: n - routes0[k] for k, n in fused_conv.ROUTE_TAKEN.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_img = int(cfg["datasets"]["val"]["data_len"])
+    batch = int(cfg["datasets"]["val"]["batch_size"])
+    samp = (cfg["model"].get("diffusion") or {}).get("sampler") or "ancestral"
+    T = int(cfg["model"]["beta_schedule"]["val"]["n_timestep"])
+    pngs = [p for p in os.listdir(summary["results"]) if p.endswith(".png")]
+    ok = (launches == want and summary["images"] == n_img
+          and len(pngs) == n_img
+          and (want_routes is None or routes == want_routes))
+    lat = summary["mean_latency_s"]
+    if lat:
+        rate = f"steady {1.0 / lat:.3f} img/s, {lat:.4f} s/img"
+    else:
+        lat = summary["first_batch_s_per_image"]
+        rate = f"{lat:.4f} s/img incl. set-up (one batch)"
+    print(f"[{tag}] {card} | cli.infer cuda {' '.join(args)}, {samp} "
+          f"{evals_per_image(cfg)} evals of T={T}, batches of {batch}: "
+          f"{summary['images']} images finite, {len(pngs)} PNGs | launches "
+          f"K3 {launches['fused_gn_swish_conv3x3']} (want "
+          f"{want['fused_gn_swish_conv3x3']}; {routes['wgmma']} on wgmma, "
+          f"{routes['cuda_cores']} on CUDA cores), K2 "
+          f"{launches['channel_stats']} (want {want['channel_stats']}), K1 "
+          f"{launches['gn_swish']} (want {want['gn_swish']}) | {rate}; wall "
+          f"{wall:.1f} s | peak {peak_gib:.2f} GiB {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return {"launches": launches, "routes": routes, "s_per_img": lat,
+            "img_per_s": 1.0 / lat, "steady": bool(summary["mean_latency_s"]),
+            "wall_s": wall, "peak_gib": peak_gib}, ok
+
+
+def sampler_gains(alphas_cumprod, steps: int, sampler: str):
+    """Per step of DDIM (eta 0) or DPM-Solver++(2M) on the schedule's
+    timestep subsequence, the gain from an error in the denoiser's noise
+    output to the next x, before the x0 clip: DDIM |sqrt(1-a') -
+    sqrt(a'(1-a)/a)|, DPM |coef_D| sqrt((1-a)/a) (|w_cur| + |w_prev|)
+    (a = alpha-bar at t, a' at the next t, 1 after the last). Written from
+    the update rules, apart from the engine's code. The clip of x0 can
+    only shrink an error, so this is an upper bound of the step's own
+    gain; what the UNet makes of an error in its input is not in it."""
+    import numpy as np
+    ac = np.asarray(alphas_cumprod, np.float64)
+    T = len(ac)
+    ts = np.unique(np.linspace(0, T - 1, steps).round().astype(np.int64))
+    ts = ts[::-1]
+    t_next = np.append(ts[1:], -1)
+    a = ac[ts]
+    a_n = np.where(t_next >= 0, ac[np.maximum(t_next, 0)], 1.0)
+    to_x0 = np.sqrt((1 - a) / a)
+    if sampler == "ddim":
+        return np.abs(np.sqrt(1 - a_n) - np.sqrt(a_n) * to_x0)
+    coef_d = np.sqrt(a_n) - np.sqrt(a) * np.sqrt(1 - a_n) / np.sqrt(1 - a)
+    lam = 0.5 * np.log(a / (1 - a))
+    lam_n = np.append(lam[1:], np.inf)
+    h = lam_n - lam
+    w = np.ones(len(ts))
+    for k in range(1, len(ts)):
+        if np.isfinite(h[k]):       # the final step is first order
+            w[k] = 1.0 + 1.0 / (h[k - 1] / h[k])   # |w_cur| + |w_prev|
+    return np.abs(coef_d) * to_x0 * w
+
+
+def phase_samplers(cfg, card, seed):
+    """10. DDIM and DPM-Solver++ through cli.infer on the fused bf16
+    forward (K3 on wgmma, K2), then both samplers on the fused f32
+    forward against the plain UNet on gn_swish_reference."""
+    import torch
+
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers)
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr_fused import (
+        fused_apply, prepare_fused_params)
+    detail, ok = {}, True
+    n_eval = SAMPLER_STEPS * SERVE_BATCHES
+    for sampler in ("ddim", "dpm"):
+        c = json.loads(json.dumps(cfg))
+        c["name"] = f"chip_smoke_{sampler}"
+        c["model"]["diffusion"].update(sampler=sampler,
+                                       ddim_steps=SAMPLER_STEPS)
+        detail[sampler], s_ok = run_infer(
+            c, c["name"], card, ["--dtype", "bf16", "--seed", str(seed)],
+            f"serve {sampler} {SAMPLER_STEPS} steps",
+            {"fused_gn_swish_conv3x3": 49 * n_eval,
+             "channel_stats": 4 * n_eval, "gn_swish": 0},
+            {"wgmma": 49 * n_eval, "cuda_cores": 0})
+        ok &= s_ok
+
+    dev = torch.device("cuda")
+    net = unet_from_config(cfg["model"]["unet"], device=dev, seed=seed)
+    fp = prepare_fused_params(net, torch.float32)
+    fp_bf16 = prepare_fused_params(net, torch.bfloat16)
+    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                          ScheduleBuffers.create(
+                              cfg["model"]["beta_schedule"]["val"],
+                              device=dev))
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    shape = (B_SAMPLER, 256, 256, 3)
+    cond = torch.rand(shape, generator=g, device=dev) * 2 - 1
+    init = torch.randn(shape, generator=g, device=dev)
+    for name in ("ddim", "dpm"):
+        fn = getattr(eng, f"sample_{name}")
+        got = fn(lambda x, lv: fused_apply(fp, x, lv), cond,
+                 steps=SAMPLER_STEPS, init_noise=init)
+        with reference_norm():
+            want = fn(lambda x, lv: net(x, lv), cond, steps=SAMPLER_STEPS,
+                      init_noise=init)
+        control = fn(lambda x, lv: fused_apply(fp_bf16, x, lv), cond,
+                     steps=SAMPLER_STEPS, init_noise=init)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_control = (control - want).abs().max().item()
+        gains = sampler_gains(eng.buffers.alphas_cumprod.cpu().numpy(),
+                              SAMPLER_STEPS, name)
+        tol = SAMPLER_EPS_GAP * float(gains.sum())
+        row_ok = (err <= tol < err_control
+                  and bool(torch.isfinite(got).all()))
+        ok &= row_ok
+        print(f"[sampler {name}] {card} | sample_{name} B={B_SAMPLER} "
+              f"256x256, {SAMPLER_STEPS} steps from the same initial noise: "
+              f"fused f32 (K3 on CUDA cores, K2) vs plain UNet on "
+              f"gn_swish_reference max|d|={err:.3g} (tol {tol:.3g} = "
+              f"{SAMPLER_EPS_GAP} per eval x the steps' summed gain "
+              f"{gains.sum():.4g}, largest {gains.max():.4g}); control, "
+              f"fused bf16 vs the same plain run, max|d|={err_control:.3g} "
+              f"(must exceed the tol) {'ok' if row_ok else 'FAIL'}",
+              flush=True)
+        detail[f"{name}_fused_vs_plain"] = {
+            "max_abs_err": err, "tol": tol,
+            "control_bf16_max_abs_err": err_control}
+    del net, fp, fp_bf16
+    torch.cuda.empty_cache()
+    return detail, ok
+
+
+def variant_cfg(variant, kind="train_64_256"):
+    """The port's ``configs/sr_{variant}_{kind}.json``."""
+    from fastdiffsr_tpu_torch.config import load_json_config
+    return load_json_config(os.path.join(
+        ROOT, "fastdiffsr_tpu_torch", "configs",
+        f"sr_{variant}_{kind}.json"))
+
+
+def phase_k1_variants(done_rows, card, seed):
+    """11. K1 against its plain version at every distinct K1 shape of one
+    SR3 (ddpm) and one guided (gdp) training forward at batch 4, 256x256,
+    f32 and bf16 (shapes phase 6 measured are not measured again), then
+    in f32 at batch 1, the batch of their ``-p val`` runs, and K1's time
+    per forward of each net at both batches."""
+    import torch
+
+    from fastdiffsr_tpu_torch.cli.infer import build_unet
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    rows = {(r["H"], r["W"], r["C"], r["groups"], r["dtype"], r["B"]): r
+            for r in done_rows}
+    detail, ok = {}, True
+    for variant in ("ddpm", "gdp"):
+        cfg = variant_cfg(variant)
+        net = build_unet(cfg["model"], device=dev, seed=seed)
+        T = int(cfg["model"]["beta_schedule"]["train"]["n_timestep"])
+        x = torch.randn((B_TRAIN, 256, 256, 6), generator=g, device=dev)
+        level = torch.randint(0, T, (B_TRAIN,), generator=g,
+                              device=dev).float()
+        sigs, strided = record_k1(net, x, level)
+        del net, x
+        torch.cuda.empty_cache()
+        n_k1 = sum(sigs.values())
+        shapes_ok = n_k1 == K1_PER_FORWARD[variant] and strided == 0
+        ok &= shapes_ok
+        new = {sg: n for sg, n in sigs.items()
+               if (*sg, "f32", B_TRAIN) not in rows}
+        print(f"[shapes {variant}] {card} | one training forward: {n_k1} "
+              f"K1 calls in {len(sigs)} shapes (want "
+              f"{K1_PER_FORWARD[variant]}), {len(new)} not measured yet, "
+              f"{strided} K1 inputs not contiguous NHWC "
+              f"{'ok' if shapes_ok else 'FAIL'}", flush=True)
+        new_rows, k_ok = phase_k1(new, B_TRAIN, REPS, card, seed)
+        new_b1 = {sg: n for sg, n in sigs.items()
+                  if (*sg, "f32", 1) not in rows}
+        b1_rows, b1_ok = phase_k1(new_b1, 1, REPS, card, seed,
+                                  dtypes=("f32",))
+        ok &= k_ok and b1_ok
+        rows.update({(r["H"], r["W"], r["C"], r["groups"], r["dtype"],
+                      r["B"]): r for r in new_rows + b1_rows})
+        tot = {}
+        for dt, B in (("f32", B_TRAIN), ("bf16", B_TRAIN), ("f32", 1)):
+            key = f"{dt}_b{B}"
+            tot[key] = {k: sum(rows[(*sg, dt, B)][k] * n
+                               for sg, n in sigs.items())
+                        for k in ("ms", "plain_ms", "bound_ms",
+                                  "two_call_library_ms", "wall_ms")}
+            tot[key]["max_abs_err"] = max(rows[(*sg, dt, B)]["max_abs_err"]
+                                          for sg in sigs)
+            print(f"[K1 total {variant} {dt} B={B}] {card} | per forward, "
+                  f"device: kernel {tot[key]['ms']:.3f} ms, plain "
+                  f"{tot[key]['plain_ms']:.3f} ms, F.group_norm+F.silu "
+                  f"{tot[key]['two_call_library_ms']:.3f} ms | wall: kernel "
+                  f"{tot[key]['wall_ms']:.3f} ms | bound "
+                  f"{tot[key]['bound_ms']:.3f} ms", flush=True)
+        detail[variant] = {"shapes": [list(sg) + [n] for sg, n in
+                                      sorted(sigs.items())],
+                           "rows": new_rows + b1_rows, "total": tot}
+    return detail, ok
+
+
+def phase_variants(card, seed, pack):
+    """12. For ddpm, tesr and gdp: a train step on K1 against one on
+    gn_swish_reference (randomized weights), cli.sr_mfe -p train at full
+    width and -p val on one image; then cli.infer of the ddpm config in
+    bf16 on the plain forward with DPM-Solver++."""
+    detail, ok = {}, True
+    k1 = 0
+    for variant in ("ddpm", "tesr", "gdp"):
+        cfg = variant_cfg(variant)
+        detail[f"{variant}_step"], s_ok = phase_train_parity(
+            cfg, B_TRAIN, card, seed)
+        detail[variant], k1_train, t_ok = phase_train(
+            cfg, card, seed, steps=VARIANT_STEPS, val_images=1,
+            sampler=VARIANT_VAL[variant])
+        ok &= s_ok and t_ok
+        k1 += k1_train + detail[variant]["val_launches"]["gn_swish"]
+    cfg = variant_cfg("ddpm", "test_64_256")
+    cfg["name"] = "chip_smoke_ddpm_infer"
+    cfg["datasets"]["val"].update(dataroot=pack, datatype="npy",
+                                  batch_size=4, data_len=4)
+    cfg["model"]["diffusion"].update(sampler="dpm", ddim_steps=20)
+    detail["ddpm_infer_bf16"], i_ok = run_infer(
+        cfg, cfg["name"], card,
+        ["--dtype", "bf16", "--plain", "--seed", str(seed)],
+        "infer ddpm bf16 plain dpm 20 steps",
+        {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
+         "gn_swish": K1_PER_FORWARD["ddpm"] * 20})
+    ok &= i_ok
+    k1 += detail["ddpm_infer_bf16"]["launches"]["gn_swish"]
+    return detail, k1, ok
+
+
+def gdp_reference(card, seed):
+    """``--gdp-reference``: cli.infer of configs/sr_gdp_test_64_256.json
+    (the guided UNet at full width, ancestral sampling over T=1000 at
+    256x256) on one synthetic image from ``seed``, on the plain forward,
+    f32 then bf16, with seeded Flax-default weights (the zero-initialised
+    output layers make the UNet's output 0, which costs the same as any
+    other). One image is one batch, so its seconds include set-up. Ends
+    with one JSON line of the rows; exits non-zero if a run failed its
+    checks (29 K1 launches per eval)."""
+    from fastdiffsr_tpu_torch.data import write_pack
+    cfg = variant_cfg("gdp", "test_64_256")
+    pack = write_pack(os.path.join(ROOT, "build", "smoke",
+                                   f"gdp_pack_{seed}"), 1, seed)
+    cfg["datasets"]["val"].update(dataroot=pack, datatype="npy",
+                                  batch_size=1, data_len=1)
+    T = int(cfg["model"]["beta_schedule"]["val"]["n_timestep"])
+    rows, ok = [], True
+    for dt in ("f32", "bf16"):
+        cfg["name"] = f"chip_smoke_gdp_reference_{dt}"
+        row, r_ok = run_infer(
+            cfg, cfg["name"], card,
+            ["--dtype", dt, "--plain", "--seed", str(seed)],
+            f"gdp reference {dt}",
+            {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
+             "gn_swish": K1_PER_FORWARD["gdp"] * T})
+        rows.append(dict(row, dtype=dt, T=T, ok=r_ok))
+        ok &= r_ok
+    print(json.dumps({"card": card, "gdp_reference": rows}))
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds weights, inputs and the synthetic data")
+    ap.add_argument("--gdp-reference", action="store_true",
+                    help="in place of phases 2-12: the gdp evaluation at its "
+                         "reference shape (see gdp_reference)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -747,17 +1189,16 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from fastdiffsr_tpu_torch.ops import fused_conv, kernels
-    from fastdiffsr_tpu_torch.cli import infer
+    from fastdiffsr_tpu_torch.ops import kernels
     from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
     from fastdiffsr_tpu_torch.models.unet_fastdiffsr_fused import (
         fused_apply, prepare_fused_params)
     from fastdiffsr_tpu_torch.config import load_json_config
     from fastdiffsr_tpu_torch.data import write_pack
+    from fastdiffsr_tpu_torch.device import use_ieee_float32
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.benchmark = True
+    use_ieee_float32()          # as the CLIs do
+    own_phases_regime()
     card = card_line()
     print(f"card: {card}", flush=True)
     detail = {"card": card, "torch": torch.__version__,
@@ -775,6 +1216,15 @@ def main(argv=None) -> int:
           f"(nvcc {log[0]}) -> {lib_path} | ptxas: " + " ; ".join(ptxas),
           flush=True)
     detail["build_seconds"] = build_s
+    if args.gdp_reference:
+        return gdp_reference(card, args.seed)
+    laps, t_lap = {}, [time.time()]
+
+    def lap(name):
+        """Seconds since the previous lap, kept as the phase's time."""
+        now = time.time()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
     detail["ptxas"] = ptxas
 
     cfg_path = os.path.join(ROOT, "fastdiffsr_tpu_torch", "configs",
@@ -805,6 +1255,7 @@ def main(argv=None) -> int:
     k2_rows, k2_ok = phase_k2(k2_sigs, B, REPS, card, args.seed)
     ok &= k3_ok and k3_b1_ok and k2_ok
     detail["k3"], detail["k3_b1"], detail["k2"] = k3_rows, k3_b1_rows, k2_rows
+    lap("2-3 K3, K2")
 
     # 4. one full-width UNet eval, fused vs plain
     Bu = B_UNET
@@ -827,6 +1278,7 @@ def main(argv=None) -> int:
           f"plain f32 max|d|={e16:.3g} (tol {tol16:.3g}), max|y|={ymax:.3g} "
           f"{'ok' if unet_ok else 'FAIL'}", flush=True)
     detail["unet"] = {"B": Bu, "err_f32": e32, "err_bf16": e16}
+    lap("4 UNet")
     del x, want, got32, got16, net, fp16
 
     # 5. serving path end to end
@@ -834,52 +1286,17 @@ def main(argv=None) -> int:
     droot = os.path.join(work, f"pack_{args.seed}")
     n_img = SERVE_BATCH * SERVE_BATCHES
     write_pack(droot, n_img, args.seed)
-    cfg["name"] = "chip_smoke"
-    val = cfg["datasets"]["val"]
-    val.update(dataroot=droot, datatype="npy", batch_size=SERVE_BATCH,
-               data_len=n_img)
-    run_cfg = os.path.join(work, "chip_smoke_infer.json")
-    with open(run_cfg, "w") as f:
-        json.dump(cfg, f)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    routes0 = dict(fused_conv.ROUTE_TAKEN)
-    t0 = time.time()
-    summary = infer.main(["-c", run_cfg, "--device", "cuda", "--dtype",
-                          "bf16", "--seed", str(args.seed)])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = dict(kernels.LAUNCHES)
-    routes = {k: n - routes0[k] for k, n in fused_conv.ROUTE_TAKEN.items()}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    pngs = [p for p in os.listdir(summary["results"]) if p.endswith(".png")]
-    want_k3 = 49 * T * SERVE_BATCHES
-    want_k2 = 4 * T * SERVE_BATCHES
-    serve_ok = (launches["fused_gn_swish_conv3x3"] == want_k3
-                and routes == {"wgmma": want_k3, "cuda_cores": 0}
-                and launches["channel_stats"] == want_k2
-                and summary["images"] == n_img and len(pngs) == n_img)
+    cfg["name"] = "chip_smoke_infer"
+    cfg["datasets"]["val"].update(dataroot=droot, datatype="npy",
+                                  batch_size=SERVE_BATCH, data_len=n_img)
+    n_eval = T * SERVE_BATCHES
+    detail["serve"], serve_ok = run_infer(
+        cfg, cfg["name"], card, ["--dtype", "bf16", "--seed", str(args.seed)],
+        "serve", {"fused_gn_swish_conv3x3": 49 * n_eval,
+                  "channel_stats": 4 * n_eval, "gn_swish": 0},
+        {"wgmma": 49 * n_eval, "cuda_cores": 0})
     ok &= serve_ok
-    img_s = (1.0 / summary["mean_latency_s"] if summary["mean_latency_s"]
-             else None)
-    print(f"[serve] {card} | cli.infer cuda bf16 fused, full width, T={T}, "
-          f"{SERVE_BATCHES} batches of {SERVE_BATCH}: {summary['images']} "
-          f"images finite, {len(pngs)} PNGs | K3 launches "
-          f"{launches['fused_gn_swish_conv3x3']} (want {want_k3}; "
-          f"{routes['wgmma']} on wgmma, {routes['cuda_cores']} on CUDA "
-          f"cores), K2 "
-          f"{launches['channel_stats']} (want {want_k2}) | steady "
-          f"{img_s:.3f} img/s, {summary['mean_latency_s']:.4f} s/img; "
-          f"wall {wall:.1f} s incl. first batch | peak "
-          f"{peak_gib:.2f} GiB {'ok' if serve_ok else 'FAIL'}", flush=True)
-    detail["serve"] = {"T": T, "batch": SERVE_BATCH,
-                       "batches": SERVE_BATCHES, "img_per_s": img_s,
-                       "mean_latency_s": summary["mean_latency_s"],
-                       "wall_s": wall, "peak_gib": peak_gib,
-                       "launches": launches, "routes": routes}
-
-    del summary
+    lap("5 serve")
     torch.cuda.empty_cache()
 
     # 6.-9. the training path
@@ -893,23 +1310,49 @@ def main(argv=None) -> int:
     level = torch.rand((B_TRAIN,), generator=gx, device=dev)
     k1_sigs, strided = record_k1(tnet, x, level)
     n_k1 = sum(k1_sigs.values())
-    shapes_ok = n_k1 == K1_PER_FORWARD and strided == 0
+    shapes_ok = n_k1 == K1_PER_FORWARD["fastdiffsr"] and strided == 0
     ok &= shapes_ok
     print(f"[shapes] {card} | one training forward: {n_k1} K1 calls in "
-          f"{len(k1_sigs)} shapes (want {K1_PER_FORWARD}), {strided} "
-          f"Blocks with a non-contiguous NHWC input "
+          f"{len(k1_sigs)} shapes (want {K1_PER_FORWARD['fastdiffsr']}), "
+          f"{strided} Blocks with a non-contiguous NHWC input "
           f"{'ok' if shapes_ok else 'FAIL'}", flush=True)
     del tnet, x
     k1_rows, k1_ok = phase_k1(k1_sigs, B_TRAIN, REPS, card, args.seed)
+    lap("6 K1")
     largest = max(k1_sigs, key=lambda sg: sg[0] * sg[1] * sg[2])
     detail["k1_grad"], grad_ok = phase_k1_grad(largest, B_TRAIN, card,
                                                args.seed)
     detail["k1"] = k1_rows
     detail["train_step"], step_ok = phase_train_parity(train_cfg, B_TRAIN,
                                                        card, args.seed)
+    lap("7-8 K1 grad, train step")
     detail["train"], k1_launches, train_ok = phase_train(train_cfg, card,
                                                          args.seed)
+    lap("9 train, val")
     ok &= k1_ok and grad_ok and step_ok and train_ok
+
+    # 10. the fast samplers; 11. K1 at the SR3 and guided shapes;
+    # 12. the ddpm/tesr/gdp variants end to end
+    detail["samplers"], samp_ok = phase_samplers(cfg, card, args.seed)
+    lap("10 samplers")
+    detail["k1_variants"], k1v_ok = phase_k1_variants(k1_rows, card,
+                                                      args.seed)
+    lap("11 K1 variants")
+    detail["variants"], k1_variant_launches, var_ok = phase_variants(
+        card, args.seed, droot)
+    lap("12 variants")
+    ok &= samp_ok and k1v_ok and var_ok
+    k1_all_rows = k1_rows + [r for v in detail["k1_variants"].values()
+                             for r in v["rows"]]
+    # per SR3 forward (the shapes of phase 6) at batch 1, the batch of
+    # the variants' -p val runs
+    k1_b1 = detail["k1_variants"]["ddpm"]["total"]["f32_b1"]
+    wgmma_launches = detail["serve"]["routes"]["wgmma"] + sum(
+        detail["samplers"][s]["routes"]["wgmma"] for s in ("ddim", "dpm"))
+    k2_launches = (detail["serve"]["launches"]["channel_stats"]
+                   + detail["train"]["val_launches"]["channel_stats"]
+                   + sum(detail["samplers"][s]["launches"]["channel_stats"]
+                         for s in ("ddim", "dpm")))
 
     def k3_route_of(dt):
         """The kernel every K3 row of that type ran on (or "mixed")."""
@@ -943,21 +1386,24 @@ def main(argv=None) -> int:
         {"name": "gn_swish", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/gn_swish.cu",
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:54",
-         "launches": k1_launches,
-         "max_abs_err": max(r["max_abs_err"] for r in k1_rows
+         "launches": k1_launches + k1_variant_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in k1_all_rows
                             if r["dtype"] == "f32"),
          "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],
          "bound_ms": k1_tot["bound_ms"],
          "bound_by": by(k1_rows, "f32", "calls_per_forward"),
          "library_ms": None,
          "two_call_library_ms": k1_tot["two_call_library_ms"],
-         "wall_ms": k1_tot["wall_ms"]},
+         "wall_ms": k1_tot["wall_ms"],
+         "ms_b1": k1_b1["ms"], "plain_ms_b1": k1_b1["plain_ms"],
+         "bound_ms_b1": k1_b1["bound_ms"],
+         "two_call_library_ms_b1": k1_b1["two_call_library_ms"]},
         # K3 has two hand-written kernels: bf16 maps (serving) run on the
         # tensor cores, f32 maps (validation) on the CUDA cores
         {"name": "fused_gn_swish_conv3x3", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/fused_conv_wgmma.cu",
          "replaces": "fastdiffsr_tpu/ops/fused_conv.py:107",
-         "launches": routes["wgmma"],
+         "launches": wgmma_launches,
          "kernel_route": k3_route_of("bf16"),
          "max_abs_err": max(r["max_abs_err_y"] for r in k3_rows
                             if r["dtype"] == "bf16"),
@@ -984,7 +1430,7 @@ def main(argv=None) -> int:
         {"name": "channel_stats", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/channel_stats.cu",
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:143",
-         "launches": launches["channel_stats"],
+         "launches": k2_launches,
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows
                             if r["dtype"] == "f32"),
          "ms": total(k2_rows, "ms"), "plain_ms": total(k2_rows, "plain_ms"),
@@ -993,6 +1439,9 @@ def main(argv=None) -> int:
     ]
     detail["kernels"] = kern
     detail["seconds"] = time.time() - t_start
+    detail["phase_seconds"] = laps
+    print(f"[phase seconds] {card} | " + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items()), flush=True)
     print(f"[time] {card} | the run took {detail['seconds']:.1f} s, of which "
           f"{build_s:.1f} s built the kernels", flush=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

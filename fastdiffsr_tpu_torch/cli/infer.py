@@ -2,19 +2,25 @@
 
 Counterpart of ``fastdiffsr_tpu/cli/infer.py`` (reference
 infer.py:17-119), with the val half of ``fastdiffsr_tpu/cli/sr_mfe.py``'s
-``build_all``. It reads the val set of a reference-schema config, runs
-the T-step ancestral sampler of the ``fastdiffsr`` variant, saves
+``build_all``. It reads the val set of a reference-schema config, builds
+the UNet of ``model.which_model_G`` (fastdiffsr, ddpm, tesr or gdp), runs
+the sampler that ``model.diffusion`` names (``sampler``: ancestral (the
+default), ddim or dpm, with ``ddim_steps`` and ``ddim_eta``), saves
 ``{n}_sr.png`` per image and logs the steady-state latency:
 
     python -m fastdiffsr_tpu_torch.cli.infer -c <config.json> \\
         [--device cuda] [--fused | --plain] [--dtype bf16|f32] [--seed N]
 
 It runs on CUDA unless ``--device cpu`` is given, and raises where CUDA
-is asked for but absent. The default forward is the fused one (K3/K2
-kernels on CUDA; their plain versions on the CPU). With
-``path.resume_state`` set it loads a port checkpoint (a torch state dict
-of the UNet); otherwise it uses seeded initial parameters. Experiment
-directories go under ``experiments/`` of the working directory.
+is asked for but absent; float32 is full float32, and cuDNN picks its
+algorithms by its heuristics (``device.set_cudnn_autotuning``). The
+fused forward (K3/K2 kernels on CUDA; their plain versions on the CPU)
+exists for FastDiffSR only and is its default; the other variants run their plain UNet forward (K1 under each
+GroupNorm -> Swish), and ``--fused`` with them raises. With
+``path.resume_state`` set it loads a checkpoint (a UNet state dict file,
+or a checkpoint directory of either package); otherwise it uses seeded
+initial parameters. Experiment directories go under ``experiments/`` of
+the working directory.
 """
 
 from __future__ import annotations
@@ -29,32 +35,67 @@ import torch
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
+def build_unet(model_opt, dtype=torch.float32, device="cuda",
+               seed: int = 0):
+    """The UNet of ``model_opt['which_model_G']`` with seeded initial
+    parameters, in eval mode on ``device`` (JAX cli/sr_mfe.py:99-109)."""
+    variant = model_opt["which_model_G"]
+    kw = dict(dtype=dtype, device=device, seed=seed)
+    if variant == "fastdiffsr":
+        from ..models.unet_fastdiffsr import unet_from_config
+        return unet_from_config(model_opt["unet"], **kw)
+    image_size = int(model_opt["diffusion"]["image_size"])
+    if variant in ("ddpm", "tesr"):
+        from ..models.unet_sr3 import sr3_unet_from_config
+        return sr3_unet_from_config(model_opt["unet"], image_size, **kw)
+    if variant == "gdp":
+        from ..models.unet_guided import guided_unet_from_config
+        return guided_unet_from_config(model_opt["unet"], image_size, **kw)
+    raise ValueError(f"unknown which_model_G: {variant}")
+
+
 def build_all(opt, device="cuda", dtype=torch.float32, seed: int = 0):
     """(val engine, UNet) of a config: the val half of sr_mfe.build_all."""
     from ..diffusion import DiffusionEngine, DiffusionSpec, ScheduleBuffers
-    from ..models.unet_fastdiffsr import unet_from_config
 
     model_opt = opt["model"]
-    variant = model_opt["which_model_G"]
-    if variant != "fastdiffsr":
-        raise NotImplementedError(
-            f"which_model_G={variant!r}: only 'fastdiffsr' is ported "
-            "(ROADMAP.md queue 1: variants)")
-    spec = DiffusionSpec.for_variant(variant)
+    net = build_unet(model_opt, dtype=dtype, device=device, seed=seed)
     eng_val = DiffusionEngine(
-        spec, ScheduleBuffers.create(model_opt["beta_schedule"]["val"],
-                                     device=device))
-    net = unet_from_config(model_opt["unet"], dtype=dtype, device=device,
-                           seed=seed)
+        DiffusionSpec.for_variant(model_opt["which_model_G"]),
+        ScheduleBuffers.create(model_opt["beta_schedule"]["val"],
+                               device=device))
     return eng_val, net
 
 
-def load_params(net, path: str, use_ema: bool = False) -> None:
+def sampler_options(opt) -> dict:
+    """make_sample_fn's sampler options from ``model.diffusion``
+    (``sampler``, ``ddim_steps``, ``ddim_eta``)."""
+    diff_opt = (opt.get("model") or {}).get("diffusion") or {}
+    steps = diff_opt.get("ddim_steps")
+    return {"sampler": diff_opt.get("sampler") or "ancestral",
+            "ddim_steps": int(steps) if steps else None,
+            "ddim_eta": float(diff_opt.get("ddim_eta") or 0.0)}
+
+
+def resolve_fused(variant: str, fused) -> bool:
+    """The forward to run: ``fused`` None picks the variant's default
+    (fused for FastDiffSR, plain otherwise); the fused forward exists
+    for FastDiffSR only."""
+    if fused is None:
+        return variant == "fastdiffsr"
+    if fused and variant != "fastdiffsr":
+        raise ValueError(f"--fused: the fused forward exists for "
+                         f"'fastdiffsr' only, not {variant!r}; run --plain")
+    return bool(fused)
+
+
+def load_params(net, path: str, use_ema: bool = False, *,
+                variant: str) -> None:
     """Load a UNet state dict file, or the (EMA) params of a checkpoint
-    directory, into ``net``."""
+    directory of either package, into ``net``."""
     if os.path.isdir(path):
         from ..train.checkpoint import load_params_only
-        sd = load_params_only(path, use_ema=use_ema)
+        sd = load_params_only(path, use_ema=use_ema, variant=variant)
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
     net.load_state_dict(sd)
@@ -87,10 +128,12 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default="cuda")
     fwd = parser.add_mutually_exclusive_group()
     fwd.add_argument("--fused", dest="fused", action="store_true",
-                     default=True, help="fused K3/K2 forward (default)")
+                     default=None, help="fused K3/K2 forward (FastDiffSR "
+                                        "only; its default)")
     fwd.add_argument("--plain", dest="fused", action="store_false",
                      help="unfused UNet forward (K1 under each "
-                          "GroupNorm -> Swish on CUDA)")
+                          "GroupNorm -> Swish on CUDA; the default of "
+                          "ddpm, tesr and gdp)")
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the initial params and the per-image "
@@ -100,11 +143,13 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     from ..config import parse
-    from ..device import resolve_device, use_ieee_float32
+    from ..device import (resolve_device, set_cudnn_autotuning,
+                          use_ieee_float32)
     from ..utils.logging import setup_logger
 
     device = resolve_device(args.device)
     use_ieee_float32()
+    set_cudnn_autotuning(False)
     dtype = DTYPES[args.dtype]
     opt = parse(args.config, "val", debug=args.debug)
     logger = setup_logger("base", opt["path"]["log"], "infer", screen=True)
@@ -113,24 +158,29 @@ def main(argv=None) -> dict:
     from ..data import create_dataloader, create_dataset
     from ..train import make_sample_fn, pad_batch_with_keys
 
+    variant = opt["model"]["which_model_G"]
+    fused = resolve_fused(variant, args.fused)
     eng_val, net = build_all(opt, device=device, dtype=dtype, seed=args.seed)
     if opt["path"]["resume_state"]:
-        load_params(net, opt["path"]["resume_state"], args.use_ema)
+        load_params(net, opt["path"]["resume_state"], args.use_ema,
+                    variant=variant)
         logger.info(f"loaded {'EMA ' if args.use_ema else ''}params from "
                     f"{opt['path']['resume_state']}")
-    denoise = make_denoiser(net, args.fused, dtype)
-    logger.info(f"infer: device={device} forward="
-                f"{'fused' if args.fused else 'plain'} dtype={args.dtype}")
+    denoise = make_denoiser(net, fused, dtype)
+    samp = sampler_options(opt)
+    logger.info(f"infer: {variant} device={device} forward="
+                f"{'fused' if fused else 'plain'} dtype={args.dtype} "
+                f"sampler={samp['sampler']} steps={samp['ddim_steps']} "
+                f"eta={samp['ddim_eta']}")
 
     val_set = create_dataset(opt["datasets"]["val"], "val")
     val_loader = create_dataloader(val_set, opt["datasets"]["val"], "val")
-    diff_opt = (opt.get("model") or {}).get("diffusion") or {}
-    sample_fn = make_sample_fn(eng_val, denoise,
-                               sampler=diff_opt.get("sampler") or "ancestral")
+    sample_fn = make_sample_fn(eng_val, denoise, **samp)
 
     result_path = opt["path"]["results"]
     os.makedirs(result_path, exist_ok=True)
     times = []
+    first_s = None
     n = 0
     full_b = val_loader.batch_size
     first_batch = True
@@ -148,7 +198,9 @@ def main(argv=None) -> dict:
         # the first batch includes one-time set-up (kernel build, cuDNN
         # plans): excluded from the steady-state latency
         dt_note = " incl. set-up" if first_batch else ""
-        if not first_batch:
+        if first_batch:
+            first_s = dt_img
+        else:
             times.extend([dt_img] * b)
         first_batch = False
         for j in range(b):
@@ -159,7 +211,8 @@ def main(argv=None) -> dict:
     summary = {"images": n, "seconds": time.time() - t_start,
                "results": result_path,
                "mean_latency_s": float(np.mean(times)) if times else None,
-               "steady_images": len(times)}
+               "steady_images": len(times),
+               "first_batch_s_per_image": first_s}
     if times:
         logger.info(f"mean latency: {summary['mean_latency_s']:.4f}s over "
                     f"{len(times)} images")

@@ -6,20 +6,28 @@
     python -m fastdiffsr_tpu_torch.cli.sr_mfe -p val -c <config.json> \\
         [-use_ema] [--device cuda|cpu] [--seed N]
 
-It runs on CUDA unless ``--device cpu`` is given. Training runs the UNet
-forward in float32 (TF32 off, ``device.use_ieee_float32``) with dropout;
-every GroupNorm -> Swish of it runs kernel K1. The loop reads
+It runs on CUDA unless ``--device cpu`` is given, for the UNet of
+``model.which_model_G``: fastdiffsr, ddpm or tesr (SR3) or gdp (guided).
+Training runs the UNet forward in float32 (TF32 off,
+``device.use_ieee_float32``; cuDNN's algorithms autotuned for ``-p
+train``, its heuristics for ``-p val``, ``device.set_cudnn_autotuning``)
+with dropout; every GroupNorm -> Swish of it
+that is K1's function runs kernel K1. The loop reads
 the data loader, or a uint8 copy of the train set on the device with
 ``datasets.train.device_cache: true``; prints l_pix with its windowed
 mean every ``print_freq`` steps, validates every ``val_freq`` steps,
 saves ``I{iter}_E{epoch}`` checkpoints every ``save_checkpoint_freq``
 steps and at the end, and resumes from ``path.resume_state``. Validation
-samples with the fused forward (kernels K3 and K2 on CUDA), built as in
-``cli/infer.py``, and logs PSNR, SSIM, MSE and ERGAS per image. The val
-phase loads a checkpoint directory of either package.
+samples as ``cli/infer.py`` does: the fused forward (kernels K3 and K2 on
+CUDA) for FastDiffSR, the plain UNet forward (K1) for the others, with
+the sampler ``model.diffusion`` names (ancestral, ddim or dpm) and, with
+``model.diffusion.n_samples`` K > 1, the mean of K samples per image; it
+logs PSNR, SSIM, MSE and ERGAS per image. The val phase loads a
+checkpoint directory of either package.
 
 ``--seed`` seeds the initial parameters, the train steps' draws
-(``train.step_generator``) and the per-image sampling noise. ``-debug``
+(``train.step_generator``) and the per-image sampling noise (pass k of
+the K-sample average from ``train.pass_seed``). ``-debug``
 shrinks the run as the reference does and writes a synthetic 6-image
 npy pack for any dataroot that does not exist. ``-gpu`` is accepted and
 logged; ``-dist`` and ``-enable_wandb`` are not ported.
@@ -79,38 +87,54 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
                    seed: int, device, scale: int = 4,
                    save_images: bool = True) -> dict:
     """Sample the val set with ``denoise`` and log per-image PSNR, SSIM,
-    MSE and ERGAS and their means. The first batch holds one-time set-up
-    and is left out of ``avg_time``."""
+    MSE and ERGAS and their means. ``model.diffusion`` picks the sampler
+    (``sampler``, ``ddim_steps``, ``ddim_eta``) and ``n_samples`` K: the
+    metrics are taken on the mean of K samples per image, pass k drawing
+    from the per-image generators of ``pass_seed(seed, k)``. Times are
+    per output image (all K passes); the first batch holds one-time
+    set-up and is left out of ``avg_time`` (with one batch only,
+    ``avg_time_incl_setup`` holds its time)."""
     from .. import metrics as M
     from ..data import create_dataloader, create_dataset
-    from ..train import make_sample_fn, pad_batch_with_keys
+    from ..train import make_sample_fn, pad_batch_with_keys, pass_seed
+    from .infer import sampler_options
 
     diff_opt = (opt.get("model") or {}).get("diffusion") or {}
-    if int(diff_opt.get("n_samples") or 1) != 1:
-        raise NotImplementedError("model.diffusion.n_samples > 1 is not "
-                                  "ported yet (ROADMAP.md queue 2)")
+    n_samp = int(diff_opt.get("n_samples") or 1)
+    if n_samp < 1:
+        raise ValueError(f"model.diffusion.n_samples={n_samp} (want >= 1)")
     val_set = create_dataset(opt["datasets"]["val"], "val")
     val_loader = create_dataloader(val_set, opt["datasets"]["val"], "val")
     full_b = val_loader.batch_size
-    sample_fn = make_sample_fn(engine_val, denoise,
-                               sampler=diff_opt.get("sampler") or "ancestral")
+    sample_fn = make_sample_fn(engine_val, denoise, **sampler_options(opt))
     sums = {"psnr": 0.0, "ssim": 0.0, "mse": 0.0, "ergas": 0.0}
     n = n_steady = 0
     t_steady = 0.0
+    t_first = None
     for batch in val_loader:
         b = batch["SR"].shape[0]
-        cond, gens = pad_batch_with_keys(batch["SR"], full_b, seed, n,
-                                         device=device)
         t0 = time.time()
-        sr = sample_fn(cond, gens).cpu().numpy()   # .cpu() waits for it
+        sr = None
+        for k in range(n_samp):
+            cond, gens = pad_batch_with_keys(batch["SR"], full_b,
+                                             pass_seed(seed, k), n,
+                                             device=device)
+            out = sample_fn(cond, gens)
+            sr = out if sr is None else sr + out
+        sr = (sr / n_samp).cpu().numpy()           # .cpu() waits for it
         dt = time.time() - t0
         if not np.isfinite(sr).all():
             raise FloatingPointError(f"non-finite SR output in images "
                                      f"{n}..{n + b - 1}")
         note = " incl. set-up" if n == 0 else ""
+        if n_samp > 1:
+            note += (f", mean of {n_samp} samples, "
+                     f"{dt / full_b / n_samp:.3f}s per pass")
         if n:
             t_steady += dt
             n_steady += b
+        else:
+            t_first = dt / full_b
         for j in range(b):
             sr_img = M.tensor2img(sr[j])
             hr_img = M.tensor2img(batch["HR"][j])
@@ -134,6 +158,8 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
     res = {k: v / n for k, v in sums.items()}
     if n_steady:
         res["avg_time"] = t_steady / n_steady
+    else:
+        res["avg_time_incl_setup"] = t_first
     logger.info("# Validation # " + " ".join(f"{k}: {v:.4e}"
                                               for k, v in res.items()))
     return res
@@ -169,15 +195,17 @@ def main(argv=None) -> dict:
                                   "(ROADMAP.md queue 9, tooling)")
 
     from ..config import dict2str, infer_scale, parse
-    from ..device import resolve_device, use_ieee_float32
+    from ..device import (resolve_device, set_cudnn_autotuning,
+                          use_ieee_float32)
     from ..train import (create_train_state, make_cached_train_step,
                          make_optimizer, make_train_step, step_generator)
     from ..train.checkpoint import load_state, save_state
     from ..utils.logging import make_tb_writer, setup_logger
-    from .infer import load_params, make_denoiser
+    from .infer import build_unet, load_params, make_denoiser, resolve_fused
 
     device = resolve_device(args.device)
     use_ieee_float32()
+    set_cudnn_autotuning(args.phase == "train")
     opt = parse(args.config, args.phase, debug=args.debug)
     logger = setup_logger("base", opt["path"]["log"], "train", screen=True)
     val_logger = setup_logger("val", opt["path"]["log"], "val")
@@ -188,23 +216,27 @@ def main(argv=None) -> dict:
         logger.info(f"-gpu {args.gpu_ids} accepted; running on {device}")
     tb = make_tb_writer(opt["path"]["tb_logger"])
     scale = infer_scale(opt)
+    variant = opt["model"]["which_model_G"]
     eng_train, eng_val, net = build_all(opt, device, args.seed)
-    logger.info(f"device {device}, float32 without TF32, scale x{scale}")
+    fused = resolve_fused(variant, None)
+    logger.info(f"{variant}: device {device}, float32 without TF32, scale "
+                f"x{scale}, validation on the "
+                f"{'fused' if fused else 'plain'} forward")
 
     if args.phase == "val":
         if opt["path"]["resume_state"]:
-            load_params(net, opt["path"]["resume_state"], args.use_ema)
+            load_params(net, opt["path"]["resume_state"], args.use_ema,
+                        variant=variant)
             logger.info(f"loaded {'EMA ' if args.use_ema else ''}params "
                         f"from {opt['path']['resume_state']}")
         result_path = opt["path"]["results"]
         os.makedirs(result_path, exist_ok=True)
-        return run_validation(opt, eng_val, make_denoiser(net, True,
+        return run_validation(opt, eng_val, make_denoiser(net, fused,
                                                           torch.float32),
                               result_path, val_logger, seed=args.seed,
                               device=device, scale=scale)
 
     from ..data import create_dataloader, create_dataset
-    from ..models.unet_fastdiffsr import unet_from_config
 
     train_opt = opt["train"]
     state = create_train_state(
@@ -213,11 +245,12 @@ def main(argv=None) -> dict:
     ema = dict(ema_decay=float(ema_cfg.get("ema_decay", 0.9999)),
                ema_start=int(ema_cfg.get("step_start_ema", 5000)))
     if opt["path"]["resume_state"]:
-        load_state(opt["path"]["resume_state"], state)
+        load_state(opt["path"]["resume_state"], state, variant)
         logger.info(f"resumed from {opt['path']['resume_state']} at step "
                     f"{state.step}")
-    # the val forward reads its own copy of the (EMA) params
-    val_net = unet_from_config(opt["model"]["unet"], device=device)
+    # the val forward reads its own copy of the (EMA) params, built at the
+    # first validation
+    val_net = None
     current_step, current_epoch = state.step, state.epoch
     train_set = create_dataset(opt["datasets"]["train"], "train")
     bsz = int(opt["datasets"]["train"]["batch_size"] or 1)
@@ -291,13 +324,15 @@ def main(argv=None) -> dict:
                 _sync(device)
                 t_pause = time.time()
                 if val_now:
+                    if val_net is None:
+                        val_net = build_unet(opt["model"], device=device)
                     val_net.load_state_dict(state.ema_or_params(args.use_ema))
                     result_path = os.path.join(opt["path"]["results"],
                                                str(current_epoch))
                     os.makedirs(result_path, exist_ok=True)
                     res = run_validation(
                         opt, eng_val,
-                        make_denoiser(val_net, True, torch.float32),
+                        make_denoiser(val_net, fused, torch.float32),
                         result_path, val_logger, seed=args.seed,
                         device=device, scale=scale)
                     if tb:

@@ -25,8 +25,15 @@ to feed both packages the same draws. The training loss draws its noise
 and noise level from one generator; tests inject ``noise`` and
 ``gamma``/``t`` instead.
 
-DDIM, DPM-Solver++, ``interpolate`` and the auxiliary SSIM loss are not
-ported yet. Layout is NHWC throughout.
+The fast samplers are here too: :meth:`DiffusionEngine.sample_ddim`
+(DDIM on a timestep subsequence), :meth:`DiffusionEngine.sample_dpm`
+(DPM-Solver++(2M)) and :meth:`DiffusionEngine.interpolate`. As in JAX,
+their per-step constants are computed on the host in float64 numpy from
+the float32 schedule and cast to float32 once. DDIM draws its per-step
+noise (``eta > 0`` only) and DPM-Solver++ nothing after the initial noise,
+both from the per-image generators, in loop order.
+
+The auxiliary SSIM loss is not ported yet. Layout is NHWC throughout.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .schedules import ScheduleBuffers
@@ -200,6 +208,60 @@ class DiffusionEngine:
                 + b.posterior_mean_coef2[t_idx] * x_t)
         return mean, b.posterior_log_variance_clipped[t_idx]
 
+    def _start(self, cond, shape, generators, init_noise,
+               need_generators: bool):
+        """(x_T, shape, device) of a reverse process: ``init_noise`` or
+        one draw from each image's generator."""
+        if shape is None:
+            if cond is None:
+                raise ValueError("unconditional sampling needs a shape")
+            shape = tuple(cond.shape)
+        device = self.buffers.betas.device
+        bsz = shape[0]
+        if need_generators and (generators is None
+                                or len(generators) != bsz):
+            raise ValueError(f"need {bsz} generators, one per image")
+        x = (init_noise.to(device, torch.float32) if init_noise is not None
+             else normal_per_generator(generators, shape[1:], device))
+        return x, shape, device
+
+    def _finish(self, x, cond):
+        # the unconditional path returns the raw (residual-space) tensor,
+        # as the reference does
+        if self.spec.target_space == "residual" and cond is not None:
+            return res2img(x, cond)
+        return x
+
+    def _start_estimate(self, x, model_out, sqrt_a, sqrt_1m_a):
+        """x0 from the denoiser's output (noise or x0 prediction),
+        clipped to [-1, 1] where the spec says so."""
+        if self.spec.prediction == "x0":
+            x0 = model_out
+        else:
+            x0 = (x - sqrt_1m_a * model_out) / sqrt_a
+        if self.spec.clip_denoised:
+            x0 = torch.clamp(x0, -1.0, 1.0)
+        return x0
+
+    def _ancestral_step(self, x, model_out, t: int, noise):
+        """One reverse step of the posterior q(x_{t-1} | x_t, x0): x0 from
+        the output (clipped where the spec says so), then the posterior
+        mean plus ``noise`` at the posterior's scale (none at t = 0)."""
+        if self.spec.prediction == "x0":
+            x_recon = model_out
+        else:
+            x_recon = self.predict_start_from_noise(x, t, model_out)
+        if self.spec.clip_denoised:
+            x_recon = torch.clamp(x_recon, -1.0, 1.0)
+        mean, log_var = self.q_posterior(x_recon, x, t)
+        nonzero = 1.0 if t > 0 else 0.0
+        return mean + nonzero * noise * torch.exp(0.5 * log_var)
+
+    def _level(self, t: int, noise_level: torch.Tensor, bsz: int, device):
+        if self.spec.conditioning == "discrete_t":
+            return torch.full((bsz,), float(t), device=device)
+        return noise_level.expand(bsz)
+
     @torch.no_grad()
     def sample(self,
                denoise_fn: DenoiseFn,
@@ -217,43 +279,183 @@ class DiffusionEngine:
         draws. Returns the final image, folded back through
         :func:`res2img` when the target space is the residual.
         """
-        spec = self.spec
         b = self.buffers
-        T = b.num_timesteps
-        if shape is None:
-            if cond is None:
-                raise ValueError("unconditional sampling needs a shape")
-            shape = tuple(cond.shape)
-        device = b.betas.device
+        x, shape, device = self._start(
+            cond, shape, generators, init_noise,
+            init_noise is None or noise_seq is None)
         bsz = shape[0]
-        if (init_noise is None or noise_seq is None) and (
-                generators is None or len(generators) != bsz):
-            raise ValueError(f"need {bsz} generators, one per image")
-
-        x = (init_noise.to(device, torch.float32) if init_noise is not None
-             else normal_per_generator(generators, shape[1:], device))
-        for t in range(T - 1, -1, -1):
-            if spec.conditioning == "discrete_t":
-                level = torch.full((bsz,), float(t), device=device)
-            else:
-                level = b.sqrt_alphas_cumprod_prev[t + 1].expand(bsz)
+        for t in range(b.num_timesteps - 1, -1, -1):
+            level = self._level(t, b.sqrt_alphas_cumprod_prev[t + 1], bsz,
+                                device)
             model_out = denoise_fn(self._pack(x, cond), level).float()
-            if spec.prediction == "x0":
-                x_recon = model_out
-            else:
-                x_recon = self.predict_start_from_noise(x, t, model_out)
-            if spec.clip_denoised:
-                x_recon = torch.clamp(x_recon, -1.0, 1.0)
-            mean, log_var = self.q_posterior(x_recon, x, t)
             if noise_seq is not None:
                 noise = noise_seq[t].to(device, torch.float32)
             else:
                 noise = normal_per_generator(generators, shape[1:], device)
-            nonzero = 1.0 if t > 0 else 0.0
-            x = mean + nonzero * noise * torch.exp(0.5 * log_var)
+            x = self._ancestral_step(x, model_out, t, noise)
+        return self._finish(x, cond)
 
-        # the unconditional path returns the raw (residual-space) tensor,
-        # as the reference does
-        if spec.target_space == "residual" and cond is not None:
-            return res2img(x, cond)
+    def _subsequence(self, steps: Optional[int]):
+        """JAX's timestep subsequence: descending ``ts`` of ``steps`` (T
+        when None) values rounded from linspace(0, T-1), ``t_prev`` the
+        next one (-1 after the last), and alpha-bar at both in float64
+        (1 at t = -1), computed from the float32 schedule."""
+        T = self.buffers.num_timesteps
+        ts = np.unique(np.linspace(0, T - 1, int(steps or T)).round()
+                       .astype(np.int64))[::-1]
+        t_prev = np.append(ts[1:], -1)
+        ac = self.buffers.alphas_cumprod.cpu().numpy().astype(np.float64)
+        a_prev = np.where(t_prev >= 0, ac[np.maximum(t_prev, 0)], 1.0)
+        return ts, t_prev, ac[ts], a_prev
+
+    def _consts(self, **arrays) -> dict:
+        """float64 per-step constants -> float32 tensors on the device
+        (one copy per sampler call)."""
+        dev = self.buffers.betas.device
+        return {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                for k, v in arrays.items()}
+
+    @torch.no_grad()
+    def sample_ddim(self,
+                    denoise_fn: DenoiseFn,
+                    cond: Optional[torch.Tensor],
+                    generators: Optional[Sequence[torch.Generator]] = None,
+                    steps: Optional[int] = None,
+                    eta: float = 0.0,
+                    shape: Optional[tuple] = None,
+                    init_noise: Optional[torch.Tensor] = None,
+                    noise_seq: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """DDIM (Song et al., ICLR 2021) on the timestep subsequence of
+        :meth:`_subsequence`: ``steps`` UNet evals (T when None),
+        deterministic when ``eta == 0``. With ``eta > 0`` each step adds
+        ``sigma_k`` times a fresh draw from each image's generator, or
+        ``noise_seq[k]`` ((steps,B,H,W,C), indexed by step in loop
+        order). ``init_noise`` overrides the initial draw."""
+        ts, _, a_t, a_prev = self._subsequence(steps)
+        sigma = (eta * np.sqrt((1 - a_prev) / (1 - a_t))
+                 * np.sqrt(1 - a_t / a_prev))
+        c = self._consts(
+            sqrt_a_t=np.sqrt(a_t), sqrt_1m_a_t=np.sqrt(1 - a_t),
+            sqrt_a_prev=np.sqrt(a_prev),
+            dir_coef=np.sqrt(np.maximum(1 - a_prev - sigma ** 2, 0.0)),
+            sigma=sigma)
+        c["sqrt_1m_a_t_safe"] = torch.clamp(c["sqrt_1m_a_t"], min=1e-8)
+        noisy = eta != 0.0
+        x, shape, device = self._start(
+            cond, shape, generators, init_noise,
+            init_noise is None or (noisy and noise_seq is None))
+        bsz = shape[0]
+        for k, t in enumerate(ts):
+            level = self._level(t, c["sqrt_a_t"][k], bsz, device)
+            model_out = denoise_fn(self._pack(x, cond), level).float()
+            x0 = self._start_estimate(x, model_out, c["sqrt_a_t"][k],
+                                      c["sqrt_1m_a_t"][k])
+            # eps re-derived from the (possibly clipped) x0
+            eps = (x - c["sqrt_a_t"][k] * x0) / c["sqrt_1m_a_t_safe"][k]
+            x = c["sqrt_a_prev"][k] * x0 + c["dir_coef"][k] * eps
+            if noisy:   # the deterministic path draws no noise
+                noise = (noise_seq[k].to(device, torch.float32)
+                         if noise_seq is not None
+                         else normal_per_generator(generators, shape[1:],
+                                                   device))
+                x = x + c["sigma"][k] * noise
+        return self._finish(x, cond)
+
+    @torch.no_grad()
+    def sample_dpm(self,
+                   denoise_fn: DenoiseFn,
+                   cond: Optional[torch.Tensor],
+                   generators: Optional[Sequence[torch.Generator]] = None,
+                   steps: Optional[int] = None,
+                   shape: Optional[tuple] = None,
+                   init_noise: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """DPM-Solver++(2M) (Lu et al. 2022, arXiv:2211.01095, Algorithm
+        2): the deterministic multistep second-order solver of the
+        probability-flow ODE in data prediction, on the same timestep
+        subsequence as :meth:`sample_ddim`. The first step (no history)
+        and the final one (t_prev = -1, h = inf) are first order, i.e.
+        the DDIM eta=0 update. The generators draw only the initial
+        noise."""
+        ts, t_prev, a_cur, a_prev = self._subsequence(steps)
+        al_cur, sg_cur = np.sqrt(a_cur), np.sqrt(1.0 - a_cur)
+        al_prev, sg_prev = np.sqrt(a_prev), np.sqrt(1.0 - a_prev)
+        # x_i = (sg_i/sg_{i-1}) x_{i-1} - al_i (e^{-h_i} - 1) D, which is
+        # coef_x x + coef_D D with these, finite at the final step
+        # (sg_prev = 0 -> coef_D = 1)
+        coef_x = sg_prev / sg_cur
+        coef_D = al_prev - al_cur * coef_x
+        # log-SNR steps h for the 2M weights; the final h is +inf, and that
+        # step is forced first order before any float32 sees it
+        with np.errstate(divide="ignore"):
+            lam_cur = np.log(al_cur) - np.log(sg_cur)
+            lam_prev = np.where(
+                t_prev >= 0,
+                np.log(al_prev) - np.log(np.maximum(sg_prev, 1e-300)),
+                np.inf)
+        h = lam_prev - lam_cur
+        w_cur, w_prev = np.ones(len(ts)), np.zeros(len(ts))
+        for k in range(1, len(ts)):
+            if not np.isfinite(h[k]):       # lower-order final step
+                continue
+            r = h[k - 1] / h[k]
+            w_cur[k] = 1.0 + 1.0 / (2.0 * r)
+            w_prev[k] = -1.0 / (2.0 * r)
+        c = self._consts(sqrt_a_t=al_cur, sqrt_1m_a_t=sg_cur, coef_x=coef_x,
+                         coef_D=coef_D, w_cur=w_cur, w_prev=w_prev)
+        x, shape, device = self._start(cond, shape, generators, init_noise,
+                                       init_noise is None)
+        bsz = shape[0]
+        x0_prev = torch.zeros_like(x)
+        for k, t in enumerate(ts):
+            level = self._level(t, c["sqrt_a_t"][k], bsz, device)
+            model_out = denoise_fn(self._pack(x, cond), level).float()
+            x0 = self._start_estimate(x, model_out, c["sqrt_a_t"][k],
+                                      c["sqrt_1m_a_t"][k])
+            d = c["w_cur"][k] * x0 + c["w_prev"][k] * x0_prev
+            x = c["coef_x"][k] * x + c["coef_D"][k] * d
+            x0_prev = x0
+        return self._finish(x, cond)
+
+    @torch.no_grad()
+    def interpolate(self, denoise_fn: DenoiseFn, x1: torch.Tensor,
+                    x2: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    t: Optional[int] = None, lam: float = 0.5, *,
+                    noise1: Optional[torch.Tensor] = None,
+                    noise2: Optional[torch.Tensor] = None,
+                    noise_seq: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """Diffuse two image batches to step ``t`` (T-1 when None), mix
+        them ``(1-lam)*x1 + lam*x2`` and denoise back over t-1 ... 0
+        (reference ddpm_modules/diffusion.py:242-258). Unconditional.
+        ``generator`` draws noise1, noise2, then one batch per step;
+        ``noise1``/``noise2`` and ``noise_seq`` ((t,B,H,W,C), indexed by
+        timestep) override them."""
+        b = self.buffers
+        t = b.num_timesteps - 1 if t is None else int(t)
+        device = b.betas.device
+
+        def draw(given, shape):
+            if given is not None:
+                return given.to(device, torch.float32)
+            if generator is None:
+                raise ValueError("interpolate draws its noise from "
+                                 "generator=")
+            return torch.randn(tuple(shape), generator=generator,
+                               device=device)
+
+        x1, x2 = (v.to(device, torch.float32) for v in (x1, x2))
+        n1, n2 = draw(noise1, x1.shape), draw(noise2, x2.shape)
+        sa, s1m = b.sqrt_alphas_cumprod[t], b.sqrt_one_minus_alphas_cumprod[t]
+        x = (1 - lam) * (sa * x1 + s1m * n1) + lam * (sa * x2 + s1m * n2)
+        bsz = x1.shape[0]
+        for t_idx in range(t - 1, -1, -1):
+            level = self._level(t_idx, b.sqrt_alphas_cumprod_prev[t_idx + 1],
+                                bsz, device)
+            model_out = denoise_fn(x, level).float()
+            noise = draw(None if noise_seq is None else noise_seq[t_idx],
+                         x.shape)
+            x = self._ancestral_step(x, model_out, t_idx, noise)
         return x

@@ -1,16 +1,20 @@
-"""Flax FastDiffSR UNet params -> the port's torch ``state_dict``.
+"""Flax UNet params -> the port's torch ``state_dict``.
 
-The inverse direction of ``fastdiffsr_tpu/models/convert.py``
-(``torch_unet_to_flax``). Input is the nested dict of numpy arrays that
-``FastDiffSRUNet.init(...)["params"]`` gives after ``np.asarray`` on each
-leaf, which is also the ``params`` entry of a JAX pickle checkpoint. The
-output keys are the reference's torch names, which
-:class:`~fastdiffsr_tpu_torch.models.unet_fastdiffsr.FastDiffSRUNet`
-uses, so ``net.load_state_dict(flax_params_to_torch(tree))`` loads it.
+The inverse direction of ``fastdiffsr_tpu/models/convert.py``:
+:func:`flax_params_to_torch` inverts ``torch_unet_to_flax`` on FastDiffSR
+trees, :func:`flax_sr3_params_to_torch` on the SR3 trees of ddpm/tesr,
+:func:`flax_guided_params_to_torch` inverts ``torch_guided_unet_to_flax``
+(gdp), and :func:`flax_converter` picks one by variant. Input is the
+nested dict of numpy arrays that ``net.init(...)["params"]`` gives after
+``np.asarray`` on each leaf, which is also the ``params`` entry of a JAX
+pickle checkpoint. The output keys are the reference's torch names,
+which the port's UNets use, so ``net.load_state_dict(convert(tree))``
+loads it.
 
 Layouts: conv kernel (kh,kw,I,O) HWIO -> weight (O,I,kh,kw) OIHW; Dense
 kernel (I,O) -> Linear weight (O,I); the CLAM Dense kernels -> 1x1 conv
-weights (O,I,1,1); GroupNorm scale/bias -> weight/bias. The fused forward
+weights (O,I,1,1); the guided attention's Dense kernels -> Conv1d
+weights (O,I,1); GroupNorm scale/bias -> weight/bias. The fused forward
 turns the conv weights back to HWIO once, in
 ``unet_fastdiffsr_fused.prepare_fused_params``.
 
@@ -55,8 +59,10 @@ def _res_block_key(rest: tuple) -> str:
     head = rest[0]
     if head in ("block1", "block2"):
         return f"{head}.{_BLOCK_LEAF[rest[1:]]}"
-    if head == "noise_dense":
+    if head == "noise_dense":                            # FastDiffSR
         return f"noise_func.noise_func.0.{_param(rest[1])}"
+    if head == "mlp_dense":                              # SR3
+        return f"mlp.1.{_param(rest[1])}"
     if head == "res_conv":
         return f"res_conv.{_param(rest[1])}"
     raise KeyError(rest)
@@ -66,8 +72,17 @@ def _param(leaf: str) -> str:
     return {"kernel": "weight", "bias": "bias", "scale": "weight"}[leaf]
 
 
-def flax_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
-    """Convert a Flax FastDiffSR UNet params tree to a torch state dict."""
+def _to_torch(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in sd.items()}
+
+
+def _sr3_family_to_torch(params: dict, time_mlp: str
+                         ) -> Dict[str, torch.Tensor]:
+    """The FastDiffSR and SR3 trees share their layout; they differ in
+    the time MLP's torch name and in the leaves a tree holds (CLAM/SLAM
+    and ``noise_dense`` for FastDiffSR, ``mlp_dense`` and ``attn`` for
+    SR3)."""
     sd: Dict[str, np.ndarray] = {}
     for path, val in _flatten(params):
         val = np.asarray(val, np.float32)
@@ -75,7 +90,7 @@ def flax_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
         is_kernel = rest[-1] == "kernel"
         if top in ("mlp_dense1", "mlp_dense2"):
             idx = {"mlp_dense1": 1, "mlp_dense2": 3}[top]
-            sd[f"noise_level_mlp.{idx}.{_param(rest[-1])}"] = (
+            sd[f"{time_mlp}.{idx}.{_param(rest[-1])}"] = (
                 _dense_w(val) if is_kernel else val)
             continue
         if top == "final_block":
@@ -94,10 +109,13 @@ def flax_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
                 _conv_w(val) if is_kernel else val)
         elif rest[0] == "res_block":
             key = _res_block_key(rest[1:])
-            dense = rest[1] == "noise_dense"
+            dense = rest[1] in ("noise_dense", "mlp_dense")
             sd[f"{base}.res_block.{key}"] = (
                 (_dense_w(val) if dense else _conv_w(val)) if is_kernel
                 else val)
+        elif rest[0] == "attn":                          # SR3 attention
+            sd[f"{base}.attn.{rest[1]}.{_param(rest[2])}"] = (
+                _conv_w(val) if is_kernel else val)
         elif rest[0] == "ca":                            # CLAM fc1/fc2
             sd[f"{base}.ca.{rest[1]}.weight"] = _dense_w(val)[:, :, None,
                                                               None]
@@ -105,25 +123,100 @@ def flax_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
             sd[f"{base}.sa.conv1.weight"] = _conv_w(val)
         else:
             raise KeyError(f"unexpected Flax param {'/'.join(path)}")
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in sd.items()}
+    return _to_torch(sd)
 
 
-def optax_state_to_torch(opt_state: Sequence,
-                         param_names: Sequence[str]) -> dict:
+def flax_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
+    """Convert a Flax FastDiffSR UNet params tree to a torch state dict."""
+    return _sr3_family_to_torch(params, "noise_level_mlp")
+
+
+def flax_sr3_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
+    """Convert a Flax ``SR3UNet`` (ddpm/tesr) params tree to the state
+    dict of :class:`~fastdiffsr_tpu_torch.models.unet_sr3.SR3UNet`: the
+    inverse of ``torch_unet_to_flax`` on SR3 trees (``time_mlp``,
+    ``res_block.mlp.1``, ``attn.{norm,qkv,out}`` as 1x1 convs)."""
+    return _sr3_family_to_torch(params, "time_mlp")
+
+
+# GuidedResBlock / GuidedAttention leaf -> (torch name, layout)
+_GUIDED_LEAF = {"in_norm": ("in_layers.0", "norm"),
+                "in_conv": ("in_layers.2", "conv"),
+                "emb_dense": ("emb_layers.1", "dense"),
+                "out_norm": ("out_layers.0", "norm"),
+                "out_conv": ("out_layers.3", "conv"),
+                "skip": ("skip_connection", "conv"),
+                "norm": ("norm", "norm"),
+                "qkv": ("qkv", "conv1d"),
+                "proj_out": ("proj_out", "conv1d")}
+_GUIDED_TOP = {"time_dense1": ("time_embed.0", "dense"),
+               "time_dense2": ("time_embed.2", "dense"),
+               "out_norm": ("out.0", "norm"),
+               "out_conv": ("out.2", "conv"),
+               "input_0_0": ("input_blocks.0.0", "conv")}
+
+
+def _guided_leaf(kind: str, leaf: str, val: np.ndarray) -> np.ndarray:
+    if leaf != "kernel":
+        return val
+    if kind == "conv":
+        return _conv_w(val)
+    if kind == "dense":
+        return _dense_w(val)
+    return _dense_w(val)[:, :, None]                     # conv1d (O, I, 1)
+
+
+def flax_guided_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
+    """Convert a Flax ``GuidedUNet`` (gdp) params tree to the state dict
+    of :class:`~fastdiffsr_tpu_torch.models.unet_guided.GuidedUNet`: the
+    inverse of ``torch_guided_unet_to_flax``."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, val in _flatten(params):
+        val = np.asarray(val, np.float32)
+        top, leaf = path[0], path[-1]
+        if len(path) == 2 and top in _GUIDED_TOP:
+            name, kind = _GUIDED_TOP[top]
+        else:
+            m = re.fullmatch(r"(input|middle|output)_(\d+)(?:_(\d+))?", top)
+            if m is None or len(path) != 3 or path[1] not in _GUIDED_LEAF:
+                raise KeyError(f"unexpected Flax param {'/'.join(path)}")
+            lst, i, j = m.groups()
+            block = (f"middle_block.{i}" if lst == "middle"
+                     else f"{lst}_blocks.{i}.{j}")
+            sub, kind = _GUIDED_LEAF[path[1]]
+            name = f"{block}.{sub}"
+        sd[f"{name}.{_param(leaf)}"] = _guided_leaf(kind, leaf, val)
+    return _to_torch(sd)
+
+
+def flax_converter(variant: str):
+    """The Flax-tree -> torch state dict converter of a variant's UNet."""
+    convs = {"fastdiffsr": flax_params_to_torch,
+             "ddpm": flax_sr3_params_to_torch,
+             "tesr": flax_sr3_params_to_torch,
+             "gdp": flax_guided_params_to_torch}
+    if variant not in convs:
+        raise ValueError(f"unknown which_model_G: {variant}")
+    return convs[variant]
+
+
+def optax_state_to_torch(opt_state: Sequence, param_names: Sequence[str],
+                         variant: str = "fastdiffsr") -> dict:
     """The ``state`` entry of a torch optimizer state dict from an optax
     chain state (a tuple of optax states, e.g. ``(ScaleByAdamState(count,
     mu, nu), EmptyState())``, or stand-ins with the same class names and
     fields). ``param_names`` lists the torch parameter names in the
-    optimizer's order. Adam's moments become ``exp_avg``/``exp_avg_sq``
-    with ``step`` = count, as torch.optim.Adam/AdamW keep them."""
+    optimizer's order; the moment trees go through ``variant``'s
+    converter. Adam's moments become ``exp_avg``/``exp_avg_sq`` with
+    ``step`` = count, as torch.optim.Adam/AdamW keep them."""
     by_name = {type(s).__name__: s for s in opt_state}
     if "ScaleByAdamState" not in by_name:
         raise NotImplementedError(
             f"optax state {sorted(by_name)}: only Adam/AdamW moments are "
             "converted")
     count, mu, nu = by_name["ScaleByAdamState"]
-    mu, nu = flax_params_to_torch(mu), flax_params_to_torch(nu)
+    convert = flax_converter(variant)
+    mu, nu = convert(mu), convert(nu)
     step = float(np.asarray(count))
     return {i: {"step": torch.tensor(step), "exp_avg": mu[name],
                 "exp_avg_sq": nu[name]}

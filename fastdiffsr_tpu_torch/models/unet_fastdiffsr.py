@@ -329,7 +329,7 @@ def init_params(net: nn.Module, seed: int = 0) -> nn.Module:
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in net.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 m.weight.copy_(torch.nn.init.trunc_normal_(

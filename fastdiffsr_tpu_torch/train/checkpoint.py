@@ -5,8 +5,9 @@ Counterpart of ``fastdiffsr_tpu/train/checkpoint.py``. One directory
 payload {step, epoch, params, ema_params, opt_state}: params and
 ema_params are state dicts of the UNet, opt_state is the optimizer's
 state dict. ``load_state`` and ``load_params_only`` also read the JAX
-package's pickle backend (``state.pkl``): its Flax trees go through
-``models.convert``. Its ``orbax/`` backend is not readable here.
+package's pickle backend (``state.pkl``): its Flax trees go through the
+converter of the run's variant (``models.convert.flax_converter``). Its
+``orbax/`` backend is not readable here.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models.convert import flax_params_to_torch, optax_state_to_torch
+from ..models.convert import flax_converter, optax_state_to_torch
 from .state import TrainState
 
 # optax states a JAX pickle names, as plain stand-ins (pickle rebuilds a
@@ -93,9 +94,10 @@ def save_state(state: TrainState, ckpt_dir: str, *, it=None,
     return path
 
 
-def load_state(prefix: str, state: TrainState) -> TrainState:
+def load_state(prefix: str, state: TrainState, variant: str) -> TrainState:
     """Restore ``state`` in place from a checkpoint directory of either
-    package (reference-style prefix '.../I896896_E196')."""
+    package (reference-style prefix '.../I896896_E196'); ``variant``
+    (``which_model_G``) names the UNet of a JAX checkpoint's trees."""
     kind, path = _find(prefix)
     dev = next(state.net.parameters()).device
     names = [n for n, _ in state.net.named_parameters()]
@@ -105,9 +107,11 @@ def load_state(prefix: str, state: TrainState) -> TrainState:
         opt_sd = payload["opt_state"]
     else:
         payload = _read_jax_pickle(path)
-        params = flax_params_to_torch(payload["params"])
-        ema = flax_params_to_torch(payload["ema_params"])
-        opt_sd = {"state": optax_state_to_torch(payload["opt_state"], names),
+        convert = flax_converter(variant)
+        params = convert(payload["params"])
+        ema = convert(payload["ema_params"])
+        opt_sd = {"state": optax_state_to_torch(payload["opt_state"], names,
+                                                variant),
                   "param_groups": state.optimizer.state_dict()[
                       "param_groups"]}
     state.net.load_state_dict(params)
@@ -120,12 +124,13 @@ def load_state(prefix: str, state: TrainState) -> TrainState:
     return state
 
 
-def load_params_only(prefix: str, use_ema: bool = False
+def load_params_only(prefix: str, use_ema: bool = False, *, variant: str
                      ) -> Dict[str, torch.Tensor]:
     """The UNet state dict (EMA params with ``use_ema``) of a checkpoint
-    directory of either package, on the CPU."""
+    directory of either package, on the CPU; ``variant`` names the UNet
+    of a JAX checkpoint's tree."""
     key = "ema_params" if use_ema else "params"
     kind, path = _find(prefix)
     if kind == "torch":
         return torch.load(path, map_location="cpu", weights_only=True)[key]
-    return flax_params_to_torch(_read_jax_pickle(path)[key])
+    return flax_converter(variant)(_read_jax_pickle(path)[key])

@@ -15,7 +15,8 @@ has no counterpart: a call per step costs nothing extra here.
 tail batch is padded to the full batch size and every image gets its own
 ``torch.Generator`` seeded from its GLOBAL index, so an image's output
 does not depend on how the image set is cut into batches.
-:func:`make_sample_fn` wraps the ancestral sampler around a denoiser.
+:func:`make_sample_fn` wraps one of the three samplers (ancestral, DDIM,
+DPM-Solver++) around a denoiser.
 """
 
 from __future__ import annotations
@@ -114,9 +115,23 @@ def make_cached_train_step(engine: DiffusionEngine, batch_size: int,
 
 
 def image_generator(seed: int, index: int, device) -> torch.Generator:
-    """The generator of image ``index`` of a run seeded with ``seed``."""
-    return torch.Generator(device=device).manual_seed(
-        (int(seed) << 32) + int(index))
+    """The generator of image ``index`` of a run seeded with ``seed``.
+    The (seed, index) pair is hashed into the generator's seed: the CPU
+    generator keeps only the low 32 bits of its seed."""
+    state = np.random.SeedSequence([int(seed), 0, int(index)]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def pass_seed(seed: int, k: int) -> int:
+    """The image-generator seed of sampling pass ``k`` of a run seeded
+    with ``seed``: ``seed`` itself for pass 0, a derived one for the
+    extra passes of ``n_samples`` averaging (a stream apart from the
+    train steps')."""
+    if k == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), 2, int(k)])
+               .generate_state(1, np.uint32)[0])
 
 
 def pad_batch_with_keys(cond, full_b: int, seed: int, start_index: int,
@@ -139,18 +154,28 @@ def pad_batch_with_keys(cond, full_b: int, seed: int, start_index: int,
 def make_sample_fn(engine: DiffusionEngine,
                    denoise_fn: Callable[[torch.Tensor, torch.Tensor],
                                         torch.Tensor],
-                   sampler: str = "ancestral"):
+                   sampler: str = "ancestral",
+                   ddim_steps: Optional[int] = None,
+                   ddim_eta: float = 0.0):
     """Returns sample(cond, generators) -> SR batch (B,H,W,C).
 
-    ``cond`` is the bicubic-upsampled LR batch in [-1, 1]. Only the
-    ancestral sampler is ported; 'ddim' and 'dpm' wait for a later slice.
+    ``cond`` is the bicubic-upsampled LR batch in [-1, 1]; ``generators``
+    holds one generator per image. ``sampler='ddim'`` runs DDIM with
+    ``ddim_steps`` UNet evals (T when None; deterministic when
+    ``ddim_eta == 0``), ``sampler='dpm'`` DPM-Solver++(2M) with the same
+    step count, ``'ancestral'`` the T-step reverse process.
     """
-    if sampler != "ancestral":
-        raise NotImplementedError(
-            f"sampler={sampler!r}: only 'ancestral' is ported "
-            "(DDIM/DPM: ROADMAP.md queue 1, remaining samplers)")
+    if sampler not in ("ancestral", "ddim", "dpm"):
+        raise ValueError(
+            f"sampler={sampler!r} (want 'ancestral', 'ddim' or 'dpm')")
 
     def sample(cond, generators):
+        if sampler == "dpm":
+            return engine.sample_dpm(denoise_fn, cond, generators,
+                                     steps=ddim_steps)
+        if sampler == "ddim":
+            return engine.sample_ddim(denoise_fn, cond, generators,
+                                      steps=ddim_steps, eta=ddim_eta)
         return engine.sample(denoise_fn, cond, generators)
 
     return sample

@@ -525,7 +525,7 @@ def test_checkpoint_roundtrip_is_bit_equal(tmp_path):
         step(state, batch, step_generator(0, i, "cpu"))
     path = save_state(state, str(tmp_path), epoch=3)
     assert path.endswith("I2_E3")
-    fresh = load_state(path, _state(seed=9, dropout=0.2))
+    fresh = load_state(path, _state(seed=9, dropout=0.2), "fastdiffsr")
     assert (fresh.step, fresh.epoch) == (2, 3)
     for k, v in state.net.state_dict().items():
         assert torch.equal(fresh.net.state_dict()[k], v), k
@@ -538,16 +538,17 @@ def test_checkpoint_roundtrip_is_bit_equal(tmp_path):
     ma = step(state, batch, step_generator(0, 2, "cpu"))[1]
     mb = step(fresh, batch, step_generator(0, 2, "cpu"))[1]
     assert torch.equal(ma["l_pix"], mb["l_pix"])
-    raw, ema = (load_params_only(path, use_ema=u) for u in (False, True))
+    raw, ema = (load_params_only(path, use_ema=u, variant="fastdiffsr")
+                for u in (False, True))
     assert any(not torch.equal(raw[k], ema[k]) for k in raw)
 
 
 def test_orbax_checkpoint_is_refused(tmp_path):
     (tmp_path / "I1_E1" / "orbax").mkdir(parents=True)
     with pytest.raises(ValueError, match="Orbax"):
-        load_params_only(str(tmp_path / "I1_E1"))
+        load_params_only(str(tmp_path / "I1_E1"), variant="fastdiffsr")
     with pytest.raises(FileNotFoundError):
-        load_params_only(str(tmp_path))
+        load_params_only(str(tmp_path), variant="fastdiffsr")
 
 
 JAX_RESUME = r"""
@@ -566,7 +567,7 @@ d = dict(np.load(io_path))
 net = FastDiffSRUNet(inner_channel=8, norm_groups=4, channel_mults=(1, 2),
                      res_blocks=1, dropout=0.0)
 state = load_state(ckpt, create_train_state(
-    net, make_optimizer(net.parameters(), {"lr": lr})))
+    net, make_optimizer(net.parameters(), {"lr": lr})), "fastdiffsr")
 eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
                       ScheduleBuffers.create(
                           {"schedule": "linear_cosine", "n_timestep": 20,
