@@ -23,8 +23,9 @@ limit:
    f32 plain);
 5. the serving path end to end: a synthetic 64->256 npy pack from
    --seed, then ``fastdiffsr_tpu_torch.cli.infer`` on CUDA at full width,
-   T=20, with launch counters that must show 49 K3 launches, all on the
-   wgmma kernel, and 4 K2 launches per UNet eval;
+   T=20, in bf16, with launch counters that must show 49 K3 launches, all
+   on the wgmma kernel, and 4 K2 launches per UNet eval; then the same
+   with no ``--dtype`` (float32, infer's default; K3 on the CUDA cores);
 6. K1 (GroupNorm -> Swish) against its plain version at every distinct
    K1 shape of one full-width training forward at batch 4, in f32 and
    bf16, with the kernel's, the plain version's and the two library calls'
@@ -41,8 +42,9 @@ limit:
    CUDA with the train config at full width, batch 4, T=20, on a
    synthetic pack from --seed (45 K1 launches per step, steady steps/s
    and peak memory), a checkpoint that reloads bit-equal, then ``-p val``
-   from it on a few images (PSNR/SSIM, 49 K3 and 4 K2 launches per UNet
-   eval, seconds per image);
+   from it on a few images (PSNR/SSIM, LPIPS computed on the card with a
+   weight pack made from --seed, 49 K3 and 4 K2 launches per UNet eval,
+   seconds per image, and LPIPS's milliseconds per image);
 10. the fast samplers: ``cli.infer`` at full width in bf16 on the fused
    forward with DDIM and then DPM-Solver++ at 10 steps (49 K3 launches,
    all on wgmma, and 4 K2 per eval), then ``sample_ddim`` and
@@ -58,10 +60,28 @@ limit:
    against one on gn_swish_reference (randomized weights), then
    ``cli.sr_mfe -p train`` at full width (45 K1 launches per step for
    SR3, 29 for the guided UNet; steady steps/s; peak memory; a checkpoint
-   that reloads bit-equal) and ``-p val`` on one image (ddpm: ancestral
-   T=1000; tesr, gdp: DDIM 50 steps; K1 launches per eval, seconds per
-   image); then ``cli.infer`` of the ddpm config in bf16 on the plain
-   forward with DPM-Solver++ at 20 steps.
+   that reloads bit-equal; gdp also validates 13 images at its last step
+   inside the run, on cuDNN's heuristics) and ``-p val`` on one image
+   (ddpm: ancestral T=1000; tesr, gdp: DDIM 50 steps; K1 launches per
+   eval, seconds per image); then ``cli.infer`` of the ddpm config in
+   bf16 on the plain
+   forward with DPM-Solver++ at 20 steps;
+13. K3 (f32 and bf16) and K2 against their plain versions at every
+   signature of one 128->512 UNet eval at batch 1 (the maps of
+   configs/sr_fastdiffsr_infer_x4.json: 512, 256, 128 and 64 pixels a
+   side), with the same columns and per-eval totals;
+14. the 128->512 path end to end: ``cli.infer`` of
+   configs/sr_fastdiffsr_infer_x4.json at full width, T=20, batch 1, on a
+   synthetic 128->512 pack from --seed, first with no ``--dtype`` (float32,
+   K3 on the CUDA cores) and then with ``--dtype bf16`` (K3 on wgmma), 49
+   K3 and 4 K2 launches per eval on the routed kernel, seconds per image
+   (mean, and the spread over the images) and peak memory;
+15. ``cli.fid`` on the card over two directories of FID_IMAGES 256x256
+   PNGs written from --seed (HR tiles and their x4 bicubic baseline),
+   with an Inception weight pack made from --seed: the extractor's time
+   per image apart from the PNG decoding and from scipy's ``sqrtm``; the
+   card's pool3 features against the CPU's on a few images, and the FID
+   against a float64 evaluation of the same statistics by eigenvalues.
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -87,7 +107,7 @@ kernel), every number of it measured in this run or, for ``bound_ms``,
 computed from this run's shapes; the last line is {"ok": true, "device":
 {...}}. Per-shape details go to build/chip_smoke.json. Any failed check
 exits non-zero. The ``[time]`` line says how long the run took, the
-kernel build included: about three minutes on an H100.
+kernel build included: about eight minutes on an H100.
 """
 
 from __future__ import annotations
@@ -154,6 +174,16 @@ VARIANT_STEPS = 6    # phase 12: full-width train steps per variant
 VARIANT_VAL = {"ddpm": None,
                "tesr": {"sampler": "ddim", "ddim_steps": 50},
                "gdp": {"sampler": "ddim", "ddim_steps": 50}}
+# phase 14: 128->512 images per type at batch 1; the first is set-up, and
+# the other 47 make a steady window of seconds in bf16
+INFER_512_IMAGES = 48
+# phase 15: images per cli.fid directory, the Potsdam test set's count
+# (SURVEY.md §3), more than pool3's 2048 features
+FID_IMAGES = 3272
+FID_CHECK_IMAGES = 8   # phase 15: pool3 on the card against the CPU's
+FID_FEAT_TOL = 1e-4    # |dpool3| <= tol * max|pool3| (the CPU tests')
+FID_RTOL = 1e-3        # FID against the eigenvalue evaluation (the tests')
+LPIPS_REPS = 10        # phase 9: timed LPIPS calls
 
 
 def card_line() -> str:
@@ -432,13 +462,14 @@ def total(rows, key, dt="bf16", per="calls_per_eval"):
     return sum(r[key] * r[per] for r in rows if r["dtype"] == dt)
 
 
-def print_k3_totals(rows, card):
+def print_k3_totals(rows, card, label=""):
     """One ``[K3 total ...]`` line per type of ``rows`` (one batch)."""
     for dt in sorted({r["dtype"] for r in rows}):
         B = rows[0]["B"]
         routes = {r["kernel_route"] for r in rows if r["dtype"] == dt}
         calls = sum(r["calls_per_eval"] for r in rows if r["dtype"] == dt)
-        print(f"[K3 total {dt} B={B}] {card} | per UNet eval ({calls} calls) on "
+        print(f"[K3 total {dt} B={B}{label}] {card} | per UNet eval "
+              f"({calls} calls) on "
               f"{'/'.join(sorted(routes))}, device: kernel "
               f"{total(rows, 'ms', dt):.3f} ms, plain "
               f"{total(rows, 'plain_ms', dt):.3f} ms, F.conv2d "
@@ -739,13 +770,19 @@ def evals_per_image(cfg) -> int:
 
 
 def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
-                sampler=None):
+                sampler=None, lpips=False, val_freq=10 ** 9):
     """cli.sr_mfe -p train then -p val, on CUDA at full width, for the
     config's variant; ``sampler`` ({sampler, ddim_steps}) overrides the
-    val sampler."""
+    val sampler. With ``lpips``, -p val runs with an LPIPS weight pack
+    made from ``seed`` and must report LPIPS computed on the card.
+    ``val_freq`` <= ``steps`` validates inside the training run too (on
+    cuDNN's heuristics, which the CLI switches to around it)."""
+    import numpy as np
     import torch
 
+    from fastdiffsr_tpu_torch import metrics
     from fastdiffsr_tpu_torch.cli import sr_mfe
+    from fastdiffsr_tpu_torch.lpips_torch import random_pack
     from fastdiffsr_tpu_torch.cli.infer import build_unet
     from fastdiffsr_tpu_torch.data import write_pack
     from fastdiffsr_tpu_torch.ops import fused_conv, kernels
@@ -765,7 +802,7 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
                                     batch_size=B_TRAIN)
     cfg["datasets"]["val"].update(dataroot=droot, datatype="npy",
                                   data_len=val_images)
-    cfg["train"].update(n_iter=steps, val_freq=10 ** 9,
+    cfg["train"].update(n_iter=steps, val_freq=val_freq,
                         save_checkpoint_freq=10 ** 9, print_freq=8)
     if sampler:
         cfg["model"]["diffusion"].update(sampler)
@@ -784,7 +821,13 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
     launches = dict(kernels.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = summary["l_pix"]
-    want_k1 = K1_PER_FORWARD[variant] * steps
+    # launches of the validations inside the run, whose val set config.parse
+    # cuts to 13 images for -p train, as the reference does
+    in_evals = (evals_per_image(cfg) * min(13, TRAIN_IMAGES)
+                * (steps // val_freq))
+    fused_val = variant == "fastdiffsr"
+    want_k1 = K1_PER_FORWARD[variant] * (steps + (0 if fused_val
+                                                  else in_evals))
     ckpt = summary["checkpoint"]
     payload = torch.load(os.path.join(ckpt, "state.pt"), map_location=dev,
                          weights_only=True)
@@ -810,8 +853,11 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
     train_ok = (summary["steps"] == steps and len(losses) == steps
                 and all(map(math.isfinite, losses)) and changed > 0
                 and bit_equal and launches["gn_swish"] == want_k1
-                and launches["fused_gn_swish_conv3x3"] == 0
-                and launches["channel_stats"] == 0 and rate is not None)
+                and launches["fused_gn_swish_conv3x3"]
+                == (49 * in_evals if fused_val else 0)
+                and launches["channel_stats"]
+                == (4 * in_evals if fused_val else 0)
+                and rate is not None)
     print(f"[train{label}] {card} | cli.sr_mfe -p train cuda f32 full width, "
           f"B={B_TRAIN}, T={T}, TF32 off, {steps} steps: l_pix "
           f"first {losses[0]:.4f} last {losses[-1]:.4f} mean "
@@ -823,12 +869,23 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
           f"({rate * B_TRAIN:.2f} img/s) excluding the first step; wall "
           f"{wall:.1f} s | peak {peak_gib:.2f} GiB "
           f"{'ok' if train_ok else 'FAIL'}", flush=True)
+    in_val = summary["last_validation"]
+    if in_evals:
+        print(f"[train{label} in-run validation] {card} | every {val_freq} "
+              f"steps, {min(13, TRAIN_IMAGES)} images, "
+              f"{evals_per_image(cfg)} evals each, on cuDNN's heuristics: "
+              f"{in_val['avg_time']:.3f} s per image after the first, psnr "
+              f"{in_val['psnr']:.4f}", flush=True)
     k1_launches = launches["gn_swish"]
 
     cfg["path"]["resume_state"] = ckpt
     val_cfg = os.path.join(work, f"{cfg['name']}_val.json")
     with open(val_cfg, "w") as f:
         json.dump(cfg, f)
+    if lpips:
+        pack = os.path.join(work, f"lpips_alex_{seed}.npz")
+        np.savez(pack, **random_pack(seed + 8))
+        os.environ["FASTDIFFSR_TPU_LPIPS"] = pack
     gc.collect()            # the train run's state, before the val peak
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -855,6 +912,31 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
     val_ok = (math.isfinite(res.get("psnr", math.nan))
               and math.isfinite(res.get("ssim", math.nan))
               and launches == want and routes == want_routes)
+    lpips_ms = None
+    if lpips:
+        # LPIPS of one validation image (an SR/HR pair at the config's
+        # size) on the module -p val built, timed from the host: the call
+        # returns a float, so it waits for the card
+        net = metrics._LPIPS.get("cuda")
+        on_card = net is not None and net.shift.device.type == "cuda"
+        # -p val from a checkpoint writes into that run's directory
+        results = os.path.join(os.path.dirname(os.path.dirname(ckpt)),
+                               "results")
+        pair = [metrics.load_img(os.path.join(results, f"0_{k}.png"))
+                for k in ("sr", "hr")]
+        metrics.calculate_lpips(*pair, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        for _ in range(LPIPS_REPS):
+            metrics.calculate_lpips(*pair, device=dev)
+        lpips_ms = (time.time() - t1) / LPIPS_REPS * 1e3
+        l_ok = on_card and math.isfinite(res.get("lpips", math.nan))
+        val_ok &= l_ok
+        print(f"[lpips] {card} | -p val lpips {res.get('lpips', math.nan):.6f}"
+              f" on the card: {on_card}, LPIPS-alex (synthetic pack from "
+              f"--seed) {lpips_ms:.3f} ms per {pair[0].shape[0]}x"
+              f"{pair[0].shape[1]} image pair, host-timed over "
+              f"{LPIPS_REPS} calls {'ok' if l_ok else 'FAIL'}", flush=True)
     diff = cfg["model"].get("diffusion") or {}
     samp = diff.get("sampler") or "ancestral"
     s_img = res.get("avg_time", res.get("avg_time_incl_setup", math.nan))
@@ -877,7 +959,8 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
               "bit_equal": bit_equal, "val": res, "val_sampler": samp,
               "val_evals_per_image": evals_per_image(cfg),
               "val_wall_s": vwall, "val_peak_gib": vpeak,
-              "val_launches": launches, "val_routes": routes}
+              "val_launches": launches, "val_routes": routes,
+              "val_lpips_ms": lpips_ms, "in_run_validation": in_val}
     return detail, k1_launches, train_ok and val_ok
 
 
@@ -915,8 +998,12 @@ def run_infer(cfg, name, card, args, tag, want, want_routes=None):
           and len(pngs) == n_img
           and (want_routes is None or routes == want_routes))
     lat = summary["mean_latency_s"]
+    lats = sorted(summary["latencies_s"])
     if lat:
-        rate = f"steady {1.0 / lat:.3f} img/s, {lat:.4f} s/img"
+        rate = (f"steady {1.0 / lat:.3f} img/s, {lat:.4f} s/img (per "
+                f"image over {len(lats)} steady images, each its batch's "
+                f"mean: min {lats[0]:.4f}, median {lats[len(lats) // 2]:.4f}"
+                f", max {lats[-1]:.4f})")
     else:
         lat = summary["first_batch_s_per_image"]
         rate = f"{lat:.4f} s/img incl. set-up (one batch)"
@@ -932,7 +1019,9 @@ def run_infer(cfg, name, card, args, tag, want, want_routes=None):
           flush=True)
     return {"launches": launches, "routes": routes, "s_per_img": lat,
             "img_per_s": 1.0 / lat, "steady": bool(summary["mean_latency_s"]),
-            "wall_s": wall, "peak_gib": peak_gib}, ok
+            "latencies_s": lats,
+            "wall_s": wall, "peak_gib": peak_gib,
+            "results": summary["results"]}, ok
 
 
 def sampler_gains(alphas_cumprod, steps: int, sampler: str):
@@ -1122,9 +1211,12 @@ def phase_variants(card, seed, pack):
         cfg = variant_cfg(variant)
         detail[f"{variant}_step"], s_ok = phase_train_parity(
             cfg, B_TRAIN, card, seed)
+        # gdp also validates inside its run: timed cuDNN algorithms took
+        # 3x the heuristics' time for its batch-1 evals (PERF.md)
         detail[variant], k1_train, t_ok = phase_train(
             cfg, card, seed, steps=VARIANT_STEPS, val_images=1,
-            sampler=VARIANT_VAL[variant])
+            sampler=VARIANT_VAL[variant],
+            val_freq=VARIANT_STEPS if variant == "gdp" else 10 ** 9)
         ok &= s_ok and t_ok
         k1 += k1_train + detail[variant]["val_launches"]["gn_swish"]
     cfg = variant_cfg("ddpm", "test_64_256")
@@ -1141,6 +1233,202 @@ def phase_variants(card, seed, pack):
     ok &= i_ok
     k1 += detail["ddpm_infer_bf16"]["launches"]["gn_swish"]
     return detail, k1, ok
+
+
+def phase_512_kernels(card, seed):
+    """13. K3 (f32, bf16) and K2 against their plain versions at every
+    signature of one 128->512 eval of configs/sr_fastdiffsr_infer_x4.json
+    at batch 1 (recorded from a fused f32 forward)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr_fused import \
+        prepare_fused_params
+    cfg = variant_cfg("fastdiffsr", "infer_x4")
+    r = int(cfg["datasets"]["val"]["r_resolution"])
+    dev = torch.device("cuda")
+    net = unet_from_config(cfg["model"]["unet"], device=dev, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    x = torch.randn((1, r, r, 6), generator=g, device=dev)
+    level = torch.rand((1,), generator=g, device=dev)
+    k3_sigs, k2_sigs = record_calls(prepare_fused_params(net, torch.float32),
+                                    x, level)
+    del net, x
+    torch.cuda.empty_cache()
+    n_k3, n_k2 = sum(k3_sigs.values()), sum(k2_sigs.values())
+    ok = n_k3 == 49 and n_k2 == 4
+    print(f"[shapes {r}] {card} | one 128->{r} eval: {n_k3} K3 calls in "
+          f"{len(k3_sigs)} shapes, {n_k2} K2 calls in {len(k2_sigs)} shapes "
+          f"(want 49 and 4) {'ok' if ok else 'FAIL'}", flush=True)
+    k3_rows, k3_ok = phase_k3(k3_sigs, 1, REPS, card, seed,
+                              dtypes=("f32", "bf16"))
+    k2_rows, k2_ok = phase_k2(k2_sigs, 1, REPS, card, seed)
+    print_k3_totals(k3_rows, card, f" {r}x{r}")
+    for dt in ("f32", "bf16"):
+        print(f"[K2 total {dt} B=1 {r}x{r}] {card} | per UNet eval, device: "
+              f"kernel {total(k2_rows, 'ms', dt):.4f} ms, plain "
+              f"{total(k2_rows, 'plain_ms', dt):.4f} ms | bound "
+              f"{total(k2_rows, 'bound_ms', dt):.4f} ms", flush=True)
+    return {"k3": k3_rows, "k2": k2_rows}, ok and k3_ok and k2_ok
+
+
+def phase_512_infer(card, seed):
+    """14. cli.infer of configs/sr_fastdiffsr_infer_x4.json (128->512,
+    T=20, batch 1) on a synthetic pack from ``seed``: with no --dtype
+    (float32, K3 on the CUDA cores), then --dtype bf16 (K3 on wgmma)."""
+    from fastdiffsr_tpu_torch.data import write_pack
+    cfg = variant_cfg("fastdiffsr", "infer_x4")
+    ds = cfg["datasets"]["val"]
+    l_res, r_res = int(ds["l_resolution"]), int(ds["r_resolution"])
+    work = os.path.join(ROOT, "build", "smoke")
+    pack = write_pack(os.path.join(work, f"pack_{l_res}_{r_res}_{seed}"),
+                      INFER_512_IMAGES, seed + 13, l_res, r_res)
+    ds.update(dataroot=pack, datatype="npy", batch_size=1,
+              data_len=INFER_512_IMAGES)
+    n_eval = int(cfg["model"]["beta_schedule"]["val"]["n_timestep"]) * \
+        INFER_512_IMAGES
+    detail, ok = {}, True
+    for dt, flags, route in (("f32", [], "cuda_cores"),
+                             ("bf16", ["--dtype", "bf16"], "wgmma")):
+        cfg["name"] = f"chip_smoke_infer_{r_res}_{dt}"
+        detail[dt], i_ok = run_infer(
+            cfg, cfg["name"], card, [*flags, "--seed", str(seed)],
+            f"infer {l_res}->{r_res} {dt}",
+            {"fused_gn_swish_conv3x3": 49 * n_eval,
+             "channel_stats": 4 * n_eval, "gn_swish": 0},
+            {"wgmma": 0, "cuda_cores": 0, route: 49 * n_eval})
+        ok &= i_ok
+    return detail, ok
+
+
+def fid_reference(mu1, s1, mu2, s2) -> float:
+    """The Frechet distance in float64 by eigenvalues, apart from scipy's
+    sqrtm: Tr (S1 S2)^(1/2) is the sum of the square roots of the
+    eigenvalues of S1^(1/2) S2 S1^(1/2). Features with no variance in
+    either set add nothing and are left out."""
+    import numpy as np
+    live = (np.diag(s1) > 0) | (np.diag(s2) > 0)
+    s1, s2 = s1[np.ix_(live, live)], s2[np.ix_(live, live)]
+    w, v = np.linalg.eigh(s1)
+    r = (v * np.sqrt(np.clip(w, 0, None))) @ v.T
+    e = np.linalg.eigvalsh(r @ s2 @ r)
+    d = mu1 - mu2
+    return float(d @ d + np.trace(s1) + np.trace(s2)
+                 - 2 * np.sqrt(np.clip(e, 0, None)).sum())
+
+
+def write_fid_dirs(root, n, seed):
+    """Two directories of ``n`` 256x256 PNGs from ``seed``: HR tiles
+    (``data/synth.py::write_pack``'s recipe, made on the card) and their
+    x4 bicubic baseline; the PNGs are encoded on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    import torch.nn.functional as F
+
+    from fastdiffsr_tpu_torch.metrics import save_img
+    dirs = [os.path.join(root, d) for d in ("hr", "bicubic")]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u8(t):
+        return (t.clamp(0, 1) * 255).round().to(torch.uint8).permute(
+            0, 2, 3, 1).cpu().numpy()
+    with ThreadPoolExecutor(8) as pool:
+        for start in range(0, n, 512):
+            small = torch.rand((min(512, n - start), 3, 16, 16), generator=g,
+                               device="cuda")
+            hr = F.interpolate(small, size=256, mode="bicubic",
+                               align_corners=False)
+            lr = F.interpolate(hr, size=64, mode="bicubic", antialias=True,
+                               align_corners=False)
+            sr = F.interpolate(lr, size=256, mode="bicubic",
+                               align_corners=False)
+            for d, imgs in zip(dirs, (u8(hr), u8(sr))):
+                list(pool.map(lambda j: save_img(imgs[j], os.path.join(
+                    d, f"{start + j:05d}.png")), range(len(imgs))))
+    return dirs
+
+
+def phase_fid(card, seed):
+    """15. cli.fid --device cuda over two directories of FID_IMAGES PNGs
+    (``write_fid_dirs``) with an Inception weight pack made from ``seed``.
+    The extractor, decoding and Frechet-distance calls are timed apart;
+    the card's pool3 features are held against the CPU's on
+    FID_CHECK_IMAGES images, and the FID against ``fid_reference``."""
+    import numpy as np
+
+    from fastdiffsr_tpu_torch.cli import fid
+    from fastdiffsr_tpu_torch.metrics import load_img
+    from fastdiffsr_tpu_torch.models import inception
+    work = os.path.join(ROOT, "build", "smoke")
+    t0 = time.time()
+    fake, real = write_fid_dirs(os.path.join(work, f"fid_{seed}"),
+                                FID_IMAGES, seed + 15)
+    write_s = time.time() - t0
+    inc_pack = os.path.join(work, f"inception_fid_{seed}.npz")
+    np.savez(inc_pack, **inception.random_pack(seed + 14))
+    os.environ["FASTDIFFSR_TPU_INCEPTION"] = inc_pack
+    built, stats = [], []
+    secs = {"extract": 0.0, "features": 0.0, "frechet": 0.0}
+    load, features, frechet = (inception.load_default, fid.directory_features,
+                               fid.frechet_distance)
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t = time.time()
+            out = fn(*a, **kw)
+            secs[key] += time.time() - t
+            return out
+        return call
+
+    def record_load(device="cpu"):
+        built.append(load(device))
+        return timed("extract", built[-1])
+
+    def record_frechet(*a):
+        stats.append(a)
+        return frechet(*a)
+
+    inception.load_default = record_load
+    fid.directory_features = timed("features", features)
+    fid.frechet_distance = timed("frechet", record_frechet)
+    try:
+        t0 = time.time()
+        value = fid.main([fake, real, "--device", "cuda"])
+        fid_s = time.time() - t0
+    finally:
+        inception.load_default = load
+        fid.directory_features, fid.frechet_distance = features, frechet
+    on_card = [e.device.type for e in built] == ["cuda"]
+    want = fid_reference(*stats[0])
+    f_err = abs(value - want) / abs(want)
+    x = np.stack([load_img(os.path.join(real, f"{j:05d}.png"))
+                  for j in range(FID_CHECK_IMAGES)]).astype(np.float32) / 255
+    cpu = load("cpu")(x)
+    feat_err = float(np.abs(built[0](x) - cpu).max())
+    feat_tol = FID_FEAT_TOL * float(np.abs(cpu).max())
+    ok = (on_card and math.isfinite(value) and value > 0
+          and f_err <= FID_RTOL and feat_err <= feat_tol)
+    n = 2 * FID_IMAGES
+    print(f"[fid] {card} | cli.fid --device cuda over 2 x {FID_IMAGES} "
+          f"256x256 PNGs (HR tiles against their x4 bicubic baseline; "
+          f"synthetic Inception pack from --seed): FID {value:.6g}, "
+          f"eigenvalue reference {want:.6g} (rel err {f_err:.2g}, tol "
+          f"{FID_RTOL}); pool3 on the card against the CPU on "
+          f"{FID_CHECK_IMAGES} images max|d| {feat_err:.3g} (tol "
+          f"{feat_tol:.3g}); extractor on the card: {on_card} | "
+          f"{fid_s:.2f} s: extractor {1e3 * secs['extract'] / n:.3f} ms per "
+          f"image (batches of 8), with PNG decoding "
+          f"{1e3 * secs['features'] / n:.3f} ms per image, Frechet distance "
+          f"(scipy sqrtm, host) {secs['frechet']:.2f} s; PNGs written in "
+          f"{write_s:.1f} s {'ok' if ok else 'FAIL'}", flush=True)
+    return {"value": value, "reference": want, "rel_err": f_err,
+            "feature_err": feat_err, "images": n, "seconds": fid_s,
+            "extract_ms_per_image": 1e3 * secs["extract"] / n,
+            "features_ms_per_image": 1e3 * secs["features"] / n,
+            "frechet_s": secs["frechet"], "write_s": write_s}, ok
 
 
 def gdp_reference(card, seed):
@@ -1179,7 +1467,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds weights, inputs and the synthetic data")
     ap.add_argument("--gdp-reference", action="store_true",
-                    help="in place of phases 2-12: the gdp evaluation at its "
+                    help="in place of phases 2-15: the gdp evaluation at its "
                          "reference shape (see gdp_reference)")
     args = ap.parse_args(argv)
 
@@ -1295,7 +1583,13 @@ def main(argv=None) -> int:
         "serve", {"fused_gn_swish_conv3x3": 49 * n_eval,
                   "channel_stats": 4 * n_eval, "gn_swish": 0},
         {"wgmma": 49 * n_eval, "cuda_cores": 0})
-    ok &= serve_ok
+    # the same in float32, infer's default (K3 on the CUDA cores)
+    cfg["name"] = "chip_smoke_infer_f32"
+    detail["serve_f32"], serve32_ok = run_infer(
+        cfg, cfg["name"], card, ["--seed", str(args.seed)], "serve f32",
+        {"fused_gn_swish_conv3x3": 49 * n_eval, "channel_stats": 4 * n_eval,
+         "gn_swish": 0}, {"wgmma": 0, "cuda_cores": 49 * n_eval})
+    ok &= serve_ok and serve32_ok
     lap("5 serve")
     torch.cuda.empty_cache()
 
@@ -1327,7 +1621,8 @@ def main(argv=None) -> int:
                                                        card, args.seed)
     lap("7-8 K1 grad, train step")
     detail["train"], k1_launches, train_ok = phase_train(train_cfg, card,
-                                                         args.seed)
+                                                         args.seed,
+                                                         lpips=True)
     lap("9 train, val")
     ok &= k1_ok and grad_ok and step_ok and train_ok
 
@@ -1342,17 +1637,31 @@ def main(argv=None) -> int:
         card, args.seed, droot)
     lap("12 variants")
     ok &= samp_ok and k1v_ok and var_ok
+
+    # 13. K3/K2 at the 128->512 shapes; 14. the 128->512 path; 15. cli.fid
+    detail["k512"], k512_ok = phase_512_kernels(card, args.seed)
+    lap("13 K3, K2 at 512")
+    detail["infer_512"], i512_ok = phase_512_infer(card, args.seed)
+    lap("14 infer 128->512")
+    detail["fid"], fid_ok = phase_fid(card, args.seed)
+    lap("15 fid")
+    ok &= k512_ok and i512_ok and fid_ok
+    k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]
     k1_all_rows = k1_rows + [r for v in detail["k1_variants"].values()
                              for r in v["rows"]]
     # per SR3 forward (the shapes of phase 6) at batch 1, the batch of
     # the variants' -p val runs
     k1_b1 = detail["k1_variants"]["ddpm"]["total"]["f32_b1"]
     wgmma_launches = detail["serve"]["routes"]["wgmma"] + sum(
-        detail["samplers"][s]["routes"]["wgmma"] for s in ("ddim", "dpm"))
+        detail["samplers"][s]["routes"]["wgmma"] for s in ("ddim", "dpm")) \
+        + detail["infer_512"]["bf16"]["routes"]["wgmma"]
     k2_launches = (detail["serve"]["launches"]["channel_stats"]
+                   + detail["serve_f32"]["launches"]["channel_stats"]
                    + detail["train"]["val_launches"]["channel_stats"]
                    + sum(detail["samplers"][s]["launches"]["channel_stats"]
-                         for s in ("ddim", "dpm")))
+                         for s in ("ddim", "dpm"))
+                   + sum(detail["infer_512"][dt]["launches"]["channel_stats"]
+                         for dt in ("f32", "bf16")))
 
     def k3_route_of(dt):
         """The kernel every K3 row of that type ran on (or "mixed")."""
@@ -1365,6 +1674,18 @@ def main(argv=None) -> int:
                   if r["dtype"] == dt and r["bound_by"] == "operations")
         return ("operations" if ops >= total(rows, "bound_ms", dt, per) / 2
                 else "bytes")
+
+    def at_512(rows, dt, err="max_abs_err_y"):
+        """Per 128->512 eval at batch 1: the ``*_512`` keys of an entry."""
+        return {"ms_512": total(rows, "ms", dt),
+                "plain_ms_512": total(rows, "plain_ms", dt),
+                "bound_ms_512": total(rows, "bound_ms", dt),
+                "bound_by_512": by(rows, dt),
+                "library_ms_512": (total(rows, "library_ms", dt)
+                                   if rows[0]["library_ms"] is not None
+                                   else None),
+                "max_abs_err_512": max(r[err] for r in rows
+                                       if r["dtype"] == dt)}
 
     print_k3_totals(k3_rows, card)
     print_k3_totals(k3_b1_rows, card)
@@ -1410,11 +1731,13 @@ def main(argv=None) -> int:
          "ms": total(k3_rows, "ms"), "plain_ms": total(k3_rows, "plain_ms"),
          "bound_ms": total(k3_rows, "bound_ms"), "bound_by": by(k3_rows),
          "library_ms": total(k3_rows, "library_ms"),
-         "wall_ms": total(k3_rows, "wall_ms")},
+         "wall_ms": total(k3_rows, "wall_ms"), **at_512(k3_512, "bf16")},
         {"name": "fused_gn_swish_conv3x3_f32", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/fused_conv.cu",
          "replaces": "fastdiffsr_tpu/ops/fused_conv.py:107",
-         "launches": detail["train"]["val_routes"]["cuda_cores"],
+         "launches": detail["train"]["val_routes"]["cuda_cores"]
+         + detail["serve_f32"]["routes"]["cuda_cores"]
+         + detail["infer_512"]["f32"]["routes"]["cuda_cores"],
          "kernel_route": k3_route_of("f32"),
          "max_abs_err": max(r["max_abs_err_y"] for r in k3_rows
                             if r["dtype"] == "f32"),
@@ -1426,7 +1749,8 @@ def main(argv=None) -> int:
          "wall_ms": total(k3_rows, "wall_ms", "f32"),
          # per eval at batch 1, the validation batch
          "ms_b1": total(k3_b1_rows, "ms", "f32"),
-         "library_ms_b1": total(k3_b1_rows, "library_ms", "f32")},
+         "library_ms_b1": total(k3_b1_rows, "library_ms", "f32"),
+         **at_512(k3_512, "f32")},
         {"name": "channel_stats", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/channel_stats.cu",
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:143",
@@ -1435,7 +1759,10 @@ def main(argv=None) -> int:
                             if r["dtype"] == "f32"),
          "ms": total(k2_rows, "ms"), "plain_ms": total(k2_rows, "plain_ms"),
          "bound_ms": total(k2_rows, "bound_ms"), "bound_by": by(k2_rows),
-         "library_ms": None, "wall_ms": total(k2_rows, "wall_ms")},
+         "library_ms": None, "wall_ms": total(k2_rows, "wall_ms"),
+         **at_512(k2_512, "bf16", "max_abs_err"),
+         **{f"{k}_f32": v for k, v in
+            at_512(k2_512, "f32", "max_abs_err").items()}},
     ]
     detail["kernels"] = kern
     detail["seconds"] = time.time() - t_start

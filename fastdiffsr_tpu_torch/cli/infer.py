@@ -9,18 +9,25 @@ default), ddim or dpm, with ``ddim_steps`` and ``ddim_eta``), saves
 ``{n}_sr.png`` per image and logs the steady-state latency:
 
     python -m fastdiffsr_tpu_torch.cli.infer -c <config.json> \\
-        [--device cuda] [--fused | --plain] [--dtype bf16|f32] [--seed N]
+        [--device cuda] [--fused | --plain] [--dtype f32|bf16] [--seed N] \\
+        [-enable_wandb] [-log_infer]
 
 It runs on CUDA unless ``--device cpu`` is given, and raises where CUDA
-is asked for but absent; float32 is full float32, and cuDNN picks its
-algorithms by its heuristics (``device.set_cudnn_autotuning``). The
-fused forward (K3/K2 kernels on CUDA; their plain versions on the CPU)
-exists for FastDiffSR only and is its default; the other variants run their plain UNet forward (K1 under each
-GroupNorm -> Swish), and ``--fused`` with them raises. With
+is asked for but absent. It samples in float32, as the JAX CLI and the
+reference do; ``--dtype bf16`` is the opt-in serving mode (the UNet's
+activations in bfloat16, K3 on the tensor cores), whose output is not
+the reference's within the port's tolerance. Float32 is full float32,
+and cuDNN picks its algorithms by its heuristics
+(``device.set_cudnn_autotuning``). The fused forward (K3/K2 kernels on
+CUDA; their plain versions on the CPU) exists for FastDiffSR only and is
+its default; the other variants run their plain UNet forward (K1 under
+each GroupNorm -> Swish), and ``--fused`` with them raises. With
 ``path.resume_state`` set it loads a checkpoint (a UNet state dict file,
-or a checkpoint directory of either package); otherwise it uses seeded
-initial parameters. Experiment directories go under ``experiments/`` of
-the working directory.
+a reference ``*_gen.pth``, or a checkpoint directory of either package);
+otherwise it uses seeded initial parameters. ``-enable_wandb`` logs to
+Weights & Biases where ``wandb`` imports (a no-op otherwise), with
+``-log_infer`` each SR image too. Experiment directories go under
+``experiments/`` of the working directory.
 """
 
 from __future__ import annotations
@@ -91,14 +98,16 @@ def resolve_fused(variant: str, fused) -> bool:
 
 def load_params(net, path: str, use_ema: bool = False, *,
                 variant: str) -> None:
-    """Load a UNet state dict file, or the (EMA) params of a checkpoint
-    directory of either package, into ``net``."""
+    """Load into ``net``, strictly: the (EMA) params of a checkpoint
+    directory of either package, or a UNet state-dict file (the port's,
+    one that ``models.convert`` wrote, or a reference ``*_gen.pth``,
+    whose ``denoise_fn.`` prefix and schedule buffers are dropped)."""
+    from ..train.checkpoint import load_params_only, load_reference_gen_pth
     if os.path.isdir(path):
-        from ..train.checkpoint import load_params_only
         sd = load_params_only(path, use_ema=use_ema, variant=variant)
     else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-    net.load_state_dict(sd)
+        sd = load_reference_gen_pth(path, variant=variant)
+    net.load_state_dict(sd, strict=True)
 
 
 def make_denoiser(net, fused: bool, dtype):
@@ -134,12 +143,17 @@ def main(argv=None) -> dict:
                      help="unfused UNet forward (K1 under each "
                           "GroupNorm -> Swish on CUDA; the default of "
                           "ddpm, tesr and gdp)")
-    parser.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
+    parser.add_argument("--dtype", choices=sorted(DTYPES), default="f32",
+                        help="f32 (the reference's) or bf16 (opt-in "
+                             "serving mode)")
     parser.add_argument("--seed", type=int, default=0,
                         help="seeds the initial params and the per-image "
                              "noise generators")
     parser.add_argument("-use_ema", action="store_true",
                         help="load the EMA params of a checkpoint directory")
+    parser.add_argument("-enable_wandb", action="store_true")
+    parser.add_argument("-log_infer", action="store_true",
+                        help="with -enable_wandb, log each SR image")
     args = parser.parse_args(argv)
 
     from ..config import parse
@@ -151,8 +165,13 @@ def main(argv=None) -> dict:
     use_ieee_float32()
     set_cudnn_autotuning(False)
     dtype = DTYPES[args.dtype]
-    opt = parse(args.config, "val", debug=args.debug)
+    opt = parse(args.config, "val", debug=args.debug,
+                enable_wandb=args.enable_wandb)
     logger = setup_logger("base", opt["path"]["log"], "infer", screen=True)
+    wandb_logger = None
+    if args.enable_wandb:
+        from ..utils.wandb_logger import WandbLogger
+        wandb_logger = WandbLogger(opt)
 
     from .. import metrics as M
     from ..data import create_dataloader, create_dataset
@@ -204,18 +223,24 @@ def main(argv=None) -> dict:
             times.extend([dt_img] * b)
         first_batch = False
         for j in range(b):
-            M.save_img(M.tensor2img(sr[j]),
-                       os.path.join(result_path, f"{n}_sr.png"))
+            img = M.tensor2img(sr[j])
+            M.save_img(img, os.path.join(result_path, f"{n}_sr.png"))
+            if wandb_logger is not None and args.log_infer:
+                wandb_logger.log_image(f"infer/{n}_sr", img)
             logger.info(f"image {n}: {dt_img:.3f}s{dt_note}")
             n += 1
     summary = {"images": n, "seconds": time.time() - t_start,
                "results": result_path,
                "mean_latency_s": float(np.mean(times)) if times else None,
+               "latencies_s": times,
                "steady_images": len(times),
                "first_batch_s_per_image": first_s}
     if times:
         logger.info(f"mean latency: {summary['mean_latency_s']:.4f}s over "
                     f"{len(times)} images")
+        if wandb_logger is not None:
+            wandb_logger.log_metrics(
+                {"infer/mean_latency_s": summary["mean_latency_s"]})
     return summary
 
 

@@ -2,9 +2,10 @@
 (reference sr_mfe.py:20-386).
 
     python -m fastdiffsr_tpu_torch.cli.sr_mfe -p train -c <config.json> \\
-        [-debug] [--device cuda|cpu] [--seed N]
+        [-debug] [--device cuda|cpu] [--seed N] [-enable_wandb] \\
+        [-log_wandb_ckpt] [-log_eval]
     python -m fastdiffsr_tpu_torch.cli.sr_mfe -p val -c <config.json> \\
-        [-use_ema] [--device cuda|cpu] [--seed N]
+        [-use_ema] [--device cuda|cpu] [--seed N] [-enable_wandb]
 
 It runs on CUDA unless ``--device cpu`` is given, for the UNet of
 ``model.which_model_G``: fastdiffsr, ddpm or tesr (SR3) or gdp (guided).
@@ -22,15 +23,21 @@ samples as ``cli/infer.py`` does: the fused forward (kernels K3 and K2 on
 CUDA) for FastDiffSR, the plain UNet forward (K1) for the others, with
 the sampler ``model.diffusion`` names (ancestral, ddim or dpm) and, with
 ``model.diffusion.n_samples`` K > 1, the mean of K samples per image; it
-logs PSNR, SSIM, MSE and ERGAS per image. The val phase loads a
-checkpoint directory of either package.
+logs PSNR, SSIM, MSE, ERGAS and, where an LPIPS weight pack is found
+(``FASTDIFFSR_TPU_LPIPS``), LPIPS on the same device per image. The
+validation inside ``-p train`` runs with cuDNN's heuristics, the
+training steps around it with timed algorithms. The val phase loads a
+checkpoint directory of either package, or a UNet state-dict file
+(a reference ``*_gen.pth`` too), and writes a ``{idx}_panel.png``
+comparison per image where matplotlib imports. ``-enable_wandb`` logs to
+Weights & Biases where ``wandb`` imports and is a no-op otherwise.
 
 ``--seed`` seeds the initial parameters, the train steps' draws
 (``train.step_generator``) and the per-image sampling noise (pass k of
 the K-sample average from ``train.pass_seed``). ``-debug``
 shrinks the run as the reference does and writes a synthetic 6-image
 npy pack for any dataroot that does not exist. ``-gpu`` is accepted and
-logged; ``-dist`` and ``-enable_wandb`` are not ported.
+logged; ``-dist`` is not ported.
 """
 
 from __future__ import annotations
@@ -85,9 +92,16 @@ def build_all(opt, device, seed: int = 0):
 
 def run_validation(opt, engine_val, denoise, result_path, logger, *,
                    seed: int, device, scale: int = 4,
-                   save_images: bool = True) -> dict:
+                   save_images: bool = True, wandb_logger=None,
+                   save_plots: bool = False) -> dict:
     """Sample the val set with ``denoise`` and log per-image PSNR, SSIM,
-    MSE and ERGAS and their means. ``model.diffusion`` picks the sampler
+    MSE, ERGAS and LPIPS (where its weight pack is found; computed on
+    ``device``) and their means; ``lpips`` is in the result when at least
+    one image had it. ``save_plots`` writes ``{idx}_panel.png`` per image
+    (the bicubic image's own PSNR/SSIM/ERGAS beside the SR's), or logs
+    once that it skips them where matplotlib does not import.
+    ``wandb_logger`` gets each image's metrics. ``model.diffusion`` picks
+    the sampler
     (``sampler``, ``ddim_steps``, ``ddim_eta``) and ``n_samples`` K: the
     metrics are taken on the mean of K samples per image, pass k drawing
     from the per-image generators of ``pass_seed(seed, k)``. Times are
@@ -107,7 +121,15 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
     val_loader = create_dataloader(val_set, opt["datasets"]["val"], "val")
     full_b = val_loader.batch_size
     sample_fn = make_sample_fn(engine_val, denoise, **sampler_options(opt))
+    if save_plots:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            logger.warning("matplotlib does not import: the comparison "
+                           "panels ({idx}_panel.png) are skipped")
+            save_plots = False
     sums = {"psnr": 0.0, "ssim": 0.0, "mse": 0.0, "ergas": 0.0}
+    lpips_sum, lpips_n = 0.0, 0
     n = n_steady = 0
     t_steady = 0.0
     t_first = None
@@ -138,19 +160,34 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
         for j in range(b):
             sr_img = M.tensor2img(sr[j])
             hr_img = M.tensor2img(batch["HR"][j])
+            bic_img = M.tensor2img(batch["SR"][j])
             m = {"psnr": M.calculate_psnr(sr_img, hr_img),
                  "ssim": M.calculate_ssim(sr_img, hr_img),
                  "mse": M.calculate_mse(sr_img, hr_img),
                  "ergas": M.calculate_ergas(sr_img, hr_img, scale=scale)}
             for k in sums:
                 sums[k] += m[k]
+            lp = M.calculate_lpips(sr_img, hr_img, device=device)
+            if lp is not None:
+                lpips_sum += lp
+                lpips_n += 1
             if save_images:
                 M.save_img(sr_img, os.path.join(result_path, f"{n}_sr.png"))
                 M.save_img(hr_img, os.path.join(result_path, f"{n}_hr.png"))
-                M.save_img(M.tensor2img(batch["SR"][j]),
-                           os.path.join(result_path, f"{n}_inf.png"))
+                M.save_img(bic_img, os.path.join(result_path, f"{n}_inf.png"))
+            if save_plots:
+                M.plot_img(os.path.join(result_path, f"{n}_panel.png"),
+                           bic_img, sr_img, hr_img, m["psnr"], m["ssim"],
+                           m["ergas"], lp, M.calculate_psnr(bic_img, hr_img),
+                           M.calculate_ssim(bic_img, hr_img),
+                           M.calculate_ergas(bic_img, hr_img, scale=scale),
+                           None)
+            if wandb_logger is not None:
+                wandb_logger.log_eval_data(sr_img, m["psnr"], m["ssim"],
+                                           hr_img)
             logger.info(f"img {n}: psnr {m['psnr']:.4f} ssim {m['ssim']:.4f}"
-                        f" mse {m['mse']:.1f} ergas {m['ergas']:.4f} "
+                        f" mse {m['mse']:.1f} ergas {m['ergas']:.4f} lpips "
+                        f"{'n/a' if lp is None else f'{lp:.4f}'} "
                         f"({dt / full_b:.3f}s{note})")
             n += 1
     if n == 0:
@@ -160,6 +197,8 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
         res["avg_time"] = t_steady / n_steady
     else:
         res["avg_time_incl_setup"] = t_first
+    if lpips_n:
+        res["lpips"] = lpips_sum / lpips_n
     logger.info("# Validation # " + " ".join(f"{k}: {v:.4e}"
                                               for k, v in res.items()))
     return res
@@ -180,6 +219,8 @@ def main(argv=None) -> dict:
                         default="train")
     parser.add_argument("-debug", action="store_true")
     parser.add_argument("-enable_wandb", action="store_true")
+    parser.add_argument("-log_wandb_ckpt", action="store_true")
+    parser.add_argument("-log_eval", action="store_true")
     parser.add_argument("-use_ema", action="store_true",
                         help="validate the EMA params instead of the raw "
                              "params")
@@ -190,9 +231,6 @@ def main(argv=None) -> dict:
     if args.dist:
         raise NotImplementedError("-dist (multi-process data parallel) is "
                                   "not ported yet (ROADMAP.md queue 4)")
-    if args.enable_wandb:
-        raise NotImplementedError("-enable_wandb is not ported yet "
-                                  "(ROADMAP.md queue 9, tooling)")
 
     from ..config import dict2str, infer_scale, parse
     from ..device import (resolve_device, set_cudnn_autotuning,
@@ -206,7 +244,9 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     use_ieee_float32()
     set_cudnn_autotuning(args.phase == "train")
-    opt = parse(args.config, args.phase, debug=args.debug)
+    opt = parse(args.config, args.phase, debug=args.debug,
+                enable_wandb=args.enable_wandb,
+                log_wandb_ckpt=args.log_wandb_ckpt, log_eval=args.log_eval)
     logger = setup_logger("base", opt["path"]["log"], "train", screen=True)
     val_logger = setup_logger("val", opt["path"]["log"], "val")
     if args.debug:
@@ -215,6 +255,10 @@ def main(argv=None) -> dict:
     if args.gpu_ids is not None:
         logger.info(f"-gpu {args.gpu_ids} accepted; running on {device}")
     tb = make_tb_writer(opt["path"]["tb_logger"])
+    wandb_logger = None
+    if opt["enable_wandb"]:
+        from ..utils.wandb_logger import WandbLogger
+        wandb_logger = WandbLogger(opt)
     scale = infer_scale(opt)
     variant = opt["model"]["which_model_G"]
     eng_train, eng_val, net = build_all(opt, device, args.seed)
@@ -231,10 +275,14 @@ def main(argv=None) -> dict:
                         f"from {opt['path']['resume_state']}")
         result_path = opt["path"]["results"]
         os.makedirs(result_path, exist_ok=True)
-        return run_validation(opt, eng_val, make_denoiser(net, fused,
-                                                          torch.float32),
-                              result_path, val_logger, seed=args.seed,
-                              device=device, scale=scale)
+        res = run_validation(opt, eng_val, make_denoiser(net, fused,
+                                                         torch.float32),
+                             result_path, val_logger, seed=args.seed,
+                             device=device, scale=scale,
+                             wandb_logger=wandb_logger, save_plots=True)
+        if wandb_logger is not None:
+            wandb_logger.log_eval_table(commit=True)
+        return res
 
     from ..data import create_dataloader, create_dataset
 
@@ -250,7 +298,7 @@ def main(argv=None) -> dict:
                     f"{state.step}")
     # the val forward reads its own copy of the (EMA) params, built at the
     # first validation
-    val_net = None
+    val_net, val_res = None, None
     current_step, current_epoch = state.step, state.epoch
     train_set = create_dataset(opt["datasets"]["train"], "train")
     bsz = int(opt["datasets"]["train"]["batch_size"] or 1)
@@ -274,6 +322,9 @@ def main(argv=None) -> dict:
         path = save_state(state, opt["path"]["checkpoint"], it=current_step,
                           epoch=current_epoch)
         logger.info(f"saved checkpoint {path}")
+        if wandb_logger is not None and opt["log_wandb_ckpt"]:
+            wandb_logger.log_checkpoint(current_epoch, current_step,
+                                        ckpt_path=path)
         return path
 
     loss_window, losses = [], []
@@ -330,14 +381,22 @@ def main(argv=None) -> dict:
                     result_path = os.path.join(opt["path"]["results"],
                                                str(current_epoch))
                     os.makedirs(result_path, exist_ok=True)
-                    res = run_validation(
+                    # batch-1 evaluation on cuDNN's heuristics, as -p val;
+                    # its shapes are new to the process, so this holds
+                    set_cudnn_autotuning(False)
+                    res = val_res = run_validation(
                         opt, eng_val,
                         make_denoiser(val_net, fused, torch.float32),
                         result_path, val_logger, seed=args.seed,
-                        device=device, scale=scale)
+                        device=device, scale=scale,
+                        wandb_logger=wandb_logger)
+                    set_cudnn_autotuning(True)
                     if tb:
                         for k, v in res.items():
                             tb.add_scalar(f"val/{k}", v, current_step)
+                    if wandb_logger is not None and res:
+                        wandb_logger.log_metrics(
+                            {f"val/{k}": v for k, v in res.items()})
                 if save_now:
                     checkpoint()
                 _sync(device)
@@ -357,7 +416,8 @@ def main(argv=None) -> dict:
     logger.info("training complete")
     return {"steps": steps_done, "step": current_step, "checkpoint": path,
             "steady_steps_per_s": rate,
-            "l_pix": torch.stack(losses).tolist() if losses else []}
+            "l_pix": torch.stack(losses).tolist() if losses else [],
+            "last_validation": val_res}
 
 
 if __name__ == "__main__":

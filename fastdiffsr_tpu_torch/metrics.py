@@ -1,11 +1,15 @@
-"""Image metrics (MSE / PSNR / SSIM / ERGAS) and image output.
+"""Image metrics (MSE / PSNR / SSIM / ERGAS / LPIPS), image IO and the
+validation panel.
 
 Counterpart of ``fastdiffsr_tpu/metrics.py`` (reference core/metrics.py)
 without OpenCV: ``save_img`` writes PNG with a small encoder on the
-standard library's ``zlib``, and the MATLAB-style SSIM filters with
-``scipy.ndimage`` using the same 11x11, sigma 1.5 Gaussian window and
-the same valid-region crop as the ``cv2.filter2D`` version. LPIPS waits
-for the metric-network slice.
+standard library's ``zlib`` (``load_img`` reads it back without an image
+library), and the MATLAB-style SSIM filters with ``scipy.ndimage`` using
+the same 11x11, sigma 1.5 Gaussian window and the same valid-region crop
+as the ``cv2.filter2D`` version. ``calculate_lpips`` runs
+``lpips_torch.LPIPS`` once built per device, and returns None (with one
+warning) when no LPIPS weight pack is found. ``plot_img`` imports
+matplotlib when it is called.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import math
 import os
 import struct
+import warnings
 import zlib
 
 import numpy as np
@@ -56,6 +61,61 @@ def encode_png(img: np.ndarray) -> bytes:
     return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
             + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _png_chunk(b"IEND", b""))
+
+
+def decode_png(data: bytes):
+    """uint8 (H,W,3) RGB of a PNG that uses only what ``encode_png`` and
+    most encoders write: 8-bit grey, RGB or RGBA (alpha dropped), not
+    interlaced, scanline filters None / Sub / Up. None for any other
+    PNG (``load_img`` hands those to PIL)."""
+    pos, chunks = 8, []
+    ihdr = None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            chunks.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    w, h, depth, color, _, _, interlace = ihdr
+    chans = {0: 1, 2: 3, 6: 4}.get(color)
+    if depth != 8 or interlace or chans is None:
+        return None
+    rows = np.frombuffer(zlib.decompress(b"".join(chunks)), np.uint8)
+    rows = rows.reshape(h, 1 + w * chans)
+    if (rows[:, 0] > 2).any():
+        return None
+    out = np.empty((h, w * chans), np.uint8)
+    prev = np.zeros(w * chans, np.uint8)
+    for y in range(h):
+        line = rows[y, 1:]
+        if rows[y, 0] == 1:        # Sub: running sum per channel
+            line = np.cumsum(line.reshape(w, chans), axis=0,
+                             dtype=np.uint64).astype(np.uint8).reshape(-1)
+        elif rows[y, 0] == 2:      # Up
+            line = line + prev
+        out[y] = prev = line
+    img = out.reshape(h, w, chans)
+    if chans == 1:
+        return np.repeat(img, 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def load_img(path: str) -> np.ndarray:
+    """uint8 (H,W,3) RGB of an image file: PNGs that ``decode_png``
+    reads without an image library, anything else through PIL."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        img = decode_png(data)
+        if img is not None:
+            return img
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def save_img(img: np.ndarray, img_path: str):
@@ -127,6 +187,35 @@ def calculate_ssim(img1: np.ndarray, img2: np.ndarray) -> float:
     raise ValueError("Wrong input image dimensions.")
 
 
+def ssim_skimage(img1: np.ndarray, img2: np.ndarray) -> float:
+    """skimage.measure.compare_ssim(multichannel=True) equivalent: 7x7
+    uniform filter, per channel, averaged; the train-loop SSIM of the
+    reference (sr_mfe.py:167)."""
+    from scipy.ndimage import uniform_filter
+
+    img1 = img1.astype(np.float64)
+    img2 = img2.astype(np.float64)
+    if img1.ndim == 2:
+        img1, img2 = img1[..., None], img2[..., None]
+    win, pad = 7, 3
+    C1, C2 = (0.01 * 255.0) ** 2, (0.03 * 255.0) ** 2
+    cov_norm = win ** 2 / (win ** 2 - 1)
+    vals = []
+    for c in range(img1.shape[2]):
+        x, y = img1[..., c], img2[..., c]
+        ux, uy = uniform_filter(x, win), uniform_filter(y, win)
+        uxx = uniform_filter(x * x, win)
+        uyy = uniform_filter(y * y, win)
+        uxy = uniform_filter(x * y, win)
+        vx = cov_norm * (uxx - ux * ux)
+        vy = cov_norm * (uyy - uy * uy)
+        vxy = cov_norm * (uxy - ux * uy)
+        S = ((2 * ux * uy + C1) * (2 * vxy + C2)
+             / ((ux ** 2 + uy ** 2 + C1) * (vx + vy + C2)))
+        vals.append(S[pad:-pad, pad:-pad].mean())
+    return float(np.mean(vals))
+
+
 def calculate_ergas(img_fake: np.ndarray, img_real: np.ndarray,
                     scale: int = 4) -> float:
     """ERGAS = 100/scale * sqrt(mean_c(MSE_c / mean_ref_c^2))
@@ -140,3 +229,57 @@ def calculate_ergas(img_fake: np.ndarray, img_real: np.ndarray,
     mses = ((img_fake - img_real) ** 2).reshape(-1, nb).mean(axis=0)
     return float(100 / scale * np.sqrt((mses / (means_real ** 2 + 1e-12))
                                        .mean()))
+
+
+_LPIPS = {}            # device -> LPIPS module, or None without a pack
+_LPIPS_WARNED = False
+
+
+def calculate_lpips(img1_u8: np.ndarray, img2_u8: np.ndarray,
+                    device="cpu"):
+    """LPIPS-alex distance of two uint8 HWC images on ``device``, or None
+    when no LPIPS weight pack is found (one warning per process). The
+    module is built once per device (the reference builds one per
+    call)."""
+    global _LPIPS_WARNED
+    key = str(device)
+    if key not in _LPIPS:
+        from .lpips_torch import LPIPS
+        try:
+            _LPIPS[key] = LPIPS.load_default(device=device)
+        except FileNotFoundError as e:
+            if not _LPIPS_WARNED:
+                warnings.warn(f"LPIPS unavailable: {e}")
+                _LPIPS_WARNED = True
+            _LPIPS[key] = None
+    if _LPIPS[key] is None:
+        return None
+    return _LPIPS[key].distance(img1_u8, img2_u8)
+
+
+def plot_img(path: str, bicubic, sr, hr, psnr, ssim, ergas, lpips,
+             psnr2=None, ssim2=None, ergas2=None, lpips2=None):
+    """Comparison panel HR | Bicubic | SR, the last two titled with their
+    metrics (reference core/metrics.py:51-88). Imports matplotlib, which
+    raises ImportError where it is not installed."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    def title(name, p, s, e, lp):
+        return "{}\nPSNR {:.2f} SSIM {:.4f}\nERGAS {:.3f}{}".format(
+            name, p or 0, s or 0, e or 0,
+            f" LPIPS {lp:.4f}" if lp is not None else "")
+
+    fig, axes = plt.subplots(1, 3, figsize=(12, 4.5))
+    for ax, (img, name) in zip(axes, [
+            (hr, "HR"),
+            (bicubic, title("Bicubic", psnr2, ssim2, ergas2, lpips2)),
+            (sr, title("SR", psnr, ssim, ergas, lpips))]):
+        ax.imshow(img)
+        ax.set_title(name, fontsize=9)
+        ax.axis("off")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)

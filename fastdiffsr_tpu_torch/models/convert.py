@@ -21,6 +21,12 @@ turns the conv weights back to HWIO once, in
 :func:`optax_state_to_torch` converts the optimizer state of a JAX
 checkpoint: optax's moment trees have the params' structure and go
 through the same key map.
+
+A reference ``*_gen.pth`` needs no converter: its UNet keys are the
+port's names under ``denoise_fn.``. :func:`strip_diffusion_prefix` takes
+them out of the diffusion wrapper, and ``python -m
+fastdiffsr_tpu_torch.models.convert`` (:func:`main`) writes them as a
+state-dict file.
 """
 
 from __future__ import annotations
@@ -201,23 +207,113 @@ def flax_converter(variant: str):
 
 
 def optax_state_to_torch(opt_state: Sequence, param_names: Sequence[str],
-                         variant: str = "fastdiffsr") -> dict:
+                         variant: str) -> dict:
     """The ``state`` entry of a torch optimizer state dict from an optax
     chain state (a tuple of optax states, e.g. ``(ScaleByAdamState(count,
     mu, nu), EmptyState())``, or stand-ins with the same class names and
     fields). ``param_names`` lists the torch parameter names in the
     optimizer's order; the moment trees go through ``variant``'s
     converter. Adam's moments become ``exp_avg``/``exp_avg_sq`` with
-    ``step`` = count, as torch.optim.Adam/AdamW keep them."""
+    ``step`` = count, as torch.optim.Adam/AdamW keep them; Lion's
+    (``ScaleByLionState(count, mu)``) become ``exp_avg``, the one moment
+    :class:`~fastdiffsr_tpu_torch.train.state.Lion` keeps. Any other
+    optax state with fields raises, naming it."""
     by_name = {type(s).__name__: s for s in opt_state}
-    if "ScaleByAdamState" not in by_name:
+    unknown = sorted(n for n, s in by_name.items()
+                     if n not in ("ScaleByAdamState", "ScaleByLionState")
+                     and len(s))
+    moments = [n for n in ("ScaleByAdamState", "ScaleByLionState")
+               if n in by_name]
+    if unknown or len(moments) != 1:
         raise NotImplementedError(
-            f"optax state {sorted(by_name)}: only Adam/AdamW moments are "
-            "converted")
-    count, mu, nu = by_name["ScaleByAdamState"]
+            f"optax state {sorted(by_name)}: only Adam/AdamW or Lion "
+            f"moments are converted (not {unknown or moments})")
     convert = flax_converter(variant)
+    if moments[0] == "ScaleByLionState":
+        _, mu = by_name["ScaleByLionState"]
+        mu = convert(mu)
+        return {i: {"exp_avg": mu[name]}
+                for i, name in enumerate(param_names)}
+    count, mu, nu = by_name["ScaleByAdamState"]
     mu, nu = convert(mu), convert(nu)
     step = float(np.asarray(count))
     return {i: {"step": torch.tensor(step), "exp_avg": mu[name],
                 "exp_avg_sq": nu[name]}
             for i, name in enumerate(param_names)}
+
+
+# the GaussianDiffusion wrapper of a reference ``*_gen.pth`` keeps the
+# UNet under this prefix, beside its schedule buffers
+DIFFUSION_PREFIX = "denoise_fn."
+SCHEDULE_BUFFERS = frozenset((
+    "betas", "alphas_cumprod", "alphas_cumprod_prev",
+    "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
+    "log_one_minus_alphas_cumprod", "sqrt_recip_alphas_cumprod",
+    "sqrt_recipm1_alphas_cumprod", "posterior_variance",
+    "posterior_log_variance_clipped", "posterior_mean_coef1",
+    "posterior_mean_coef2"))
+
+
+def strip_diffusion_prefix(state_dict: dict,
+                           prefix: str = DIFFUSION_PREFIX) -> dict:
+    """The UNet entries of a reference GaussianDiffusion state dict
+    without ``prefix`` (counterpart of the JAX package's
+    ``models/convert.py::strip_diffusion_prefix``). A dict that has no
+    key under ``prefix`` is a bare UNet state dict and comes back as it
+    is. Schedule buffers (:data:`SCHEDULE_BUFFERS`) are dropped; any
+    other key outside ``prefix`` raises, naming it."""
+    if not any(k.startswith(prefix) for k in state_dict):
+        return dict(state_dict)
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith(prefix):
+            out[k[len(prefix):]] = v
+        elif k not in SCHEDULE_BUFFERS:
+            raise KeyError(f"{k!r} is neither under {prefix!r} nor a "
+                           "schedule buffer of the diffusion wrapper")
+    return out
+
+
+def main(argv=None) -> str:
+    """Convert a reference checkpoint to a UNet state-dict file that
+    ``cli/infer.py::load_params`` (and ``sr_mfe -p val``) reads:
+
+        python -m fastdiffsr_tpu_torch.models.convert --arch fastdiffsr \\
+            I896896_E196_gen.pth unet.pt
+
+    The port's parameter names are the reference's, so no rename is
+    needed: the ``denoise_fn.`` prefix and the schedule buffers go, a key
+    outside the arch's UNet modules raises, naming it, and the tensors
+    are written in float32 (the strict load of ``load_params`` checks the
+    rest)."""
+    import argparse
+
+    # the first name of every key of each arch's UNet state dict
+    sr3 = {"time_mlp", "downs", "mid", "ups", "final_conv"}
+    top = {"fastdiffsr": {"noise_level_mlp", "downs", "mid", "ups",
+                          "final_conv"},
+           "ddpm": sr3, "tesr": sr3,
+           "gdp": {"time_embed", "input_blocks", "middle_block",
+                   "output_blocks", "out"}}
+
+    p = argparse.ArgumentParser()
+    p.add_argument("ckpt", help="reference *_gen.pth (or a bare UNet "
+                                "state dict)")
+    p.add_argument("out", help="output state-dict file")
+    p.add_argument("--arch", default="fastdiffsr",
+                   choices=sorted(top))
+    args = p.parse_args(argv)
+    sd = torch.load(args.ckpt, map_location="cpu", weights_only=True)
+    sd = strip_diffusion_prefix(sd)
+    for k in sd:
+        if k.split(".", 1)[0] not in top[args.arch]:
+            raise KeyError(f"{k!r} is not a parameter of the {args.arch} "
+                           "UNet")
+    sd = {k: v.float() for k, v in sd.items()}
+    torch.save(sd, args.out)
+    print(f"wrote {args.out} ({len(sd)} tensors)")
+    return args.out
+
+
+if __name__ == "__main__":
+    main()

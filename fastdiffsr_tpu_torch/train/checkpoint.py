@@ -7,7 +7,8 @@ ema_params are state dicts of the UNet, opt_state is the optimizer's
 state dict. ``load_state`` and ``load_params_only`` also read the JAX
 package's pickle backend (``state.pkl``): its Flax trees go through the
 converter of the run's variant (``models.convert.flax_converter``). Its
-``orbax/`` backend is not readable here.
+``orbax/`` backend is not readable here. :func:`load_reference_gen_pth`
+reads a reference ``I*_E*_gen.pth``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models.convert import flax_converter, optax_state_to_torch
+from ..models.convert import (flax_converter, optax_state_to_torch,
+                              strip_diffusion_prefix)
 from .state import TrainState
 
 # optax states a JAX pickle names, as plain stand-ins (pickle rebuilds a
@@ -28,6 +30,8 @@ from .state import TrainState
 _OPTAX = {
     ("optax._src.transform", "ScaleByAdamState"):
         collections.namedtuple("ScaleByAdamState", "count mu nu"),
+    ("optax._src.transform", "ScaleByLionState"):
+        collections.namedtuple("ScaleByLionState", "count mu"),
     ("optax._src.base", "EmptyState"):
         collections.namedtuple("EmptyState", ""),
 }
@@ -134,3 +138,18 @@ def load_params_only(prefix: str, use_ema: bool = False, *, variant: str
     if kind == "torch":
         return torch.load(path, map_location="cpu", weights_only=True)[key]
     return flax_converter(variant)(_read_jax_pickle(path)[key])
+
+
+def load_reference_gen_pth(path: str, *, variant: str
+                           ) -> Dict[str, torch.Tensor]:
+    """The UNet state dict of a reference ``*_gen.pth`` (the
+    GaussianDiffusion state dict, or a bare UNet one), on the CPU in
+    float32: the ``denoise_fn.`` prefix and the schedule buffers go
+    (``models.convert.strip_diffusion_prefix``). The names are the
+    port's, so ``net.load_state_dict(..., strict=True)`` takes the
+    result, and raises, naming them, for keys ``variant``'s UNet lacks.
+    Counterpart of the JAX package's
+    ``train/checkpoint.py::load_reference_gen_pth``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = strip_diffusion_prefix(sd)
+    return {k: v.float() for k, v in sd.items()}

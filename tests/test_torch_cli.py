@@ -200,11 +200,15 @@ def test_port_imports_without_jax_or_jax_package():
         "'fastdiffsr_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    names = set(out.stdout.split())
+    assert len(names) >= 15
+    assert {f"fastdiffsr_tpu_torch.{m}" for m in (
+        "lpips_torch", "models.inception", "cli.fid",
+        "utils.wandb_logger")} <= names
 
 
 IMPORT_OF_REFERENCE = re.compile(

@@ -188,8 +188,7 @@ def test_infer_reads_trainer_checkpoints(tmp_path, monkeypatch):
                for a, b in zip(outs[False], outs[True]))
 
 
-@pytest.mark.parametrize("flag,queue", [("-dist", "queue 4"),
-                                        ("-enable_wandb", "queue 9")])
+@pytest.mark.parametrize("flag,queue", [("-dist", "queue 4")])
 def test_unported_flags_raise(tmp_path, flag, queue):
     with pytest.raises(NotImplementedError, match=queue):
         sr_mfe.main(["-c", _write(tmp_path, _config(tmp_path)), flag,
