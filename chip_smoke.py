@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (fastdiffsr_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--gdp-reference]
+    python3 chip_smoke.py [--seed 0] [--gdp-reference | --ediffsr-only]
 
 Run from the repository root. It needs one CUDA device and the CUDA
 toolkit (nvcc); without a device it exits non-zero and prints no result.
@@ -81,7 +81,19 @@ limit:
    with an Inception weight pack made from --seed: the extractor's time
    per image apart from the PNG decoding and from scipy's ``sqrtm``; the
    card's pool3 features against the CPU's on a few images, and the FID
-   against a float64 evaluation of the same statistics by eigenvalues.
+   against a float64 evaluation of the same statistics by eigenvalues;
+16. EDiffSR through ``fastdiffsr_tpu_torch.ediffsr.train`` on synthetic
+   64->256 PNG folders from --seed: training of the paper's full-width
+   ConditionalNAFNet (setting_mfe_Train_x4.yml: width 64, enc
+   [14,1,1,1], T=100, batch 2, AdamW 4e-5) for EDIFFSR_STEPS steps with a
+   T=100 validation of 2 images at the last one (steady steps/s, peak
+   memory, seconds per validation image), ``--test`` of
+   setting_mfe_Test_x4.yml from its checkpoint with the reverse SDE on 4
+   images and the Euler ODE and RK45 on one each (seconds per image,
+   RK45's accepted and trial steps, peak memory), and the same port code
+   on the card against the CPU (a full-width NAFNet forward, a 4-step
+   reverse SDE, a ConditionalUNet forward). EDiffSR has no kernel of
+   ours: every launch counter must read 0 there.
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -93,6 +105,7 @@ reuse a plan timed for phase 2's F.conv2d at the same shape.
 ``--gdp-reference`` runs, after the build, only the gdp variant's
 evaluation at its reference shape (ancestral T=1000 at 256x256 through
 ``cli.infer``, one image, f32 and bf16), which is too long for every run.
+``--ediffsr-only`` runs, after the build, only phase 16.
 
 Kernel times: ``ms`` is device time per call, the CUDA-event time of one
 replay of a CUDA graph that holds REPS calls (no host time between the
@@ -184,6 +197,15 @@ FID_CHECK_IMAGES = 8   # phase 15: pool3 on the card against the CPU's
 FID_FEAT_TOL = 1e-4    # |dpool3| <= tol * max|pool3| (the CPU tests')
 FID_RTOL = 1e-3        # FID against the eigenvalue evaluation (the tests')
 LPIPS_REPS = 10        # phase 9: timed LPIPS calls
+# phase 16, EDiffSR: full-width training steps (batch 2, T=100), the PNGs
+# written per split, the in-run validation's images
+EDIFFSR_STEPS = 16
+EDIFFSR_TRAIN_IMAGES = 16
+EDIFFSR_VAL_IMAGES = 4
+EDIFFSR_IN_RUN_VAL = 2
+# the same port code on the card and on the CPU: max|d| <= tol * max|y|
+# (IEEE float32 on both; only the order of the sums differs)
+EDIFFSR_CPU_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -1431,6 +1453,271 @@ def phase_fid(card, seed):
             "frechet_s": secs["frechet"], "write_s": write_s}, ok
 
 
+def write_ediffsr_dirs(root, seed):
+    """EDiffSR's LQGT folders under ``root``: ``{train,val}/{hr_256,lr_64}``
+    with EDIFFSR_TRAIN_IMAGES and EDIFFSR_VAL_IMAGES PNGs from ``seed``
+    (smooth 256x256 HR tiles made on the card, their x4 bicubic LR),
+    written with the port's PNG encoder."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastdiffsr_tpu_torch.metrics import save_img
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u8(t):
+        return (t.clamp(0, 1) * 255).round().to(torch.uint8).permute(
+            0, 2, 3, 1).cpu().numpy()
+    roots = {}
+    for split, n in (("train", EDIFFSR_TRAIN_IMAGES),
+                     ("val", EDIFFSR_VAL_IMAGES)):
+        small = torch.rand((n, 3, 16, 16), generator=g, device="cuda")
+        hr = F.interpolate(small, size=256, mode="bicubic",
+                           align_corners=False).clamp(0, 1)
+        lr = F.interpolate(hr, size=64, mode="bicubic", antialias=True,
+                           align_corners=False)
+        for sub, imgs in (("hr_256", u8(hr)), ("lr_64", u8(lr))):
+            d = os.path.join(root, split, sub)
+            os.makedirs(d, exist_ok=True)
+            for j, img in enumerate(imgs):
+                save_img(img, os.path.join(d, f"{j:04d}.png"))
+            roots[(split, sub)] = d
+    return roots
+
+
+def randomize_naf(net, seed: int):
+    """randomize_params, then the channel LayerNorms' scales 1 + 0.1 N
+    (randomize_params draws beta/gamma, which start at 0 and would leave
+    every NAFBlock the identity)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.models.nafnet import LayerNorm2d
+    randomize_params(net, seed)
+    dev = next(net.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, LayerNorm2d):
+                m.g.copy_(1.0 + 0.1 * torch.randn(m.g.shape, generator=g,
+                                                  device=dev))
+    return net
+
+
+def card_vs_cpu(card, seed):
+    """The same port code on the card and on the CPU: a full-width
+    NAFNet forward (256x256, batch 2, two t values), a 4-step reverse SDE
+    of it with an injected noise sequence (128x128, batch 1), and one
+    ConditionalUNet forward (nf 64, depth 4, 64x64, batch 2), each within
+    EDIFFSR_CPU_TOL of the largest |value| of the CPU's result."""
+    import copy
+
+    import torch
+
+    from fastdiffsr_tpu_torch.diffusion.sde import IRSDE, IRSDEBuffers
+    from fastdiffsr_tpu_torch.ediffsr.options import load_yaml
+    from fastdiffsr_tpu_torch.models.cond_unet import cond_unet_from_config
+    from fastdiffsr_tpu_torch.models.nafnet import nafnet_from_config
+
+    yml = os.path.join(ROOT, "fastdiffsr_tpu_torch", "ediffsr",
+                       "options_yml", "setting_mfe_Train_x4.yml")
+    with open(yml) as f:
+        setting = load_yaml(f.read())["network_G"]["setting"]
+    gen = torch.Generator().manual_seed(seed)
+    rows, ok = {}, True
+
+    def compare(name, fn_card, fn_cpu, what):
+        nonlocal ok
+        t0 = time.time()
+        with torch.no_grad():
+            want = fn_cpu()
+            t_cpu = time.time() - t0
+            got = fn_card()
+            torch.cuda.synchronize()
+        err = (got.cpu() - want).abs().max().item()
+        ymax = want.abs().max().item()
+        tol = EDIFFSR_CPU_TOL * ymax
+        good = bool(torch.isfinite(got).all()) and err <= tol
+        ok &= good
+        print(f"[ediffsr card vs cpu] {card} | {what}: max|d| {err:.3g}, "
+              f"max|y| {ymax:.3g}, tol {EDIFFSR_CPU_TOL} * max|y| = "
+              f"{tol:.3g}; the CPU took {t_cpu:.1f} s "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        rows[name] = {"err": err, "ymax": ymax, "tol": tol, "ok": good}
+
+    net = randomize_naf(nafnet_from_config(setting, device="cpu", seed=seed),
+                        seed)
+    net_gpu = copy.deepcopy(net).cuda()
+    x = torch.rand((2, 256, 256, 3), generator=gen)
+    mu = torch.rand((2, 256, 256, 3), generator=gen)
+    t = torch.tensor([3.0, 77.0])
+    compare("nafnet", lambda: net_gpu(x.cuda(), mu.cuda(), t.cuda()),
+            lambda: net(x, mu, t),
+            "ConditionalNAFNet width 64 enc [14,1,1,1], 256x256, B=2, "
+            "t=(3, 77)")
+
+    sde_cpu = IRSDE(IRSDEBuffers.create(50, 4, "cosine", 0.005))
+    sde_gpu = IRSDE(IRSDEBuffers.create(50, 4, "cosine", 0.005,
+                                        device="cuda"))
+    mu = torch.rand((1, 128, 128, 3), generator=gen)
+    xt = mu + torch.randn(mu.shape, generator=gen) * sde_cpu.b.max_sigma
+    noise = torch.randn((4, 1, 128, 128, 3), generator=gen)
+    compare("reverse_sde",
+            lambda: sde_gpu.reverse_sde(net_gpu, xt.cuda(), mu.cuda(),
+                                        noise_seq=noise.cuda()),
+            lambda: sde_cpu.reverse_sde(net, xt, mu, noise_seq=noise),
+            "reverse SDE, 4 steps of that NAFNet with an injected noise "
+            "sequence, 128x128, B=1")
+    del net, net_gpu
+
+    unet = randomize_naf(cond_unet_from_config(
+        {"nf": 64, "depth": 4}, device="cpu", seed=seed), seed)
+    unet_gpu = copy.deepcopy(unet).cuda()
+    x = torch.rand((2, 64, 64, 3), generator=gen)
+    mu = torch.rand((2, 64, 64, 3), generator=gen)
+    compare("cond_unet", lambda: unet_gpu(x.cuda(), mu.cuda(), t.cuda()),
+            lambda: unet(x, mu, t),
+            "ConditionalUNet nf 64 depth 4, 64x64, B=2, t=(3, 77)")
+    return rows, ok
+
+
+def phase_ediffsr(card, seed):
+    """EDiffSR on the card through its CLI (``fastdiffsr_tpu_torch.
+    ediffsr.train``): training of the paper's full-width NAFNet
+    (setting_mfe_Train_x4.yml with only its data roots, niter, val_freq
+    and checkpoint frequency changed) with a full T=100 validation at
+    its last step; ``--test`` of setting_mfe_Test_x4.yml from that
+    checkpoint with the reverse SDE on EDIFFSR_VAL_IMAGES images, then
+    the Euler ODE and RK45 on one image each; then ``card_vs_cpu``. No
+    kernel of ours is on this path: every launch counter must stay 0."""
+    import torch
+
+    from fastdiffsr_tpu_torch.ediffsr import train as etrain
+    from fastdiffsr_tpu_torch.ediffsr.options import dump_yaml, load_yaml
+    from fastdiffsr_tpu_torch.ops import kernels
+
+    work = os.path.join(ROOT, "build", "smoke", "ediffsr")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.time()
+    roots = write_ediffsr_dirs(os.path.join(work, f"data_{seed}"), seed + 11)
+    t_data = time.time() - t0
+    ymls = os.path.join(ROOT, "fastdiffsr_tpu_torch", "ediffsr",
+                        "options_yml")
+    with open(os.path.join(ymls, "setting_mfe_Train_x4.yml")) as f:
+        opt = load_yaml(f.read())
+    opt["name"] = "chip_smoke_ediffsr"
+    for split in ("train", "val"):
+        opt["datasets"][split].update(
+            dataroot_GT=roots[(split, "hr_256")],
+            dataroot_LQ=roots[(split, "lr_64")])
+    opt["train"].update(niter=EDIFFSR_STEPS, val_freq=EDIFFSR_STEPS,
+                        manual_seed=seed)
+    opt["logger"]["save_checkpoint_freq"] = EDIFFSR_STEPS
+    train_yml = os.path.join(work, "train.yml")
+    with open(train_yml, "w") as f:
+        f.write(dump_yaml(opt))
+    setting = opt["network_G"]["setting"]
+    detail, ok = {"data_s": t_data}, True
+    cwd = os.getcwd()
+    os.chdir(work)                  # experiments/ and results/ go here
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        summ = etrain.main(["-opt", train_yml, "--device", "cuda",
+                            "--val_images", str(EDIFFSR_IN_RUN_VAL)])
+        wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        val = summ["validations"][-1] if summ["validations"] else {}
+        rate = summ["steady_steps_per_s"]
+        losses = summ["loss"]
+        train_ok = (summ["steps"] == EDIFFSR_STEPS and rate is not None
+                    and len(losses) == EDIFFSR_STEPS
+                    and all(map(math.isfinite, losses))
+                    and val.get("images") == EDIFFSR_IN_RUN_VAL
+                    and math.isfinite(val.get("psnr", math.nan))
+                    and not any(launches.values()))
+        ok &= train_ok
+        val_s = val.get("seconds", math.nan) / max(val.get("images", 1), 1)
+        print(f"[ediffsr train] {card} | ediffsr.train cuda f32, "
+              f"ConditionalNAFNet width {setting['width']} enc "
+              f"{setting['enc_blk_nums']}, T={opt['sde']['T']}, batch "
+              f"{opt['datasets']['train']['batch_size']} 256x256, "
+              f"{opt['train']['optimizer']} {opt['train']['lr_G']}, "
+              f"{EDIFFSR_STEPS} steps: loss first {losses[0]:.4f} last "
+              f"{losses[-1]:.4f} | steady {rate:.3f} steps/s excluding the "
+              f"first step; wall {wall:.1f} s | in-run validation at step "
+              f"{EDIFFSR_STEPS}: {val.get('images')} images, psnr "
+              f"{val.get('psnr', math.nan):.4f}, {val_s:.3f} s per image "
+              f"(T={opt['sde']['T']} reverse SDE, batch 1, set-up "
+              f"included) | peak {peak:.2f} GiB | kernel launches "
+              f"{launches} (none on this path) "
+              f"{'ok' if train_ok else 'FAIL'}", flush=True)
+        detail["train"] = {"steps": summ["steps"], "steady_steps_per_s": rate,
+                           "loss": losses, "wall_s": wall, "peak_gib": peak,
+                           "validation": val, "val_s_per_image": val_s,
+                           "launches": launches}
+
+        with open(os.path.join(ymls, "setting_mfe_Test_x4.yml")) as f:
+            topt = load_yaml(f.read())
+        topt["name"] = "chip_smoke_ediffsr_test"
+        topt["datasets"]["test"].update(
+            dataroot_GT=roots[("val", "hr_256")],
+            dataroot_LQ=roots[("val", "lr_64")])
+        topt["path"]["pretrain_model_G"] = summ["checkpoint"]
+        detail["test"] = {}
+        for sampler, n in (("sde", EDIFFSR_VAL_IMAGES), ("ode", 1),
+                           ("rk45", 1)):
+            topt["datasets"]["test"]["data_len"] = n
+            topt["name"] = f"chip_smoke_ediffsr_test_{sampler}"
+            test_yml = os.path.join(work, f"test_{sampler}.yml")
+            with open(test_yml, "w") as f:
+                f.write(dump_yaml(topt))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            res = etrain.main(["-opt", test_yml, "--test", "--device", "cuda",
+                               "--sampler", sampler])
+            wall = time.time() - t0
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            pngs = [p for p in os.listdir(os.path.join(
+                work, "results", topt["name"])) if p.endswith(".png")
+                and not p.endswith("_plot.png")]
+            s_img = res.get("avg_time", res.get("first_batch_s"))
+            steady = ("after the first" if "avg_time" in res
+                      else "set-up included")
+            steps = ""
+            if sampler == "rk45":
+                r = res["rk45"][0]
+                steps = (f", RK45 {r['rk45_accepted']} accepted of "
+                         f"{r['rk45_trials']} trial steps "
+                         f"({6 * r['rk45_trials'] + 1} NAFNet evals)")
+            t_ok = (res.get("images") == n and len(pngs) == n
+                    and all(math.isfinite(res.get(k, math.nan))
+                            for k in ("psnr", "ssim", "ergas"))
+                    and not any(launches.values()))
+            ok &= t_ok
+            print(f"[ediffsr test {sampler}] {card} | ediffsr.train --test "
+                  f"cuda f32 --sampler {sampler}, {n} images 64->256: psnr "
+                  f"{res.get('psnr', math.nan):.4f} ssim "
+                  f"{res.get('ssim', math.nan):.4f} ergas "
+                  f"{res.get('ergas', math.nan):.4f}, {len(pngs)} SR PNGs"
+                  f"{steps} | {s_img:.3f} s per image {steady}, wall "
+                  f"{wall:.1f} s | peak {peak:.2f} GiB "
+                  f"{'ok' if t_ok else 'FAIL'}", flush=True)
+            detail["test"][sampler] = {**res, "wall_s": wall,
+                                       "peak_gib": peak, "s_per_image": s_img,
+                                       "launches": launches}
+    finally:
+        os.chdir(cwd)
+    detail["card_vs_cpu"], cmp_ok = card_vs_cpu(card, seed)
+    ok &= cmp_ok
+    return detail, ok
+
+
 def gdp_reference(card, seed):
     """``--gdp-reference``: cli.infer of configs/sr_gdp_test_64_256.json
     (the guided UNet at full width, ancestral sampling over T=1000 at
@@ -1467,8 +1754,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds weights, inputs and the synthetic data")
     ap.add_argument("--gdp-reference", action="store_true",
-                    help="in place of phases 2-15: the gdp evaluation at its "
+                    help="in place of phases 2-16: the gdp evaluation at its "
                          "reference shape (see gdp_reference)")
+    ap.add_argument("--ediffsr-only", action="store_true",
+                    help="in place of phases 2-15: only phase 16 (EDiffSR)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -1506,6 +1795,14 @@ def main(argv=None) -> int:
     detail["build_seconds"] = build_s
     if args.gdp_reference:
         return gdp_reference(card, args.seed)
+    if args.ediffsr_only:
+        t0 = time.time()
+        detail["ediffsr"], e_ok = phase_ediffsr(card, args.seed)
+        print(f"[ediffsr] {card} | phase 16 took {time.time() - t0:.1f} s "
+              f"{'ok' if e_ok else 'FAIL'}", flush=True)
+        with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+            json.dump(detail, f, indent=1)
+        return 0 if e_ok else 1
     laps, t_lap = {}, [time.time()]
 
     def lap(name):
@@ -1646,6 +1943,13 @@ def main(argv=None) -> int:
     detail["fid"], fid_ok = phase_fid(card, args.seed)
     lap("15 fid")
     ok &= k512_ok and i512_ok and fid_ok
+
+    # 16. EDiffSR: training, --test with the three samplers, card vs CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    detail["ediffsr"], ediffsr_ok = phase_ediffsr(card, args.seed)
+    lap("16 ediffsr")
+    ok &= ediffsr_ok
     k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]
     k1_all_rows = k1_rows + [r for v in detail["k1_variants"].values()
                              for r in v["rows"]]

@@ -12,7 +12,10 @@ variant (config, schedules, engine, UNet and its fused inference forward,
 data, metrics, ``cli/infer.py``) and its training path (training loss,
 optimizers, EMA, train steps, checkpoints, ``cli/sr_mfe.py``), with
 kernels K1 (GroupNorm -> Swish), K2 (channel statistics) and K3 (fused
-GroupNorm -> Swish -> 3x3 conv) in ``csrc/``.
+GroupNorm -> Swish -> 3x3 conv) in ``csrc/``; the ddpm/tesr/gdp variants,
+the DDIM and DPM-Solver++ samplers, ``cli/fid.py``; and EDiffSR (the
+IR-SDE in ``diffusion/sde.py``, ``models/nafnet.py``,
+``models/cond_unet.py``, ``ediffsr/``), which has no kernel of its own.
 """
 
 __version__ = "0.1.0"

@@ -195,12 +195,125 @@ def flax_guided_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
     return _to_torch(sd)
 
 
+def _nafblock_leaf(rest: tuple, val: np.ndarray):
+    """(torch name under the block, value) of a Flax NAFBlock leaf."""
+    if rest[0] in ("norm1_g", "norm2_g", "beta", "gamma"):
+        name = {"norm1_g": "norm1.g", "norm2_g": "norm2.g"}.get(rest[0],
+                                                               rest[0])
+        return name, val.reshape(1, -1, 1, 1)
+    sub = {"time_dense": "mlp.1", "sca_conv": "sca.1"}.get(rest[0], rest[0])
+    if rest[-1] != "kernel":
+        return f"{sub}.bias", val
+    return f"{sub}.weight", (_dense_w(val) if rest[0] == "time_dense"
+                             else _conv_w(val))
+
+
+_NAF_ENHANCE = {"conv1": "rcab.0", "conv2": "rcab.2",
+                "ca_fc1": "rcab.3.attention.1",
+                "ca_fc2": "rcab.3.attention.3"}
+
+
+def flax_nafnet_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
+    """Convert a Flax ``ConditionalNAFNet`` params tree to the state dict
+    of :class:`~fastdiffsr_tpu_torch.models.nafnet.ConditionalNAFNet`,
+    whose names are the reference ``DenoisingNAFNet_arch``'s: the inverse
+    of the JAX package's ``torch_nafnet_to_flax``. Both up modes share the
+    tree (``up_i`` holds the 1x1 weights)."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, val in _flatten(params):
+        val = np.asarray(val, np.float32)
+        top, rest = path[0], path[1:]
+        is_kernel = rest[-1] == "kernel"
+        m = re.fullmatch(r"(enc|dec)_(\d+)_(\d+)|middle_(\d+)", top)
+        if m:
+            if m.group(4) is not None:
+                base = f"middle_blks.{m.group(4)}"
+            else:
+                lst = "encoders" if m.group(1) == "enc" else "decoders"
+                base = f"{lst}.{m.group(2)}.{m.group(3)}"
+            name, v = _nafblock_leaf(rest, val)
+            sd[f"{base}.{name}"] = v
+            continue
+        if top in ("time_dense1", "time_dense2"):
+            idx = 1 if top == "time_dense1" else 3
+            sd[f"time_mlp.{idx}.{_param(rest[-1])}"] = (
+                _dense_w(val) if is_kernel else val)
+            continue
+        if top == "enhance":
+            name = f"enhance.{_NAF_ENHANCE[rest[0]]}"
+        elif top in ("intro", "ending"):
+            name = top
+        else:
+            m = re.fullmatch(r"(down|up)_(\d+)", top)
+            if m is None:
+                raise KeyError(f"unexpected Flax param {'/'.join(path)}")
+            name = (f"downs.{m.group(2)}" if m.group(1) == "down"
+                    else f"ups.{m.group(2)}.0")
+        sd[f"{name}.{_param(rest[-1])}"] = _conv_w(val) if is_kernel else val
+    return _to_torch(sd)
+
+
+_COND_RES = {"time_dense": "mlp.1", "conv1": "block1.proj",
+             "conv2": "block2.proj", "res_conv": "res_conv"}
+_COND_ATTN = {"norm_g": "fn.norm.g", "to_qkv": "fn.fn.to_qkv",
+              "to_out": "fn.fn.to_out.0", "out_norm_g": "fn.fn.to_out.1.g"}
+
+
+def flax_cond_unet_params_to_torch(params: dict
+                                   ) -> Dict[str, torch.Tensor]:
+    """Convert a Flax ``ConditionalUNet`` params tree to the state dict of
+    :class:`~fastdiffsr_tpu_torch.models.cond_unet.ConditionalUNet`, whose
+    names are the reference ``DenoisingUNet_arch``'s. The torch ``ups``
+    list holds level depth-1-k at index k (the reference builds it with
+    ``insert(0, ...)``)."""
+    depth = sum(1 for k in params if re.fullmatch(r"down_\d+_down", k))
+    sd: Dict[str, np.ndarray] = {}
+    for path, val in _flatten(params):
+        val = np.asarray(val, np.float32)
+        top, rest = path[0], path[1:]
+        m = re.fullmatch(r"(down|up)_(\d+)_(b1|b2|attn|down|up)", top)
+        if m:
+            lvl = int(m.group(2))
+            lst, idx = ("downs", lvl) if m.group(1) == "down" else (
+                "ups", depth - 1 - lvl)
+            part = m.group(3)
+            base = f"{lst}.{idx}." + {"b1": "0", "b2": "1", "attn": "2"}.get(
+                part, "3")
+            if part == "up" and lvl != 0:
+                base += ".1"
+        else:
+            base = {"mid_b1": "mid_block1", "mid_b2": "mid_block2",
+                    "mid_attn": "mid_attn", "final_res": "final_res_block",
+                    "init_conv": "init_conv", "final_conv": "final_conv",
+                    "time_dense1": "time_mlp.1",
+                    "time_dense2": "time_mlp.3"}.get(top)
+            if base is None:
+                raise KeyError(f"unexpected Flax param {'/'.join(path)}")
+            part = top
+        if rest[0] in ("norm_g", "out_norm_g"):
+            sd[f"{base}.{_COND_ATTN[rest[0]]}"] = val.reshape(1, -1, 1, 1)
+            continue
+        if len(rest) == 2:                 # a leaf of a block's layer
+            sub = (_COND_ATTN if part.endswith("attn") else _COND_RES)[
+                rest[0]]
+            base = f"{base}.{sub}"
+        dense = rest[0] == "time_dense" or top.startswith("time_dense")
+        sd[f"{base}.{_param(rest[-1])}"] = (
+            val if rest[-1] != "kernel" else
+            _dense_w(val) if dense else _conv_w(val))
+    return _to_torch(sd)
+
+
 def flax_converter(variant: str):
-    """The Flax-tree -> torch state dict converter of a variant's UNet."""
+    """The Flax-tree -> torch state dict converter of a variant's net
+    (``which_model_G``: a UNet variant of the main framework, or an
+    EDiffSR denoiser)."""
     convs = {"fastdiffsr": flax_params_to_torch,
              "ddpm": flax_sr3_params_to_torch,
              "tesr": flax_sr3_params_to_torch,
-             "gdp": flax_guided_params_to_torch}
+             "gdp": flax_guided_params_to_torch,
+             "ConditionalNAFNet": flax_nafnet_params_to_torch,
+             "ConditionalUNet": flax_cond_unet_params_to_torch}
     if variant not in convs:
         raise ValueError(f"unknown which_model_G: {variant}")
     return convs[variant]
@@ -219,8 +332,11 @@ def optax_state_to_torch(opt_state: Sequence, param_names: Sequence[str],
     :class:`~fastdiffsr_tpu_torch.train.state.Lion` keeps. Any other
     optax state with fields raises, naming it."""
     by_name = {type(s).__name__: s for s in opt_state}
+    # a schedule's own count is the step, which the port's train loops
+    # read from the checkpoint's ``step`` to set the learning rate
     unknown = sorted(n for n, s in by_name.items()
-                     if n not in ("ScaleByAdamState", "ScaleByLionState")
+                     if n not in ("ScaleByAdamState", "ScaleByLionState",
+                                  "ScaleByScheduleState")
                      and len(s))
     moments = [n for n in ("ScaleByAdamState", "ScaleByLionState")
                if n in by_name]
@@ -275,8 +391,10 @@ def strip_diffusion_prefix(state_dict: dict,
 
 
 def main(argv=None) -> str:
-    """Convert a reference checkpoint to a UNet state-dict file that
-    ``cli/infer.py::load_params`` (and ``sr_mfe -p val``) reads:
+    """Convert a reference checkpoint to a state-dict file that
+    ``cli/infer.py::load_params`` (and ``sr_mfe -p val``, and
+    ``ediffsr.train``'s ``pretrain_model_G`` with ``--arch nafnet``)
+    reads:
 
         python -m fastdiffsr_tpu_torch.models.convert --arch fastdiffsr \\
             I896896_E196_gen.pth unet.pt
@@ -294,7 +412,11 @@ def main(argv=None) -> str:
                           "final_conv"},
            "ddpm": sr3, "tesr": sr3,
            "gdp": {"time_embed", "input_blocks", "middle_block",
-                   "output_blocks", "out"}}
+                   "output_blocks", "out"},
+           # EDiffSR's ConditionalNAFNet (a reference *_G.pth is the bare
+           # DenoisingNAFNet_arch state dict)
+           "nafnet": {"time_mlp", "intro", "enhance", "encoders", "downs",
+                      "middle_blks", "ups", "decoders", "ending"}}
 
     p = argparse.ArgumentParser()
     p.add_argument("ckpt", help="reference *_gen.pth (or a bare UNet "

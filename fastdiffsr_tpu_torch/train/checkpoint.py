@@ -6,8 +6,11 @@ payload {step, epoch, params, ema_params, opt_state}: params and
 ema_params are state dicts of the UNet, opt_state is the optimizer's
 state dict. ``load_state`` and ``load_params_only`` also read the JAX
 package's pickle backend (``state.pkl``): its Flax trees go through the
-converter of the run's variant (``models.convert.flax_converter``). Its
-``orbax/`` backend is not readable here. :func:`load_reference_gen_pth`
+converter of the run's variant (``models.convert.flax_converter``: a
+UNet variant of the main framework, or an EDiffSR denoiser,
+``ConditionalNAFNet`` / ``ConditionalUNet``, whose AdamW/Adam/Lion states
+carry a schedule count that equals the step). Its ``orbax/`` backend is
+not readable here. :func:`load_reference_gen_pth`
 reads a reference ``I*_E*_gen.pth``.
 """
 
@@ -32,6 +35,9 @@ _OPTAX = {
         collections.namedtuple("ScaleByAdamState", "count mu nu"),
     ("optax._src.transform", "ScaleByLionState"):
         collections.namedtuple("ScaleByLionState", "count mu"),
+    # the count of an optimizer built on a schedule (EDiffSR's)
+    ("optax._src.transform", "ScaleByScheduleState"):
+        collections.namedtuple("ScaleByScheduleState", "count"),
     ("optax._src.base", "EmptyState"):
         collections.namedtuple("EmptyState", ""),
 }

@@ -208,7 +208,10 @@ def test_port_imports_without_jax_or_jax_package():
     assert len(names) >= 15
     assert {f"fastdiffsr_tpu_torch.{m}" for m in (
         "lpips_torch", "models.inception", "cli.fid",
-        "utils.wandb_logger")} <= names
+        "utils.wandb_logger", "diffusion.sde", "models.nafnet",
+        "models.cond_unet", "ediffsr.options", "ediffsr.imgproc",
+        "ediffsr.data", "ediffsr.deg", "ediffsr.schedulers",
+        "ediffsr.train")} <= names
 
 
 IMPORT_OF_REFERENCE = re.compile(
