@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (fastdiffsr_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--gdp-reference | --ediffsr-only]
+    python3 chip_smoke.py [--seed 0] [--gdp-reference | --ediffsr-only |
+                                      --msi-only]
 
 Run from the repository root. It needs one CUDA device and the CUDA
 toolkit (nvcc); without a device it exits non-zero and prints no result.
@@ -93,7 +94,19 @@ limit:
    RK45's accepted and trial steps, peak memory), and the same port code
    on the card against the CPU (a full-width NAFNet forward, a 4-step
    reverse SDE, a ConditionalUNet forward). EDiffSR has no kernel of
-   ours: every launch counter must read 0 there.
+   ours: every launch counter must read 0 there;
+17. the five MSI baselines (SwinIR, HAT, HSENet, TransENet, NDSRGAN)
+   through ``fastdiffsr_tpu_torch.msi.main`` at full width (JAX
+   ``msi/main.py``'s defaults, x4, crop 256, batch 1) on PNG folders from
+   --seed: ``--mode train`` for MSI_STEPS steps with its epoch-end
+   validation of 8 tiles (steady steps/s, peak memory, a checkpoint
+   that reloads bit-equal), ``--mode validateByClass`` from the
+   checkpoint (PSNR/SSIM/ERGAS and LPIPS on the card, seconds per
+   image), ``--mode test_single`` on an odd-size PNG; NDSRGAN's
+   GANTrainer at full width (batch 2, GAN_STEPS steps); each full-width
+   model on the card against the CPU on an LR input that is not a
+   window multiple. No kernel of ours here either: every launch counter
+   must read 0.
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -105,7 +118,8 @@ reuse a plan timed for phase 2's F.conv2d at the same shape.
 ``--gdp-reference`` runs, after the build, only the gdp variant's
 evaluation at its reference shape (ancestral T=1000 at 256x256 through
 ``cli.infer``, one image, f32 and bf16), which is too long for every run.
-``--ediffsr-only`` runs, after the build, only phase 16.
+``--ediffsr-only`` runs, after the build, only phase 16, and
+``--msi-only`` only phase 17.
 
 Kernel times: ``ms`` is device time per call, the CUDA-event time of one
 replay of a CUDA graph that holds REPS calls (no host time between the
@@ -120,7 +134,7 @@ kernel), every number of it measured in this run or, for ``bound_ms``,
 computed from this run's shapes; the last line is {"ok": true, "device":
 {...}}. Per-shape details go to build/chip_smoke.json. Any failed check
 exits non-zero. The ``[time]`` line says how long the run took, the
-kernel build included: about eight minutes on an H100.
+kernel build included: about ten minutes on an H100.
 """
 
 from __future__ import annotations
@@ -206,6 +220,20 @@ EDIFFSR_IN_RUN_VAL = 2
 # the same port code on the card and on the CPU: max|d| <= tol * max|y|
 # (IEEE float32 on both; only the order of the sums differs)
 EDIFFSR_CPU_TOL = 1e-4
+# phase 17, MSI: full-width training steps per model (batch 1, crop 256,
+# x4), the training tiles, the test set's classes and tiles per class,
+# the odd-size test_single input (h, w; TransENet takes multiples of its
+# 8x8 patches), GAN steps and batch, and the card-vs-CPU LR inputs
+MSI_MODELS = ("SwinIR", "HAT", "HSENet", "TransENet", "NDSRGAN")
+MSI_STEPS = 12
+MSI_TRAIN_TILES = 16
+MSI_CLASSES, MSI_PER_CLASS = 2, 4
+MSI_SINGLE = {"TransENet": (184, 248)}
+MSI_SINGLE_DEFAULT = (190, 250)
+GAN_STEPS, GAN_BATCH = 4, 2
+MSI_CPU_INPUT = {"TransENet": (40, 32)}
+MSI_CPU_INPUT_DEFAULT = (36, 28)
+MSI_CPU_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -666,8 +694,9 @@ def phase_k1_grad(sig, B, card, seed):
 
 def randomize_params(net, seed: int):
     """Every parameter seeded on its device: weights N(0, 1/fan_in),
-    GroupNorm scales 1 + 0.1 N, biases 0.1 N (the guided UNet's
-    zero-initialised layers would otherwise hide half of the net)."""
+    GroupNorm and LayerNorm scales 1 + 0.1 N, biases (and MSI's bias
+    tables) 0.1 N (the guided UNet's and HSENet's zero-initialised layers
+    would otherwise hide part of the net)."""
     import torch
     dev = next(net.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -675,7 +704,8 @@ def randomize_params(net, seed: int):
         for m in net.modules():
             for name, p in m.named_parameters(recurse=False):
                 z = torch.randn(p.shape, generator=g, device=dev)
-                if isinstance(m, torch.nn.GroupNorm) and name == "weight":
+                if isinstance(m, (torch.nn.GroupNorm, torch.nn.LayerNorm)) \
+                        and name == "weight":
                     p.copy_(1.0 + 0.1 * z)
                 elif name == "weight":
                     p.copy_(z / math.sqrt(p[0].numel()))
@@ -1718,6 +1748,258 @@ def phase_ediffsr(card, seed):
     return detail, ok
 
 
+def write_msi_dirs(root, seed):
+    """MSI's PNG folders under ``root`` from ``seed``: ``train/`` with
+    MSI_TRAIN_TILES smooth 256x256 tiles (made on the card),
+    ``test/class_{k}/`` with MSI_PER_CLASS tiles per class, and the
+    odd-size ``single_{h}x{w}.png`` inputs of test_single."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastdiffsr_tpu_torch.metrics import save_img
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def tiles(n, h, w):
+        small = torch.rand((n, 3, 16, 16), generator=g, device="cuda")
+        img = F.interpolate(small, size=(h, w), mode="bicubic",
+                            align_corners=False).clamp(0, 1)
+        return (img * 255).round().to(torch.uint8).permute(
+            0, 2, 3, 1).cpu().numpy()
+    dirs = {"train": os.path.join(root, "train"),
+            "test": os.path.join(root, "test")}
+    for j, img in enumerate(tiles(MSI_TRAIN_TILES, 256, 256)):
+        save_img(img, os.path.join(dirs["train"], f"{j:04d}.png"))
+    for k in range(MSI_CLASSES):
+        for j, img in enumerate(tiles(MSI_PER_CLASS, 256, 256)):
+            save_img(img, os.path.join(dirs["test"], f"class_{k}",
+                                       f"{j:04d}.png"))
+    for h, w in {MSI_SINGLE_DEFAULT, *MSI_SINGLE.values()}:
+        dirs[(h, w)] = os.path.join(root, f"single_{h}x{w}.png")
+        save_img(tiles(1, h, w)[0], dirs[(h, w)])
+    return dirs
+
+
+def msi_card_vs_cpu(card, seed):
+    """Each full-width MSI model (randomized weights) on the card against
+    the same port code on the CPU, on one LR input that is not a window
+    multiple (TransENet: a multiple of its 8x8 patches), within
+    MSI_CPU_TOL of the CPU's max|y|."""
+    import copy
+    import types
+
+    import torch
+
+    from fastdiffsr_tpu_torch.msi.main import build_model
+    rows, ok = {}, True
+    gen = torch.Generator().manual_seed(seed)
+    for name in MSI_MODELS:
+        net = randomize_params(build_model(name, types.SimpleNamespace(
+            scale_factor=4, tiny=False)), seed).eval()
+        net_gpu = copy.deepcopy(net).cuda()
+        h, w = MSI_CPU_INPUT.get(name, MSI_CPU_INPUT_DEFAULT)
+        x = torch.rand((1, h, w, 3), generator=gen)
+        t0 = time.time()
+        with torch.no_grad():
+            want = net(x)
+            t_cpu = time.time() - t0
+            got = net_gpu(x.cuda()).cpu()
+        err = (got - want).abs().max().item()
+        ymax = want.abs().max().item()
+        good = (bool(torch.isfinite(got).all()) and got.shape == want.shape
+                and err <= MSI_CPU_TOL * ymax)
+        ok &= good
+        print(f"[msi card vs cpu] {card} | {name} full width, LR {h}x{w} "
+              f"-> {tuple(got.shape[1:3])}: max|d| {err:.3g}, max|y| "
+              f"{ymax:.3g}, tol {MSI_CPU_TOL} * max|y| = "
+              f"{MSI_CPU_TOL * ymax:.3g}; the CPU took {t_cpu:.1f} s "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        rows[name] = {"err": err, "ymax": ymax, "ok": good}
+        del net, net_gpu
+    return rows, ok
+
+
+def msi_reloads_bit_equal(name, ckpt, steps):
+    """The checkpoint's state.pt loads into a fresh full-width model and
+    Adam through ``load_state`` and every parameter and moment equals
+    the payload's; the steps moved the weights off their seeded init."""
+    import types
+
+    import torch
+
+    from fastdiffsr_tpu_torch.msi.main import build_model, init_weights
+    from fastdiffsr_tpu_torch.train.checkpoint import load_state
+    from fastdiffsr_tpu_torch.train.state import create_train_state
+    from fastdiffsr_tpu_torch.msi.trainer import ARCH_OF
+
+    payload = torch.load(os.path.join(ckpt, "state.pt"), map_location="cuda",
+                         weights_only=True)
+    net = init_weights(build_model(name, types.SimpleNamespace(
+        scale_factor=4, tiny=False))).cuda()
+    init = {k: v.clone() for k, v in net.state_dict().items()}
+    state = load_state(ckpt, create_train_state(
+        net, torch.optim.Adam(net.parameters())), ARCH_OF[type(net).__name__])
+    opt_sd = state.optimizer.state_dict()["state"]
+    changed = sum(not torch.equal(v, init[k])
+                  for k, v in net.state_dict().items())
+    equal = (state.step == steps == payload["step"]
+             and all(torch.equal(v, payload["params"][k])
+                     for k, v in net.state_dict().items())
+             and all(torch.equal(opt_sd[i][n],
+                                 payload["opt_state"]["state"][i][n])
+                     for i in opt_sd for n in ("exp_avg", "exp_avg_sq")))
+    return equal, changed
+
+
+def phase_msi(card, seed):
+    """The five MSI baselines through ``fastdiffsr_tpu_torch.msi.main`` at
+    full width (JAX main.py's defaults, x4, crop 256, batch 1) on PNG
+    folders from ``seed``: ``--mode train`` for MSI_STEPS steps with the
+    epoch-end validation of 8 test tiles (steady steps/s, peak memory, a
+    checkpoint that reloads bit-equal), ``--mode validateByClass`` from
+    it (PSNR/SSIM/ERGAS and LPIPS on the card from a seeded pack, seconds
+    per image with set-up), ``--mode test_single`` on an odd-size PNG;
+    then GANTrainer at full width and ``msi_card_vs_cpu``. No kernel of
+    ours is on this path: every launch counter must read 0."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from fastdiffsr_tpu_torch.lpips_torch import random_pack
+    from fastdiffsr_tpu_torch.metrics import load_img
+    from fastdiffsr_tpu_torch.msi import main as msi_main
+    from fastdiffsr_tpu_torch.msi.ndsrgan import GANTrainer
+    from fastdiffsr_tpu_torch.ops import kernels
+
+    work = os.path.join(ROOT, "build", "smoke", "msi")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.time()
+    dirs = write_msi_dirs(os.path.join(work, f"data_{seed}"), seed + 17)
+    detail, ok = {"data_s": time.time() - t0}, True
+    if "FASTDIFFSR_TPU_LPIPS" not in os.environ:
+        pack = os.path.join(work, f"lpips_alex_{seed}.npz")
+        np.savez(pack, **random_pack(seed + 8))
+        os.environ["FASTDIFFSR_TPU_LPIPS"] = pack
+    n_test = MSI_CLASSES * MSI_PER_CLASS
+    kernels.reset_launch_counts()
+    common = ["--scale_factor", "4", "--crop_size", "256",
+              "--test_crop_size", "256", "--device", "cuda",
+              "--save_dir", os.path.join(work, "runs"),
+              "--test_data_dir", dirs["test"]]
+
+    def run(name, *argv):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        out = msi_main.main(["--model_name", name, *argv, *common])
+        torch.cuda.synchronize()
+        return out, time.time() - t, torch.cuda.max_memory_allocated() / 2**30
+
+    for name in MSI_MODELS:
+        row = {}
+        summ, wall, peak = run(name, "--mode", "train", "--data_dir",
+                               dirs["train"], "--batch_size", "1",
+                               "--num_epochs", "1", "--max_steps",
+                               str(MSI_STEPS), "--log_freq", "4")
+        losses, rate = summ["loss"], summ["steady_steps_per_s"]
+        val = summ["validations"][0] if summ["validations"] else {}
+        equal, changed = msi_reloads_bit_equal(name, summ["checkpoint"],
+                                               MSI_STEPS)
+        t_ok = (summ["steps"] == MSI_STEPS and len(losses) == MSI_STEPS
+                and all(map(math.isfinite, losses)) and rate is not None
+                and math.isfinite(val.get("psnr", math.nan))
+                and "lpips" in val and equal and changed > 0)
+        ok &= t_ok
+        print(f"[msi train {name}] {card} | msi.main --mode train cuda f32 "
+              f"full width, x4 crop 256 batch 1, {MSI_STEPS} steps: loss "
+              f"first {losses[0]:.4f} last {losses[-1]:.4f} | steady "
+              f"{rate:.3f} steps/s excluding the first step; wall "
+              f"{wall:.1f} s (model build, cuDNN timing and the epoch-end "
+              f"validation of {min(8, n_test)} tiles included) | validation "
+              f"psnr {val.get('psnr', math.nan):.4f} lpips "
+              f"{val.get('lpips', math.nan):.4f}, forward "
+              f"{val.get('infer_time', math.nan):.4f} s per image at batch "
+              f"8 (first batch's set-up included) | peak {peak:.2f} GiB | "
+              f"checkpoint {os.path.basename(summ['checkpoint'])} reloads "
+              f"bit-equal {equal}, {changed} tensors moved "
+              f"{'ok' if t_ok else 'FAIL'}", flush=True)
+        row["train"] = {"steps": summ["steps"], "steady_steps_per_s": rate,
+                        "loss": losses, "wall_s": wall, "peak_gib": peak,
+                        "validation": val, "bit_equal": equal}
+
+        rep, wall, peak = run(name, "--mode", "validateByClass", "--resume",
+                              summ["checkpoint"])
+        overall = rep["__overall__"]
+        classes = sorted(k for k in rep if k != "__overall__")
+        v_ok = (len(classes) == MSI_CLASSES and all(
+            math.isfinite(rep[c].get(k, math.nan)) for c in rep
+            for k in ("psnr", "ssim", "ergas", "lpips")))
+        ok &= v_ok
+        print(f"[msi validateByClass {name}] {card} | --resume, {n_test} "
+              f"tiles in {len(classes)} classes, batch 8, cuDNN heuristics: "
+              f"psnr {overall['psnr']:.4f} ssim {overall['ssim']:.4f} ergas "
+              f"{overall['ergas']:.4f} lpips {overall['lpips']:.4f} "
+              f"(bicubic psnr {overall['psnr_bicubic']:.4f}) | "
+              f"{wall / n_test:.3f} s per image with set-up (model build, "
+              f"checkpoint load, PNG decoding, metrics), wall {wall:.1f} s | "
+              f"peak {peak:.2f} GiB {'ok' if v_ok else 'FAIL'}", flush=True)
+        row["validate_by_class"] = {"report": rep, "wall_s": wall,
+                                    "s_per_image": wall / n_test,
+                                    "peak_gib": peak}
+
+        h, w = MSI_SINGLE.get(name, MSI_SINGLE_DEFAULT)
+        out_png = os.path.join(work, f"{name}_single.png")
+        _, wall, peak = run(name, "--mode", "test_single", "--resume",
+                            summ["checkpoint"], "--input", dirs[(h, w)],
+                            "--output", out_png)
+        sr = load_img(out_png)
+        s_ok = sr.shape == (4 * h, 4 * w, 3)
+        ok &= s_ok
+        print(f"[msi test_single {name}] {card} | {w}x{h} PNG -> "
+              f"{sr.shape[1]}x{sr.shape[0]}, batch 1: wall {wall:.2f} s "
+              f"(set-up included) | peak {peak:.2f} GiB "
+              f"{'ok' if s_ok else 'FAIL'}", flush=True)
+        row["test_single"] = {"in_hw": [h, w], "out_shape": list(sr.shape),
+                              "wall_s": wall, "peak_gib": peak}
+        detail[name] = row
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = types.SimpleNamespace(scale_factor=4, g_nf=64, g_nc=32,
+                                 g_blocks=23, crop_size=256, lr=2e-4,
+                                 weight_gan=1e-3)
+    t0 = time.time()
+    gan = GANTrainer(args, device="cuda", seed=seed)
+    m = gan.train([dirs["train"]], num_epochs=1, batch_size=GAN_BATCH,
+                  max_steps=GAN_STEPS)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    g_ok = (gan.step_count == GAN_STEPS and m["steps_per_s"] is not None
+            and all(math.isfinite(m[k]) for k in ("g", "d", "pixel", "adv")))
+    ok &= g_ok
+    print(f"[msi gan] {card} | NDSRGAN GANTrainer cuda f32, DRRDBNet nf 64 "
+          f"nc 32 23 blocks + GroupNorm discriminator, crop 256 batch "
+          f"{GAN_BATCH}, LSGAN, {GAN_STEPS} steps: g {m['g']:.4f} d "
+          f"{m['d']:.4f} pixel {m['pixel']:.4f} adv {m['adv']:.4f} | steady "
+          f"{m['steps_per_s']:.3f} steps/s excluding the first; wall "
+          f"{wall:.1f} s | peak {peak:.2f} GiB {'ok' if g_ok else 'FAIL'}",
+          flush=True)
+    detail["gan"] = {**m, "wall_s": wall, "peak_gib": peak}
+    del gan
+
+    detail["card_vs_cpu"], cmp_ok = msi_card_vs_cpu(card, seed)
+    launches = dict(kernels.LAUNCHES)
+    l_ok = not any(launches.values())
+    ok &= cmp_ok and l_ok
+    print(f"[msi] {card} | kernel launches through phase 17: {launches} "
+          f"(none on this path) {'ok' if l_ok else 'FAIL'}", flush=True)
+    detail["launches"] = launches
+    return detail, ok
+
+
 def gdp_reference(card, seed):
     """``--gdp-reference``: cli.infer of configs/sr_gdp_test_64_256.json
     (the guided UNet at full width, ancestral sampling over T=1000 at
@@ -1754,10 +2036,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds weights, inputs and the synthetic data")
     ap.add_argument("--gdp-reference", action="store_true",
-                    help="in place of phases 2-16: the gdp evaluation at its "
+                    help="in place of phases 2-17: the gdp evaluation at its "
                          "reference shape (see gdp_reference)")
     ap.add_argument("--ediffsr-only", action="store_true",
-                    help="in place of phases 2-15: only phase 16 (EDiffSR)")
+                    help="in place of phases 2-15 and 17: only phase 16 "
+                         "(EDiffSR)")
+    ap.add_argument("--msi-only", action="store_true",
+                    help="in place of phases 2-16: only phase 17 (MSI)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -1803,6 +2088,14 @@ def main(argv=None) -> int:
         with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
             json.dump(detail, f, indent=1)
         return 0 if e_ok else 1
+    if args.msi_only:
+        t0 = time.time()
+        detail["msi"], m_ok = phase_msi(card, args.seed)
+        print(f"[msi] {card} | phase 17 took {time.time() - t0:.1f} s "
+              f"{'ok' if m_ok else 'FAIL'}", flush=True)
+        with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+            json.dump(detail, f, indent=1)
+        return 0 if m_ok else 1
     laps, t_lap = {}, [time.time()]
 
     def lap(name):
@@ -1950,6 +2243,13 @@ def main(argv=None) -> int:
     detail["ediffsr"], ediffsr_ok = phase_ediffsr(card, args.seed)
     lap("16 ediffsr")
     ok &= ediffsr_ok
+
+    # 17. MSI: the five baselines through msi.main, GAN, card vs CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    detail["msi"], msi_ok = phase_msi(card, args.seed)
+    lap("17 msi")
+    ok &= msi_ok
     k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]
     k1_all_rows = k1_rows + [r for v in detail["k1_variants"].values()
                              for r in v["rows"]]

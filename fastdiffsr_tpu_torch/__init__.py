@@ -15,7 +15,9 @@ kernels K1 (GroupNorm -> Swish), K2 (channel statistics) and K3 (fused
 GroupNorm -> Swish -> 3x3 conv) in ``csrc/``; the ddpm/tesr/gdp variants,
 the DDIM and DPM-Solver++ samplers, ``cli/fid.py``; and EDiffSR (the
 IR-SDE in ``diffusion/sde.py``, ``models/nafnet.py``,
-``models/cond_unet.py``, ``ediffsr/``), which has no kernel of its own.
+``models/cond_unet.py``, ``ediffsr/``), which has no kernel of its own;
+and the five MSI baselines with their shared trainer and CLI (``msi/``,
+``models/vgg_feat.py``), which have none either.
 """
 
 __version__ = "0.1.0"

@@ -304,16 +304,218 @@ def flax_cond_unet_params_to_torch(params: dict
     return _to_torch(sd)
 
 
+def _flax_leaf(leaf: str) -> str:
+    return {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+
+
+def _msi_to_torch(params: dict, module_key) -> Dict[str, torch.Tensor]:
+    """Shared walk of the MSI converters: ``module_key(path)`` names the
+    torch module of a Flax module path; 4-D kernels are conv weights,
+    2-D kernels Linear weights, every other leaf keeps its layout."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, val in _flatten(params):
+        val = np.asarray(val, np.float32)
+        leaf = path[-1]
+        if leaf == "kernel":
+            val = _conv_w(val) if val.ndim == 4 else _dense_w(val)
+        key = module_key(path[:-1])
+        sd[f"{key}.{_flax_leaf(leaf)}" if key else _flax_leaf(leaf)] = val
+    return _to_torch(sd)
+
+
+def _unknown(path):
+    return KeyError(f"unexpected Flax param {'/'.join(path)}")
+
+
+# HAB / Swin block parts whose torch names differ from the Flax ones
+_SWIN_PART = {"mlp_fc1": "mlp.fc1", "mlp_fc2": "mlp.fc2",
+              "conv1": "cab.0", "conv2": "cab.2",
+              "ca_fc1": "cab.3.attention.1", "ca_fc2": "cab.3.attention.3"}
+
+
+def _swin_key(path: tuple, upsample: str) -> str:
+    top = path[0]
+    if top in ("conv_first", "conv_after_body", "conv_last", "norm"):
+        return top
+    if top == "conv_before_upsample":
+        return "conv_before_upsample.0"
+    if top == "patch_norm":
+        return "patch_embed.norm"
+    m = re.fullmatch(r"upsample_conv_(\d+)", top)
+    if m:
+        return f"{upsample}.{2 * int(m.group(1))}"
+    m = re.fullmatch(r"layer_(\d+)", top)
+    if m is None:
+        raise _unknown(path)
+    base = f"layers.{m.group(1)}"
+    if path[1:] == ("conv",):
+        return f"{base}.conv"
+    if path[1] == "overlap_attn":
+        base += ".residual_group.overlap_attn"
+    else:
+        j = re.fullmatch(r"block_(\d+)", path[1])
+        if j is None:
+            raise _unknown(path)
+        base += f".residual_group.blocks.{j.group(1)}"
+    return ".".join([base] + [_SWIN_PART.get(p, p) for p in path[2:]])
+
+
+def flax_swinir_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
+    """Flax ``SwinIR`` tree -> the state dict of the port's
+    :class:`~fastdiffsr_tpu_torch.msi.swinir.SwinIR` (the reference
+    GeneratorResNet's names): the inverse of the JAX package's
+    ``torch_swinir_to_flax``."""
+    return _msi_to_torch(params, lambda p: _swin_key(p, "upsample"))
+
+
+def flax_hat_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
+    """Flax ``HAT`` tree -> the port's :class:`~fastdiffsr_tpu_torch.msi.
+    hat.HAT` state dict: the inverse of ``torch_hat_to_flax``."""
+    return _msi_to_torch(params,
+                         lambda p: _swin_key(p, "upsample.upsampling"))
+
+
+_HSE_PART = {"head1": "head.0", "head2": "head.1", "tail1": "tail.0",
+             "tail2": "tail.1", "hsem": "body.0",
+             "base_scale": "base_scale.0", "down_scale": "down_scale.0",
+             "nonlocal_base": "NonLocal_base", "head": "head.0",
+             "tail": "tail.0", "mb1": "MB.0", "mb2": "MB.1", "ab_nl": "AB.0",
+             "ab_conv": "AB.1", "conv": "0"}
+
+
+def _hsenet_key(path: tuple) -> str:
+    top = path[0]
+    if path == ("head",):
+        return "head.0"
+    if path == ("tail",):
+        return "tail.1"
+    m = re.fullmatch(r"up_conv_(\d+)", top)
+    if m:
+        return f"tail.0.{2 * int(m.group(1))}"
+    m = re.fullmatch(r"bm_(\d+)", top)
+    if m is None:
+        raise _unknown(path)
+    return ".".join([f"body_modulist.{m.group(1)}"]
+                    + [_HSE_PART.get(p, p) for p in path[1:]])
+
+
+def flax_hsenet_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
+    """Flax ``HSENet`` tree -> the port's :class:`~fastdiffsr_tpu_torch.
+    msi.hsenet.HSENet` state dict: the inverse of ``torch_hsenet_to_flax``."""
+    return _msi_to_torch(params, _hsenet_key)
+
+
+_TE_TOP = {"head": "head.0", "tail": "tail", "red1": "stage1_conv1x1",
+           "red2": "stage2_conv1x1", "red3": "stage3_conv1x1",
+           "red_up": "up_conv1x1", "span": "span_conv1x1",
+           "emb1": "patch_to_embedding_low1",
+           "emb2": "patch_to_embedding_low2",
+           "emb3": "patch_to_embedding_low3",
+           "emb_up": "patch_to_embedding_high",
+           "to_patch": "embedding_to_patch",
+           "enc1": "encoder_stage1", "enc2": "encoder_stage2",
+           "enc3": "encoder_stage3", "enc_up": "encoder_up",
+           "dec1": "decoder1", "dec2": "decoder2", "dec3": "decoder3"}
+_TE_SUB = {"to_out": "to_out.0", "fc1": "net.0", "fc2": "net.3"}
+
+
+def _transenet_key(path: tuple) -> str:
+    top = path[0]
+    m = re.fullmatch(r"up_conv_(\d+)", top)
+    if m:
+        return f"upsampler.{2 * int(m.group(1))}"
+    m = re.fullmatch(r"stage([123])", top)
+    if m:
+        rb = re.fullmatch(r"rb_(\d+)", path[1])
+        conv = {"conv1": "0", "conv2": "2"}[path[2]]
+        return (f"feat_extrat_stage{m.group(1)}.body.{rb.group(1)}.body."
+                f"{conv}")
+    if top not in _TE_TOP:
+        raise _unknown(path)
+    if len(path) == 1:
+        return _TE_TOP[top]
+    m = re.fullmatch(r"(ln_)?(attn|self|cross|mlp)_(\d+)", path[1])
+    if m is None:
+        raise _unknown(path)
+    ln, part, i = m.groups()
+    slot = {"attn": 0, "self": 0, "cross": 1,
+            "mlp": 2 if top.startswith("dec") else 1}[part]
+    base = f"{_TE_TOP[top]}.layers.{i}.{slot}.fn"
+    if ln:
+        return f"{base}.norm"
+    return f"{base}.fn." + ".".join(_TE_SUB.get(p, p) for p in path[2:])
+
+
+def flax_transenet_params_to_torch(params: dict
+                                   ) -> Dict[str, torch.Tensor]:
+    """Flax ``TransENet`` tree -> the port's :class:`~fastdiffsr_tpu_torch.
+    msi.transenet.TransENet` state dict: the inverse of
+    ``torch_transenet_to_flax``."""
+    return _msi_to_torch(params, _transenet_key)
+
+
+def _ndsrgan_key(path: tuple) -> str:
+    top = path[0]
+    named = {"conv1": "conv1.0", "conv2": "conv2", "head_conv1": "conv3.0",
+             "head_conv2": "conv3.2"}
+    if len(path) == 1 and top in named:
+        return named[top]
+    m = re.fullmatch(r"up_conv_(\d+)", top)
+    if m:
+        return f"upsampling.{3 * int(m.group(1)) + 1}"
+    m = re.fullmatch(r"dcrdb_(\d+)", top)
+    if m is None:
+        raise _unknown(path)
+    base = f"DCRDB_block.DRRDB{int(m.group(1)) + 1}"
+    if path[1:] == ("conv",):
+        return f"{base}.conv"
+    rdb = re.fullmatch(r"rdb([123])", path[1])
+    cl = re.fullmatch(r"cl_(\d+)", path[2])
+    sub = f"CL_blocks.{cl.group(1)}.0" if cl else "conv"
+    return f"{base}.RDB{rdb.group(1)}.{sub}"
+
+
+def flax_ndsrgan_params_to_torch(params: dict) -> Dict[str, torch.Tensor]:
+    """Flax ``DRRDBNet`` tree -> the port's :class:`~fastdiffsr_tpu_torch.
+    msi.ndsrgan.DRRDBNet` state dict: the inverse of
+    ``torch_ndsrgan_to_flax``."""
+    return _msi_to_torch(params, _ndsrgan_key)
+
+
+def _discriminator_key(path: tuple) -> str:
+    m = re.fullmatch(r"block_(\d+)_(conv|norm)", path[0])
+    if m:
+        return f"blocks.{m.group(1)}.{0 if m.group(2) == 'conv' else 1}"
+    if path == ("out",):
+        return "out"
+    raise _unknown(path)
+
+
+def flax_discriminator_params_to_torch(params: dict
+                                       ) -> Dict[str, torch.Tensor]:
+    """Flax NDSRGAN ``Discriminator`` tree -> the port's
+    :class:`~fastdiffsr_tpu_torch.msi.ndsrgan.Discriminator` state dict
+    (no reference layout: the JAX package's critic uses GroupNorm)."""
+    return _msi_to_torch(params, _discriminator_key)
+
+
 def flax_converter(variant: str):
     """The Flax-tree -> torch state dict converter of a variant's net
     (``which_model_G``: a UNet variant of the main framework, or an
-    EDiffSR denoiser)."""
+    EDiffSR denoiser; or an MSI arch, ``swinir``, ``hat``, ``hsenet``,
+    ``transenet``, ``ndsrgan`` and ``ndsrgan_discriminator``)."""
     convs = {"fastdiffsr": flax_params_to_torch,
              "ddpm": flax_sr3_params_to_torch,
              "tesr": flax_sr3_params_to_torch,
              "gdp": flax_guided_params_to_torch,
              "ConditionalNAFNet": flax_nafnet_params_to_torch,
-             "ConditionalUNet": flax_cond_unet_params_to_torch}
+             "ConditionalUNet": flax_cond_unet_params_to_torch,
+             "swinir": flax_swinir_params_to_torch,
+             "hat": flax_hat_params_to_torch,
+             "hsenet": flax_hsenet_params_to_torch,
+             "transenet": flax_transenet_params_to_torch,
+             "ndsrgan": flax_ndsrgan_params_to_torch,
+             "ndsrgan_discriminator": flax_discriminator_params_to_torch}
     if variant not in convs:
         raise ValueError(f"unknown which_model_G: {variant}")
     return convs[variant]
@@ -390,11 +592,68 @@ def strip_diffusion_prefix(state_dict: dict,
     return out
 
 
+# the first name of every parameter key of each MSI arch (the reference
+# GeneratorResNet / HSENET / TransENet names the port's modules keep)
+MSI_TOP = {
+    "swinir": {"conv_first", "patch_embed", "layers", "norm",
+               "conv_after_body", "conv_before_upsample", "upsample",
+               "conv_last"},
+    "hat": {"conv_first", "patch_embed", "layers", "norm",
+            "conv_after_body", "conv_before_upsample", "upsample",
+            "conv_last"},
+    "hsenet": {"head", "body_modulist", "tail"},
+    "transenet": {"head", "tail", "upsampler", "up_conv1x1",
+                  "span_conv1x1", "patch_to_embedding_high",
+                  "embedding_to_patch", "encoder_up"}
+    | {f"{k}{s}" for s in (1, 2, 3) for k in (
+        "feat_extrat_stage", "patch_to_embedding_low", "decoder")}
+    | {f"stage{s}_conv1x1" for s in (1, 2, 3)}
+    | {f"encoder_stage{s}" for s in (1, 2, 3)},
+    "ndsrgan": {"conv1", "DCRDB_block", "conv2", "upsampling", "conv3"},
+}
+
+
+def _reference_buffer(key: str) -> bool:
+    """Keys a reference MSI state dict holds that are no parameter of
+    the port: the relative-position indices and shift masks, the rgb
+    ``mean``, the MeanShift convs and BatchNorm's counters (the JAX
+    converters drop them too)."""
+    return ("relative_position_index" in key or key.endswith("attn_mask")
+            or key == "mean" or key.startswith(("sub_mean.", "add_mean."))
+            or key.endswith("num_batches_tracked"))
+
+
+def load_reference_msi_pth(path: str, arch: str) -> Dict[str, torch.Tensor]:
+    """The parameter state dict of a reference MSI checkpoint of ``arch``
+    (swinir, hat, hsenet, transenet, ndsrgan), on the CPU in float32: a
+    ``module.`` prefix (``nn.DataParallel``) goes, and so do the buffers
+    of :func:`_reference_buffer`. A key outside the arch's modules raises,
+    naming it; the port's net then loads the rest with a strict
+    ``load_state_dict``. NDSRGAN's reference builds both of its 2x
+    upsampling stages from one Conv2d (ndsrgan.py:180-199), so its
+    ``upsampling.1`` and ``upsampling.4`` hold the same tensors; the
+    port's two convs each take their copy."""
+    if arch not in MSI_TOP:
+        raise ValueError(f"unknown MSI arch {arch!r} (want one of "
+                         f"{sorted(MSI_TOP)})")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    out = {}
+    for k, v in sd.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if _reference_buffer(k):
+            continue
+        if k.split(".", 1)[0] not in MSI_TOP[arch]:
+            raise KeyError(f"{k!r} is not a parameter of the {arch} net")
+        out[k] = v.float()
+    return out
+
+
 def main(argv=None) -> str:
     """Convert a reference checkpoint to a state-dict file that
     ``cli/infer.py::load_params`` (and ``sr_mfe -p val``, and
-    ``ediffsr.train``'s ``pretrain_model_G`` with ``--arch nafnet``)
-    reads:
+    ``ediffsr.train``'s ``pretrain_model_G`` with ``--arch nafnet``, and
+    ``msi.main --resume`` with ``--arch swinir|hat|hsenet|transenet|
+    ndsrgan``, through :func:`load_reference_msi_pth`) reads:
 
         python -m fastdiffsr_tpu_torch.models.convert --arch fastdiffsr \\
             I896896_E196_gen.pth unet.pt
@@ -420,18 +679,21 @@ def main(argv=None) -> str:
 
     p = argparse.ArgumentParser()
     p.add_argument("ckpt", help="reference *_gen.pth (or a bare UNet "
-                                "state dict)")
+                                "state dict), or an MSI baseline's .pth")
     p.add_argument("out", help="output state-dict file")
     p.add_argument("--arch", default="fastdiffsr",
-                   choices=sorted(top))
+                   choices=sorted(top) + sorted(MSI_TOP))
     args = p.parse_args(argv)
-    sd = torch.load(args.ckpt, map_location="cpu", weights_only=True)
-    sd = strip_diffusion_prefix(sd)
-    for k in sd:
-        if k.split(".", 1)[0] not in top[args.arch]:
-            raise KeyError(f"{k!r} is not a parameter of the {args.arch} "
-                           "UNet")
-    sd = {k: v.float() for k, v in sd.items()}
+    if args.arch in MSI_TOP:
+        sd = load_reference_msi_pth(args.ckpt, args.arch)
+    else:
+        sd = torch.load(args.ckpt, map_location="cpu", weights_only=True)
+        sd = strip_diffusion_prefix(sd)
+        for k in sd:
+            if k.split(".", 1)[0] not in top[args.arch]:
+                raise KeyError(f"{k!r} is not a parameter of the "
+                               f"{args.arch} UNet")
+        sd = {k: v.float() for k, v in sd.items()}
     torch.save(sd, args.out)
     print(f"wrote {args.out} ({len(sd)} tensors)")
     return args.out
