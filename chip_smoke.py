@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (fastdiffsr_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--gdp-reference | --ediffsr-only |
-                                      --msi-only]
+                                      --msi-only | --dist-only]
 
 Run from the repository root. It needs one CUDA device and the CUDA
 toolkit (nvcc); without a device it exits non-zero and prints no result.
@@ -106,7 +106,23 @@ limit:
    GANTrainer at full width (batch 2, GAN_STEPS steps); each full-width
    model on the card against the CPU on an LR input that is not a
    window multiple. No kernel of ours here either: every launch counter
-   must read 0.
+   must read 0;
+18. data parallelism under ``python -m torch.distributed.run --standalone
+   --nproc_per_node=1`` (world size 1: the machine has one card, so the
+   2-rank equalities rest on the CPU tests with gloo), the rank's backend
+   checked to be NCCL: ``sr_mfe -p train -dist`` on the train config as
+   shipped (full width, batch 4, 256x256) for DIST_TRAIN_STEPS steps with
+   one in-run validation and one checkpoint on rank 0 (45 K1 launches
+   per step, 49 K3 and 4 K2 per validation eval; per-step l_pix against
+   the same run without -dist; steady steps/s with and without; the
+   all-reduce of the UNet's gradients in DDP's 25 MiB buckets, CUDA-event
+   ms per step; peak GiB), the checkpoint in a plain ``-p val``;
+   ``cli.infer -dist`` in f32 on DIST_INFER_IMAGES images against the
+   same run without (SR PNGs equal); ``ediffsr.train -launcher pytorch``
+   (phase 16's run on one loader thread), ``msi.main --launcher
+   pytorch`` for SwinIR (phase 17's) and NDSRGAN's GANTrainer in DDP,
+   each against its plain run in this
+   process (losses, steady steps/s, peak GiB; no kernel of ours).
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -118,8 +134,9 @@ reuse a plan timed for phase 2's F.conv2d at the same shape.
 ``--gdp-reference`` runs, after the build, only the gdp variant's
 evaluation at its reference shape (ancestral T=1000 at 256x256 through
 ``cli.infer``, one image, f32 and bf16), which is too long for every run.
-``--ediffsr-only`` runs, after the build, only phase 16, and
-``--msi-only`` only phase 17.
+``--ediffsr-only`` runs, after the build, only phase 16,
+``--msi-only`` only phase 17 and ``--dist-only`` only phase 18
+(``--dist-worker <spec>`` is phase 18's rank, which torchrun starts).
 
 Kernel times: ``ms`` is device time per call, the CUDA-event time of one
 replay of a CUDA graph that holds REPS calls (no host time between the
@@ -234,6 +251,20 @@ GAN_STEPS, GAN_BATCH = 4, 2
 MSI_CPU_INPUT = {"TransENet": (40, 32)}
 MSI_CPU_INPUT_DEFAULT = (36, 28)
 MSI_CPU_TOL = 1e-4
+# phase 18, data parallel under torchrun at world size 1: sr_mfe -dist
+# steps (one in-run validation and one checkpoint at the last), cli.infer
+# -dist images (one batch of phase 5's size), the loss tolerance of each
+# -dist run against its plain run (the JAX package's two-process bound;
+# each process times its own cuDNN algorithms, so the last bits may
+# differ), the SR PNGs' (uint8 levels; a float gap within K3's tolerance
+# may round across one level), the worker's time limit in seconds, and
+# the timed all-reduces
+DIST_TRAIN_STEPS = 8
+DIST_INFER_IMAGES = 16
+DIST_LPIX_RTOL = 2e-3
+DIST_PNG_TOL = 1
+DIST_TIMEOUT = 600
+ALLREDUCE_REPS = 20
 
 
 def card_line() -> str:
@@ -2000,6 +2031,450 @@ def phase_msi(card, seed):
     return detail, ok
 
 
+def dist_specs(seed):
+    """Phase 18's inputs under build/smoke/dist: the train config as
+    shipped (full width, batch B_TRAIN, on a pack from ``seed``) for
+    DIST_TRAIN_STEPS steps, the f32 serving config on DIST_INFER_IMAGES
+    images in one batch, the EDiffSR train yml (phase 16's settings) and
+    MSI's folders, each as a ``-dist`` run with one in-run validation and
+    one checkpoint at its last step, and as a plain reference without
+    them. Returns the spec the worker reads."""
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.data import write_pack
+    from fastdiffsr_tpu_torch.ediffsr.options import dump_yaml, load_yaml
+
+    work = os.path.join(ROOT, "build", "smoke", "dist")
+    os.makedirs(work, exist_ok=True)
+    cfgs = os.path.join(ROOT, "fastdiffsr_tpu_torch", "configs")
+    spec = {"work": work, "seed": seed,
+            "out": os.path.join(work, "worker_result.json")}
+
+    def dump(obj, name):
+        path = os.path.join(work, name)
+        with open(path, "w") as f:
+            f.write(obj if isinstance(obj, str) else json.dumps(obj))
+        return path
+
+    train = load_json_config(os.path.join(cfgs,
+                                          "sr_fastdiffsr_train_64_256.json"))
+    ds = train["datasets"]["train"]
+    pack = write_pack(os.path.join(work, f"train_pack_{seed}"),
+                      TRAIN_IMAGES, seed + 7, int(ds["l_resolution"]),
+                      int(ds["r_resolution"]))
+    for split in ("train", "val"):
+        train["datasets"][split].update(dataroot=pack, datatype="npy")
+    train["datasets"]["train"]["batch_size"] = B_TRAIN
+    train["datasets"]["val"]["data_len"] = VAL_IMAGES
+    n = DIST_TRAIN_STEPS
+    for tag, every in (("", n), ("_ref", 10 ** 9)):
+        train["name"] = f"chip_smoke_dist_train{tag}"
+        train["train"].update(n_iter=n, val_freq=every, print_freq=n,
+                              save_checkpoint_freq=every)
+        spec[f"train{tag}"] = dump(train, f"train{tag}.json")
+
+    serve = load_json_config(os.path.join(cfgs,
+                                          "sr_fastdiffsr_test_64_256.json"))
+    spack = write_pack(os.path.join(work, f"serve_pack_{seed}"),
+                       DIST_INFER_IMAGES, seed)
+    serve["datasets"]["val"].update(dataroot=spack, datatype="npy",
+                                    batch_size=DIST_INFER_IMAGES,
+                                    data_len=DIST_INFER_IMAGES)
+    for tag in ("", "_ref"):
+        serve["name"] = f"chip_smoke_dist_infer{tag}"
+        spec[f"infer{tag}"] = dump(serve, f"infer{tag}.json")
+
+    roots = write_ediffsr_dirs(os.path.join(work, f"ediffsr_{seed}"),
+                               seed + 11)
+    ymls = os.path.join(ROOT, "fastdiffsr_tpu_torch", "ediffsr",
+                        "options_yml")
+    with open(os.path.join(ymls, "setting_mfe_Train_x4.yml")) as f:
+        opt = load_yaml(f.read())
+    for split in ("train", "val"):
+        opt["datasets"][split].update(dataroot_GT=roots[(split, "hr_256")],
+                                      dataroot_LQ=roots[(split, "lr_64")])
+    # one loader thread: with several, a batch's samples draw their flips
+    # and rotations from the dataset's shared stream in the threads' order,
+    # which differs from run to run (-dist or not)
+    opt["datasets"]["train"]["n_workers"] = 1
+    for tag, every in (("", EDIFFSR_STEPS), ("_ref", 0)):
+        opt["name"] = f"chip_smoke_ediffsr_dist{tag}"
+        opt["train"].update(niter=EDIFFSR_STEPS, val_freq=every,
+                            manual_seed=seed)
+        opt["logger"]["save_checkpoint_freq"] = EDIFFSR_STEPS
+        spec[f"ediffsr{tag}"] = dump(dump_yaml(opt), f"ediffsr{tag}.yml")
+
+    dirs = write_msi_dirs(os.path.join(work, f"msi_{seed}"), seed + 17)
+    spec["msi"] = ["--model_name", "SwinIR", "--mode", "train",
+                   "--data_dir", dirs["train"], "--batch_size", "1",
+                   "--num_epochs", "1", "--max_steps", str(MSI_STEPS),
+                   "--log_freq", "4", "--scale_factor", "4",
+                   "--crop_size", "256", "--test_crop_size", "256",
+                   "--device", "cuda"]
+    spec["msi_test"] = dirs["test"]
+    spec["gan_dirs"] = [dirs["train"]]
+    return spec
+
+
+def gan_args():
+    """NDSRGAN's GANTrainer at full width (phase 17's)."""
+    import types
+    return types.SimpleNamespace(scale_factor=4, g_nf=64, g_nc=32,
+                                 g_blocks=23, crop_size=256, lr=2e-4,
+                                 weight_gan=1e-3)
+
+
+def dist_jobs(spec, dist):
+    """(name, function) of phase 18's runs, with ``-dist`` (in the
+    torchrun worker) or as the plain reference (in this process)."""
+    from fastdiffsr_tpu_torch.cli import infer, sr_mfe
+    from fastdiffsr_tpu_torch.ediffsr import train as etrain
+    from fastdiffsr_tpu_torch.msi import main as msi_main
+    from fastdiffsr_tpu_torch.msi.ndsrgan import GANTrainer
+
+    tag, seed = ("" if dist else "_ref"), str(spec["seed"])
+    flag = ["-dist"] if dist else []
+    launcher = ["--launcher", "pytorch"] if dist else []
+    # the reference skips the in-run validations (absent test dir)
+    test_dir = spec["msi_test"] if dist else os.path.join(spec["work"], "-")
+
+    def ediffsr():
+        cwd = os.getcwd()
+        os.chdir(spec["work"])          # experiments/ goes here
+        try:
+            return etrain.main(["-opt", spec[f"ediffsr{tag}"], "--device",
+                                "cuda", "--val_images", "1"]
+                               + (["-launcher", "pytorch"] if dist else []))
+        finally:
+            os.chdir(cwd)
+
+    def gan():
+        g = GANTrainer(gan_args(), device="cuda", seed=spec["seed"])
+        return g.train(spec["gan_dirs"], num_epochs=1, batch_size=GAN_BATCH,
+                       max_steps=GAN_STEPS)
+
+    return [
+        ("sr_mfe", lambda: sr_mfe.main(["-p", "train", "-c",
+                                        spec[f"train{tag}"], "--device",
+                                        "cuda", "--seed", seed, *flag])),
+        ("infer", lambda: infer.main(["-c", spec[f"infer{tag}"], "--device",
+                                      "cuda", "--seed", seed, *flag])),
+        ("ediffsr", ediffsr),
+        ("swinir", lambda: msi_main.main(
+            [*spec["msi"], "--test_data_dir", test_dir, "--save_dir",
+             os.path.join(spec["work"], f"msi_runs{tag}"), *launcher])),
+        ("gan", gan),
+    ]
+
+
+def run_jobs(jobs):
+    """Each job with the launch counters and peak memory reset just
+    before and read just after."""
+    import torch
+
+    from fastdiffsr_tpu_torch.ops import fused_conv, kernels
+    out = {}
+    for name, fn in jobs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        routes0 = dict(fused_conv.ROUTE_TAKEN)
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"result": res, "wall_s": time.time() - t0,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "launches": dict(kernels.LAUNCHES),
+                     "routes": {k: v - routes0[k] for k, v in
+                                fused_conv.ROUTE_TAKEN.items()}}
+    return out
+
+
+def allreduce_ms(n_params: int, device) -> tuple:
+    """CUDA-event ms of all-reducing ``n_params`` float32 gradients in
+    DDP's bucket size (25 MiB), per step, over ALLREDUCE_REPS steps after
+    a warm-up; and the bucket count."""
+    import torch
+    import torch.distributed as dist
+    flat = torch.zeros(n_params, device=device)
+    buckets = flat.split(25 * 2 ** 20 // 4)
+    for _ in range(3):
+        for b in buckets:
+            dist.all_reduce(b)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ALLREDUCE_REPS):
+        for b in buckets:
+            dist.all_reduce(b)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / ALLREDUCE_REPS, len(buckets)
+
+
+def dist_worker(spec_path) -> int:
+    """Phase 18's rank (run by torch.distributed.run from phase_dist):
+    join the group from torchrun's variables (NCCL), run the ``-dist``
+    jobs and the all-reduce timing, write the results for phase_dist."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from fastdiffsr_tpu_torch.cli.infer import build_unet
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.device import use_ieee_float32
+    from fastdiffsr_tpu_torch.parallel import initialize_from_env, shutdown
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    use_ieee_float32()
+    device = initialize_from_env("cuda")
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "device": str(device),
+           "nccl": str(torch.cuda.nccl.version())}
+    t0 = time.time()
+    out["jobs"] = run_jobs(dist_jobs(spec, dist=True))
+    net = build_unet(load_json_config(spec["train"])["model"], device=device)
+    n_params = sum(p.numel() for p in net.parameters())
+    del net
+    out["n_params"] = n_params
+    out["allreduce_ms"], out["buckets"] = allreduce_ms(n_params, device)
+    out["seconds"] = time.time() - t0
+    with open(spec["out"], "w") as f:
+        json.dump(out, f, default=str)
+    shutdown()
+    return 0
+
+
+def phase_dist(card, seed):
+    """Phase 18: data parallelism under torchrun at world size 1 on the
+    card (module docstring). Returns (detail, launches of the kernels in
+    it by name and K3 route, ok)."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from fastdiffsr_tpu_torch.cli import sr_mfe
+    from fastdiffsr_tpu_torch.metrics import load_img
+    from fastdiffsr_tpu_torch.ops import fused_conv, kernels
+
+    t_phase = time.time()
+    spec = dist_specs(seed)
+    refs = run_jobs(dist_jobs(spec, dist=False))
+    own_phases_regime()
+    spec_path = os.path.join(spec["work"], "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if os.path.exists(spec["out"]):
+        os.remove(spec["out"])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", os.path.join(ROOT, "chip_smoke.py"),
+           "--dist-worker", spec_path]
+    log_path = os.path.join(spec["work"], "worker.log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DIST_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if proc.poll() is None or rc is None:
+                os.killpg(proc.pid, signal.SIGKILL)     # torchrun + rank
+                proc.wait()
+    worker_wall = time.time() - t0
+    if rc != 0 or not os.path.exists(spec["out"]):
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        print(f"[dist] {card} | torch.distributed.run --nproc_per_node=1 "
+              f"FAIL (exit {rc}, {worker_wall:.1f} s):\n{tail}", flush=True)
+        return {"worker_rc": rc}, {}, False
+    with open(spec["out"]) as f:
+        res = json.load(f)
+    jobs = res["jobs"]
+    ok = (res["backend"] == "nccl" and res["world"] == 1
+          and res["device"] == "cuda:0")
+    print(f"[dist] {card} | torch.distributed.run --standalone "
+          f"--nproc_per_node=1: backend {res['backend']} (NCCL "
+          f"{res['nccl']}), world {res['world']}, rank 0 on {res['device']},"
+          f" the worker took {worker_wall:.1f} s (process start, NCCL init "
+          f"and cuDNN's timing included) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    detail = {"backend": res["backend"], "world": res["world"],
+              "nccl": res["nccl"], "worker_wall_s": worker_wall,
+              "allreduce_ms": res["allreduce_ms"],
+              "n_params": res["n_params"], "buckets": res["buckets"]}
+
+    def rel(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        return float(np.max(np.abs(a - b) / np.abs(b))) if len(b) else 0.0
+
+    def rate(job, key):
+        return job["result"][key] or math.nan
+
+    # sr_mfe -p train -dist: per-step l_pix, launches, rate, all-reduce
+    d, r = jobs["sr_mfe"], refs["sr_mfe"]
+    steps = DIST_TRAIN_STEPS
+    with open(spec["train"]) as f:
+        tcfg = json.load(f)
+    T = int(tcfg["model"]["beta_schedule"]["val"]["n_timestep"])
+    # config.parse cuts -p train's val set to 13 images, as the reference
+    n_val = evals_per_image(tcfg) * min(13, TRAIN_IMAGES)
+    want = {"gn_swish": K1_PER_FORWARD["fastdiffsr"] * steps,
+            "fused_gn_swish_conv3x3": 49 * n_val, "channel_stats": 4 * n_val}
+    l_err = rel(d["result"]["l_pix"], r["result"]["l_pix"])
+    ckpt = d["result"]["checkpoint"]
+    s_ok = (d["launches"] == want and d["routes"]["cuda_cores"] == 49 * n_val
+            and len(d["result"]["l_pix"]) == steps and l_err <= DIST_LPIX_RTOL
+            and ckpt and os.path.basename(ckpt).startswith(f"I{steps}_")
+            and d["result"]["last_validation"] is not None)
+    d_rate, p_rate = rate(d, "steady_steps_per_s"), rate(
+        r, "steady_steps_per_s")
+    mib = res["n_params"] * 4 / 2 ** 20
+    print(f"[dist sr_mfe] {card} | sr_mfe -p train -dist, "
+          f"sr_fastdiffsr_train_64_256.json full width, B={B_TRAIN} 256x256,"
+          f" {steps} steps: K1 launches {d['launches']['gn_swish']} "
+          f"({d['launches']['gn_swish'] / steps:g} per step, want "
+          f"{K1_PER_FORWARD['fastdiffsr']}); in-run validation on rank 0 "
+          f"({min(13, TRAIN_IMAGES)} images): K3 "
+          f"{d['launches']['fused_gn_swish_conv3x3']} ("
+          f"{d['launches']['fused_gn_swish_conv3x3'] / n_val:g} per eval, "
+          f"{d['routes']['cuda_cores']} on the f32 CUDA-core kernel), K2 "
+          f"{d['launches']['channel_stats']} "
+          f"({d['launches']['channel_stats'] / n_val:g} per eval) | l_pix "
+          f"per step against the plain run: max rel diff {l_err:.3g} (tol "
+          f"{DIST_LPIX_RTOL}) | steady {d_rate:.3f} steps/s with -dist, "
+          f"{p_rate:.3f} without ({d_rate / p_rate:.4f}) | all-reduce of "
+          f"the UNet's {res['n_params']} gradients ({mib:.1f} MiB in "
+          f"{res['buckets']} buckets of 25 MiB): {res['allreduce_ms']:.4f} "
+          f"ms per step (CUDA events) | peak {d['peak_gib']:.2f} GiB (plain "
+          f"{r['peak_gib']:.2f}) | checkpoint "
+          f"{os.path.basename(ckpt or '-')} by rank 0 "
+          f"{'ok' if s_ok else 'FAIL'}", flush=True)
+    ok &= s_ok
+    detail["sr_mfe"] = {"l_pix": d["result"]["l_pix"],
+                        "l_pix_plain": r["result"]["l_pix"],
+                        "l_pix_max_rel": l_err, "steps_per_s": d_rate,
+                        "plain_steps_per_s": p_rate,
+                        "launches": d["launches"], "routes": d["routes"],
+                        "peak_gib": d["peak_gib"],
+                        "plain_peak_gib": r["peak_gib"],
+                        "in_run_validation": d["result"]["last_validation"],
+                        "wall_s": d["wall_s"], "checkpoint": ckpt}
+    launches = {k: v for k, v in d["launches"].items()}
+    launches["cuda_cores"] = d["routes"]["cuda_cores"]
+
+    # the -dist checkpoint in a plain -p val
+    with open(spec["train_ref"]) as f:
+        cfg = json.load(f)
+    cfg["name"] = "chip_smoke_dist_val"
+    cfg["path"]["resume_state"] = ckpt
+    val_cfg = os.path.join(spec["work"], "val.json")
+    with open(val_cfg, "w") as f:
+        json.dump(cfg, f)
+    kernels.reset_launch_counts()
+    routes0 = dict(fused_conv.ROUTE_TAKEN)
+    v = sr_mfe.main(["-p", "val", "-c", val_cfg, "--device", "cuda",
+                     "--seed", str(seed)])
+    torch.cuda.synchronize()
+    own_phases_regime()
+    v_launch = dict(kernels.LAUNCHES)
+    v_cores = fused_conv.ROUTE_TAKEN["cuda_cores"] - routes0["cuda_cores"]
+    n_eval = T * VAL_IMAGES
+    v_ok = (math.isfinite(v.get("psnr", math.nan))
+            and v_launch["fused_gn_swish_conv3x3"] == 49 * n_eval == v_cores
+            and v_launch["channel_stats"] == 4 * n_eval)
+    print(f"[dist val] {card} | the -dist checkpoint in a plain -p val, "
+          f"{VAL_IMAGES} images: psnr {v.get('psnr', math.nan):.4f} ssim "
+          f"{v.get('ssim', math.nan):.4f}, K3 "
+          f"{v_launch['fused_gn_swish_conv3x3']} K2 "
+          f"{v_launch['channel_stats']} launches {'ok' if v_ok else 'FAIL'}",
+          flush=True)
+    ok &= v_ok
+    for k in ("fused_gn_swish_conv3x3", "channel_stats"):
+        launches[k] += v_launch[k]
+    launches["cuda_cores"] += v_cores
+
+    # cli.infer -dist against the plain run, image for image
+    d, r = jobs["infer"], refs["infer"]
+    n_eval = T                          # one batch of DIST_INFER_IMAGES
+    diffs = [int(np.abs(load_img(os.path.join(d["result"]["results"],
+                                              f"{i}_sr.png")).astype(int)
+                        - load_img(os.path.join(r["result"]["results"],
+                                                f"{i}_sr.png")).astype(int)
+                        ).max()) for i in range(DIST_INFER_IMAGES)]
+    i_ok = (d["result"]["images"] == DIST_INFER_IMAGES
+            and max(diffs) <= DIST_PNG_TOL
+            and d["launches"]["fused_gn_swish_conv3x3"] == 49 * n_eval
+            and d["routes"]["cuda_cores"] == 49 * n_eval
+            and d["launches"]["channel_stats"] == 4 * n_eval)
+    print(f"[dist infer] {card} | cli.infer -dist f32, {DIST_INFER_IMAGES} "
+          f"64->256 images in one batch, T={T}: K3 "
+          f"{d['launches']['fused_gn_swish_conv3x3']} (49 per eval, want "
+          f"{49 * n_eval}), K2 {d['launches']['channel_stats']} | SR PNGs "
+          f"against the plain run: max |d| {max(diffs)} uint8 levels (tol "
+          f"{DIST_PNG_TOL}; expect 0) | {d['wall_s']:.1f} s wall (plain "
+          f"{r['wall_s']:.1f}) | peak {d['peak_gib']:.2f} GiB "
+          f"{'ok' if i_ok else 'FAIL'}", flush=True)
+    ok &= i_ok
+    detail["infer"] = {"max_png_diff": max(diffs), "wall_s": d["wall_s"],
+                       "plain_wall_s": r["wall_s"],
+                       "peak_gib": d["peak_gib"], "launches": d["launches"]}
+    for k in ("fused_gn_swish_conv3x3", "channel_stats"):
+        launches[k] += d["launches"][k]
+    launches["cuda_cores"] += d["routes"]["cuda_cores"]
+
+    # EDiffSR, SwinIR and the GAN: losses, rates, no kernel of ours
+    for name, key, loss_key, what in (
+            ("ediffsr", "steady_steps_per_s", "loss",
+             "ediffsr.train -launcher pytorch, setting_mfe_Train_x4.yml "
+             f"full width (one loader thread), batch 2 256x256, "
+             f"{EDIFFSR_STEPS} steps, a 1-image validation and the save on "
+             "rank 0"),
+            ("swinir", "steady_steps_per_s", "loss",
+             f"msi.main --launcher pytorch SwinIR full width, crop 256 "
+             f"batch 1, {MSI_STEPS} steps, the epoch-end validation of 8 "
+             "tiles and the save on rank 0"),
+            ("gan", "steps_per_s", None,
+             f"GANTrainer in DDP (G and D), full width, crop 256 batch "
+             f"{GAN_BATCH}, {GAN_STEPS} steps")):
+        d, r = jobs[name], refs[name]
+        if loss_key:
+            err = rel(d["result"][loss_key], r["result"][loss_key])
+        else:
+            err = rel([d["result"][k] for k in ("g", "d", "pixel", "adv")],
+                      [r["result"][k] for k in ("g", "d", "pixel", "adv")])
+        d_rate, p_rate = rate(d, key), rate(r, key)
+        j_ok = (err <= DIST_LPIX_RTOL and not any(d["launches"].values())
+                and math.isfinite(d_rate))
+        if name == "swinir":
+            j_ok &= bool(d["result"]["validations"]) and bool(
+                d["result"]["checkpoint"])
+        print(f"[dist {name}] {card} | {what}: loss against the plain run "
+              f"max rel diff {err:.3g} (tol {DIST_LPIX_RTOL}) | steady "
+              f"{d_rate:.3f} steps/s with DDP, {p_rate:.3f} without "
+              f"({d_rate / p_rate:.4f}) | peak {d['peak_gib']:.2f} GiB "
+              f"(plain {r['peak_gib']:.2f}) | kernel launches "
+              f"{d['launches']} (none on this path) "
+              f"{'ok' if j_ok else 'FAIL'}", flush=True)
+        ok &= j_ok
+        detail[name] = {"loss": d["result"].get(loss_key or "g"),
+                        "plain_loss": r["result"].get(loss_key or "g"),
+                        "loss_max_rel": err, "steps_per_s": d_rate,
+                        "plain_steps_per_s": p_rate,
+                        "peak_gib": d["peak_gib"],
+                        "plain_peak_gib": r["peak_gib"],
+                        "wall_s": d["wall_s"]}
+    detail["seconds"] = time.time() - t_phase
+    return detail, launches, ok
+
+
 def gdp_reference(card, seed):
     """``--gdp-reference``: cli.infer of configs/sr_gdp_test_64_256.json
     (the guided UNet at full width, ancestral sampling over T=1000 at
@@ -2043,7 +2518,14 @@ def main(argv=None) -> int:
                          "(EDiffSR)")
     ap.add_argument("--msi-only", action="store_true",
                     help="in place of phases 2-16: only phase 17 (MSI)")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="in place of phases 2-17: only phase 18 (data "
+                         "parallel under torchrun)")
+    ap.add_argument("--dist-worker", metavar="SPEC",
+                    help="phase 18's rank, started by torchrun")
     args = ap.parse_args(argv)
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
 
     t_start = time.time()
     import torch
@@ -2096,6 +2578,14 @@ def main(argv=None) -> int:
         with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
             json.dump(detail, f, indent=1)
         return 0 if m_ok else 1
+    if args.dist_only:
+        detail["dist"], _, d_ok = phase_dist(card, args.seed)
+        took = detail["dist"].get("seconds", math.nan)
+        print(f"[dist] {card} | phase 18 took {took:.1f} s "
+              f"{'ok' if d_ok else 'FAIL'}", flush=True)
+        with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+            json.dump(detail, f, indent=1)
+        return 0 if d_ok else 1
     laps, t_lap = {}, [time.time()]
 
     def lap(name):
@@ -2250,6 +2740,13 @@ def main(argv=None) -> int:
     detail["msi"], msi_ok = phase_msi(card, args.seed)
     lap("17 msi")
     ok &= msi_ok
+
+    # 18. data parallel under torchrun (world size 1, NCCL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    detail["dist"], dist_launches, dist_ok = phase_dist(card, args.seed)
+    lap("18 dist")
+    ok &= dist_ok
     k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]
     k1_all_rows = k1_rows + [r for v in detail["k1_variants"].values()
                              for r in v["rows"]]
@@ -2265,7 +2762,8 @@ def main(argv=None) -> int:
                    + sum(detail["samplers"][s]["launches"]["channel_stats"]
                          for s in ("ddim", "dpm"))
                    + sum(detail["infer_512"][dt]["launches"]["channel_stats"]
-                         for dt in ("f32", "bf16")))
+                         for dt in ("f32", "bf16"))
+                   + dist_launches.get("channel_stats", 0))
 
     def k3_route_of(dt):
         """The kernel every K3 row of that type ran on (or "mixed")."""
@@ -2311,7 +2809,8 @@ def main(argv=None) -> int:
         {"name": "gn_swish", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/gn_swish.cu",
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:54",
-         "launches": k1_launches + k1_variant_launches,
+         "launches": k1_launches + k1_variant_launches
+         + dist_launches.get("gn_swish", 0),
          "max_abs_err": max(r["max_abs_err"] for r in k1_all_rows
                             if r["dtype"] == "f32"),
          "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],
@@ -2341,7 +2840,8 @@ def main(argv=None) -> int:
          "replaces": "fastdiffsr_tpu/ops/fused_conv.py:107",
          "launches": detail["train"]["val_routes"]["cuda_cores"]
          + detail["serve_f32"]["routes"]["cuda_cores"]
-         + detail["infer_512"]["f32"]["routes"]["cuda_cores"],
+         + detail["infer_512"]["f32"]["routes"]["cuda_cores"]
+         + dist_launches.get("cuda_cores", 0),
          "kernel_route": k3_route_of("f32"),
          "max_abs_err": max(r["max_abs_err_y"] for r in k3_rows
                             if r["dtype"] == "f32"),

@@ -17,7 +17,9 @@ the DDIM and DPM-Solver++ samplers, ``cli/fid.py``; and EDiffSR (the
 IR-SDE in ``diffusion/sde.py``, ``models/nafnet.py``,
 ``models/cond_unet.py``, ``ediffsr/``), which has no kernel of its own;
 and the five MSI baselines with their shared trainer and CLI (``msi/``,
-``models/vgg_feat.py``), which have none either.
+``models/vgg_feat.py``), which have none either; and data parallelism
+for every trainer and evaluation CLI on ``torch.distributed``
+(``parallel/``, launched by ``torchrun``).
 """
 
 __version__ = "0.1.0"

@@ -11,6 +11,8 @@ default), ddim or dpm, with ``ddim_steps`` and ``ddim_eta``), saves
     python -m fastdiffsr_tpu_torch.cli.infer -c <config.json> \\
         [--device cuda] [--fused | --plain] [--dtype f32|bf16] [--seed N] \\
         [-enable_wandb] [-log_infer]
+    torchrun --nproc_per_node=<GPUs> -m fastdiffsr_tpu_torch.cli.infer \\
+        -dist -c <config.json> ...
 
 It runs on CUDA unless ``--device cpu`` is given, and raises where CUDA
 is asked for but absent. It samples in float32, as the JAX CLI and the
@@ -28,6 +30,14 @@ otherwise it uses seeded initial parameters. ``-enable_wandb`` logs to
 Weights & Biases where ``wandb`` imports (a no-op otherwise), with
 ``-log_infer`` each SR image too. Experiment directories go under
 ``experiments/`` of the working directory.
+
+``-dist`` runs under ``torchrun`` (it raises without torchrun's
+variables): one process per GPU on ``cuda:{LOCAL_RANK}`` (NCCL; gloo
+with ``--device cpu``), each val batch's images split over the ranks
+(``parallel.sample_rows``, the counterpart of JAX's ``auto_mesh`` over
+local devices: the largest divisor of the batch that fits the ranks),
+each rank sampling its images with their own generators and writing
+them under the one-process names. Rank 0 logs.
 """
 
 from __future__ import annotations
@@ -154,14 +164,19 @@ def main(argv=None) -> dict:
     parser.add_argument("-enable_wandb", action="store_true")
     parser.add_argument("-log_infer", action="store_true",
                         help="with -enable_wandb, log each SR image")
+    parser.add_argument("-dist", action="store_true",
+                        help="split the images over the ranks of torchrun")
     args = parser.parse_args(argv)
 
     from ..config import parse
     from ..device import (resolve_device, set_cudnn_autotuning,
                           use_ieee_float32)
+    from ..parallel import (broadcast_from_main, initialize_from_env,
+                            is_main, rank, sample_rows, world_size)
     from ..utils.logging import setup_logger
 
-    device = resolve_device(args.device)
+    device = (initialize_from_env(args.device) if args.dist
+              else resolve_device(args.device))
     use_ieee_float32()
     set_cudnn_autotuning(False)
     dtype = DTYPES[args.dtype]
@@ -169,7 +184,7 @@ def main(argv=None) -> dict:
                 enable_wandb=args.enable_wandb)
     logger = setup_logger("base", opt["path"]["log"], "infer", screen=True)
     wandb_logger = None
-    if args.enable_wandb:
+    if args.enable_wandb and is_main():
         from ..utils.wandb_logger import WandbLogger
         wandb_logger = WandbLogger(opt)
 
@@ -185,6 +200,7 @@ def main(argv=None) -> dict:
                     variant=variant)
         logger.info(f"loaded {'EMA ' if args.use_ema else ''}params from "
                     f"{opt['path']['resume_state']}")
+    broadcast_from_main(net)            # -dist: every rank samples rank 0's
     denoise = make_denoiser(net, fused, dtype)
     samp = sampler_options(opt)
     logger.info(f"infer: {variant} device={device} forward="
@@ -202,6 +218,8 @@ def main(argv=None) -> dict:
     first_s = None
     n = 0
     full_b = val_loader.batch_size
+    rows = (sample_rows(full_b, rank(), world_size()) if args.dist
+            else slice(0, full_b))
     first_batch = True
     t_start = time.time()
     for batch in val_loader:
@@ -209,7 +227,8 @@ def main(argv=None) -> dict:
         cond, gens = pad_batch_with_keys(batch["SR"], full_b, args.seed, n,
                                          device=device)
         t0 = time.time()
-        sr = sample_fn(cond, gens).cpu().numpy()   # .cpu() waits for it
+        sr = (sample_fn(cond[rows], gens[rows]).cpu().numpy()   # waits
+              if rows.stop > rows.start else np.zeros((0,)))
         dt_img = (time.time() - t0) / full_b
         if not np.isfinite(sr).all():
             raise FloatingPointError(f"non-finite SR output in images "
@@ -223,10 +242,11 @@ def main(argv=None) -> dict:
             times.extend([dt_img] * b)
         first_batch = False
         for j in range(b):
-            img = M.tensor2img(sr[j])
-            M.save_img(img, os.path.join(result_path, f"{n}_sr.png"))
-            if wandb_logger is not None and args.log_infer:
-                wandb_logger.log_image(f"infer/{n}_sr", img)
+            if rows.start <= j < rows.stop:
+                img = M.tensor2img(sr[j - rows.start])
+                M.save_img(img, os.path.join(result_path, f"{n}_sr.png"))
+                if wandb_logger is not None and args.log_infer:
+                    wandb_logger.log_image(f"infer/{n}_sr", img)
             logger.info(f"image {n}: {dt_img:.3f}s{dt_note}")
             n += 1
     summary = {"images": n, "seconds": time.time() - t_start,
@@ -246,3 +266,5 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    from ..parallel import shutdown
+    shutdown()

@@ -6,6 +6,8 @@
         [-log_wandb_ckpt] [-log_eval]
     python -m fastdiffsr_tpu_torch.cli.sr_mfe -p val -c <config.json> \\
         [-use_ema] [--device cuda|cpu] [--seed N] [-enable_wandb]
+    torchrun --nproc_per_node=<GPUs> -m fastdiffsr_tpu_torch.cli.sr_mfe \\
+        -dist -p train|val -c <config.json> ...
 
 It runs on CUDA unless ``--device cpu`` is given, for the UNet of
 ``model.which_model_G``: fastdiffsr, ddpm or tesr (SR3) or gdp (guided).
@@ -37,7 +39,22 @@ Weights & Biases where ``wandb`` imports and is a no-op otherwise.
 the K-sample average from ``train.pass_seed``). ``-debug``
 shrinks the run as the reference does and writes a synthetic 6-image
 npy pack for any dataroot that does not exist. ``-gpu`` is accepted and
-logged; ``-dist`` is not ported.
+logged.
+
+``-dist`` runs data-parallel under ``torchrun`` (``parallel.multihost``;
+it raises without torchrun's variables): one process per GPU on
+``cuda:{LOCAL_RANK}`` (NCCL; gloo with ``--device cpu``), the
+configured ``batch_size`` the GLOBAL batch, of which each rank loads and
+trains its ``batch_size / world`` rows (``device_cache``: every rank
+holds the corpus and gathers its rows of the global index draw). Rank
+0 validates inside ``-p train`` and writes the logs and checkpoints
+while the other ranks wait at a barrier (JAX cli/sr_mfe.py:591-641, the
+reference's ``rank <= 0`` rule); every rank resumes from the same
+checkpoint. ``-p val`` splits each validation batch's images over the
+ranks (``parallel.sample_rows``), each rank writing its images; the
+metric sums are all-reduced and rank 0 logs them. The logs, checkpoints
+and metric means are those of a one-process run (dropout aside: the
+train steps module says why).
 """
 
 from __future__ import annotations
@@ -52,8 +69,10 @@ import torch
 
 def ensure_debug_data(opt, logger=None, seed: int = 0) -> None:
     """``-debug``: point every absent dataroot at a synthetic 6-image npy
-    pack under the run's experiment dir (``data.synth.write_pack``)."""
+    pack under the run's experiment dir (``data.synth.write_pack``; rank
+    0 writes it while the other ranks of a process group wait)."""
     from ..data import write_pack
+    from ..parallel import barrier, is_main
 
     exp_root = os.path.dirname(opt["path"]["results"])
     cache = {}
@@ -63,14 +82,15 @@ def ensure_debug_data(opt, logger=None, seed: int = 0) -> None:
             continue
         key = (int(ds["l_resolution"]), int(ds["r_resolution"]))
         if key not in cache:
-            cache[key] = write_pack(
-                os.path.join(exp_root, f"synth_{key[0]}_{key[1]}"), 6, seed,
-                *key)
+            cache[key] = os.path.join(exp_root, f"synth_{key[0]}_{key[1]}")
+            if is_main():
+                write_pack(cache[key], 6, seed, *key)
             if logger is not None:
                 logger.info(f"-debug: dataroot {root!r} absent, synthesized "
                             f"a 6-image set at {cache[key]}")
         ds["dataroot"] = cache[key]
         ds["datatype"] = "npy"
+    barrier()
 
 
 def build_all(opt, device, seed: int = 0):
@@ -93,7 +113,7 @@ def build_all(opt, device, seed: int = 0):
 def run_validation(opt, engine_val, denoise, result_path, logger, *,
                    seed: int, device, scale: int = 4,
                    save_images: bool = True, wandb_logger=None,
-                   save_plots: bool = False) -> dict:
+                   save_plots: bool = False, shard: bool = False) -> dict:
     """Sample the val set with ``denoise`` and log per-image PSNR, SSIM,
     MSE, ERGAS and LPIPS (where its weight pack is found; computed on
     ``device``) and their means; ``lpips`` is in the result when at least
@@ -107,9 +127,17 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
     from the per-image generators of ``pass_seed(seed, k)``. Times are
     per output image (all K passes); the first batch holds one-time
     set-up and is left out of ``avg_time`` (with one batch only,
-    ``avg_time_incl_setup`` holds its time)."""
+    ``avg_time_incl_setup`` holds its time).
+
+    ``shard`` (``-p val -dist``; every rank of the group calls it): each
+    batch's images split over the ranks (``parallel.sample_rows``); a
+    rank samples its rows with their own generators, so every image is
+    the one-process image, and writes their files; the per-image metrics
+    are summed over the ranks, and the result on every rank and rank 0's
+    log are those of a one-process run."""
     from .. import metrics as M
     from ..data import create_dataloader, create_dataset
+    from ..parallel import all_reduce_sum, rank, sample_rows, world_size
     from ..train import make_sample_fn, pad_batch_with_keys, pass_seed
     from .infer import sampler_options
 
@@ -120,6 +148,8 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
     val_set = create_dataset(opt["datasets"]["val"], "val")
     val_loader = create_dataloader(val_set, opt["datasets"]["val"], "val")
     full_b = val_loader.batch_size
+    rows = (sample_rows(full_b, rank(), world_size()) if shard
+            else slice(0, full_b))
     sample_fn = make_sample_fn(engine_val, denoise, **sampler_options(opt))
     if save_plots:
         try:
@@ -128,22 +158,23 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
             logger.warning("matplotlib does not import: the comparison "
                            "panels ({idx}_panel.png) are skipped")
             save_plots = False
-    sums = {"psnr": 0.0, "ssim": 0.0, "mse": 0.0, "ergas": 0.0}
-    lpips_sum, lpips_n = 0.0, 0
+    keys = ("psnr", "ssim", "mse", "ergas", "lpips", "lpips_n")
+    sums = dict.fromkeys(keys, 0.0)
     n = n_steady = 0
     t_steady = 0.0
     t_first = None
     for batch in val_loader:
         b = batch["SR"].shape[0]
         t0 = time.time()
-        sr = None
-        for k in range(n_samp):
-            cond, gens = pad_batch_with_keys(batch["SR"], full_b,
-                                             pass_seed(seed, k), n,
-                                             device=device)
-            out = sample_fn(cond, gens)
-            sr = out if sr is None else sr + out
-        sr = (sr / n_samp).cpu().numpy()           # .cpu() waits for it
+        sr = np.zeros((0,))                 # a rank past auto_world's
+        if rows.stop > rows.start:
+            acc = 0.0
+            for k in range(n_samp):
+                cond, gens = pad_batch_with_keys(batch["SR"], full_b,
+                                                 pass_seed(seed, k), n,
+                                                 device=device)
+                acc = acc + sample_fn(cond[rows], gens[rows])
+            sr = (acc / n_samp).cpu().numpy()      # .cpu() waits for it
         dt = time.time() - t0
         if not np.isfinite(sr).all():
             raise FloatingPointError(f"non-finite SR output in images "
@@ -157,34 +188,49 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
             n_steady += b
         else:
             t_first = dt / full_b
-        for j in range(b):
-            sr_img = M.tensor2img(sr[j])
+        # the metrics of this rank's real rows, then of every rank's
+        per_img = np.zeros((b, len(keys)))
+        own = {}
+        for j in range(rows.start, min(rows.stop, b)):
+            sr_img = M.tensor2img(sr[j - rows.start])
             hr_img = M.tensor2img(batch["HR"][j])
-            bic_img = M.tensor2img(batch["SR"][j])
-            m = {"psnr": M.calculate_psnr(sr_img, hr_img),
-                 "ssim": M.calculate_ssim(sr_img, hr_img),
-                 "mse": M.calculate_mse(sr_img, hr_img),
-                 "ergas": M.calculate_ergas(sr_img, hr_img, scale=scale)}
-            for k in sums:
-                sums[k] += m[k]
             lp = M.calculate_lpips(sr_img, hr_img, device=device)
-            if lp is not None:
-                lpips_sum += lp
-                lpips_n += 1
-            if save_images:
-                M.save_img(sr_img, os.path.join(result_path, f"{n}_sr.png"))
-                M.save_img(hr_img, os.path.join(result_path, f"{n}_hr.png"))
-                M.save_img(bic_img, os.path.join(result_path, f"{n}_inf.png"))
-            if save_plots:
-                M.plot_img(os.path.join(result_path, f"{n}_panel.png"),
-                           bic_img, sr_img, hr_img, m["psnr"], m["ssim"],
-                           m["ergas"], lp, M.calculate_psnr(bic_img, hr_img),
-                           M.calculate_ssim(bic_img, hr_img),
-                           M.calculate_ergas(bic_img, hr_img, scale=scale),
-                           None)
-            if wandb_logger is not None:
-                wandb_logger.log_eval_data(sr_img, m["psnr"], m["ssim"],
-                                           hr_img)
+            per_img[j] = (M.calculate_psnr(sr_img, hr_img),
+                          M.calculate_ssim(sr_img, hr_img),
+                          M.calculate_mse(sr_img, hr_img),
+                          M.calculate_ergas(sr_img, hr_img, scale=scale),
+                          lp or 0.0, lp is not None)
+            own[j] = sr_img
+        if shard:
+            per_img = all_reduce_sum(per_img)
+        for j in range(b):
+            m = dict(zip(keys, per_img[j]))
+            lp = m["lpips"] if m["lpips_n"] else None
+            for k in keys:
+                sums[k] += m[k]
+            if j in own:
+                sr_img = own[j]
+                hr_img = M.tensor2img(batch["HR"][j])
+                bic_img = M.tensor2img(batch["SR"][j])
+                if save_images:
+                    M.save_img(sr_img, os.path.join(result_path,
+                                                    f"{n}_sr.png"))
+                    M.save_img(hr_img, os.path.join(result_path,
+                                                    f"{n}_hr.png"))
+                    M.save_img(bic_img, os.path.join(result_path,
+                                                     f"{n}_inf.png"))
+                if save_plots:
+                    M.plot_img(os.path.join(result_path, f"{n}_panel.png"),
+                               bic_img, sr_img, hr_img, m["psnr"], m["ssim"],
+                               m["ergas"], lp,
+                               M.calculate_psnr(bic_img, hr_img),
+                               M.calculate_ssim(bic_img, hr_img),
+                               M.calculate_ergas(bic_img, hr_img,
+                                                 scale=scale),
+                               None)
+                if wandb_logger is not None:
+                    wandb_logger.log_eval_data(sr_img, m["psnr"], m["ssim"],
+                                               hr_img)
             logger.info(f"img {n}: psnr {m['psnr']:.4f} ssim {m['ssim']:.4f}"
                         f" mse {m['mse']:.1f} ergas {m['ergas']:.4f} lpips "
                         f"{'n/a' if lp is None else f'{lp:.4f}'} "
@@ -192,13 +238,13 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
             n += 1
     if n == 0:
         return {}
-    res = {k: v / n for k, v in sums.items()}
+    res = {k: sums[k] / n for k in ("psnr", "ssim", "mse", "ergas")}
     if n_steady:
         res["avg_time"] = t_steady / n_steady
     else:
         res["avg_time_incl_setup"] = t_first
-    if lpips_n:
-        res["lpips"] = lpips_sum / lpips_n
+    if sums["lpips_n"]:
+        res["lpips"] = sums["lpips"] / sums["lpips_n"]
     logger.info("# Validation # " + " ".join(f"{k}: {v:.4e}"
                                               for k, v in res.items()))
     return res
@@ -224,24 +270,26 @@ def main(argv=None) -> dict:
     parser.add_argument("-use_ema", action="store_true",
                         help="validate the EMA params instead of the raw "
                              "params")
-    parser.add_argument("-dist", action="store_true")
+    parser.add_argument("-dist", action="store_true",
+                        help="data parallel under torchrun: one process "
+                             "per GPU, batch_size the global batch")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
-    if args.dist:
-        raise NotImplementedError("-dist (multi-process data parallel) is "
-                                  "not ported yet (ROADMAP.md queue 4)")
 
     from ..config import dict2str, infer_scale, parse
     from ..device import (resolve_device, set_cudnn_autotuning,
                           use_ieee_float32)
+    from ..parallel import (barrier, broadcast_from_main, initialize_from_env,
+                            is_main, world_size)
     from ..train import (create_train_state, make_cached_train_step,
                          make_optimizer, make_train_step, step_generator)
     from ..train.checkpoint import load_state, save_state
     from ..utils.logging import make_tb_writer, setup_logger
     from .infer import build_unet, load_params, make_denoiser, resolve_fused
 
-    device = resolve_device(args.device)
+    device = (initialize_from_env(args.device) if args.dist
+              else resolve_device(args.device))
     use_ieee_float32()
     set_cudnn_autotuning(args.phase == "train")
     opt = parse(args.config, args.phase, debug=args.debug,
@@ -256,7 +304,7 @@ def main(argv=None) -> dict:
         logger.info(f"-gpu {args.gpu_ids} accepted; running on {device}")
     tb = make_tb_writer(opt["path"]["tb_logger"])
     wandb_logger = None
-    if opt["enable_wandb"]:
+    if opt["enable_wandb"] and is_main():
         from ..utils.wandb_logger import WandbLogger
         wandb_logger = WandbLogger(opt)
     scale = infer_scale(opt)
@@ -265,7 +313,8 @@ def main(argv=None) -> dict:
     fused = resolve_fused(variant, None)
     logger.info(f"{variant}: device {device}, float32 without TF32, scale "
                 f"x{scale}, validation on the "
-                f"{'fused' if fused else 'plain'} forward")
+                f"{'fused' if fused else 'plain'} forward"
+                + (f", {world_size()} ranks" if args.dist else ""))
 
     if args.phase == "val":
         if opt["path"]["resume_state"]:
@@ -273,13 +322,15 @@ def main(argv=None) -> dict:
                         variant=variant)
             logger.info(f"loaded {'EMA ' if args.use_ema else ''}params "
                         f"from {opt['path']['resume_state']}")
+        broadcast_from_main(net)        # -dist: every rank samples rank 0's
         result_path = opt["path"]["results"]
         os.makedirs(result_path, exist_ok=True)
         res = run_validation(opt, eng_val, make_denoiser(net, fused,
                                                          torch.float32),
                              result_path, val_logger, seed=args.seed,
                              device=device, scale=scale,
-                             wandb_logger=wandb_logger, save_plots=True)
+                             wandb_logger=wandb_logger, save_plots=True,
+                             shard=args.dist)
         if wandb_logger is not None:
             wandb_logger.log_eval_table(commit=True)
         return res
@@ -314,11 +365,14 @@ def main(argv=None) -> dict:
                     f"{steps_per_epoch}-step windows)")
     else:
         train_loader = create_dataloader(train_set, opt["datasets"]["train"],
-                                         "train")
+                                         "train", shard_by_process=args.dist)
         step_fn = make_train_step(eng_train, **ema)
 
     def checkpoint():
+        """Rank 0 saves (and returns the directory); the others get None."""
         state.epoch = current_epoch
+        if not is_main():
+            return None
         path = save_state(state, opt["path"]["checkpoint"], it=current_step,
                           epoch=current_epoch)
         logger.info(f"saved checkpoint {path}")
@@ -374,7 +428,7 @@ def main(argv=None) -> dict:
             if val_now or save_now:
                 _sync(device)
                 t_pause = time.time()
-                if val_now:
+                if val_now and is_main():
                     if val_net is None:
                         val_net = build_unet(opt["model"], device=device)
                     val_net.load_state_dict(state.ema_or_params(args.use_ema))
@@ -399,6 +453,7 @@ def main(argv=None) -> dict:
                             {f"val/{k}": v for k, v in res.items()})
                 if save_now:
                     checkpoint()
+                barrier()           # the other ranks wait for rank 0's
                 _sync(device)
                 if steps_done > 1:
                     paused += time.time() - t_pause
@@ -408,6 +463,7 @@ def main(argv=None) -> dict:
     _sync(device)
     t_end = time.time()
     path = checkpoint()
+    barrier()
     rate = ((steps_done - 1) / (t_end - t_first - paused)
             if steps_done > 1 else None)
     if rate is not None:
@@ -422,3 +478,5 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    from ..parallel import shutdown
+    shutdown()

@@ -9,8 +9,10 @@ Parity target: core/logger.py:21-112 of the reference —
 - missing-key-access returns None (NoneDict, core/logger.py:97-112)
 
 Counterpart of ``fastdiffsr_tpu/config.py``. The reference's gpu_ids ->
-CUDA_VISIBLE_DEVICES plumbing is replaced by device discovery:
-``distributed`` is true when more than one CUDA device is visible.
+CUDA_VISIBLE_DEVICES plumbing is replaced by torchrun's ranks:
+``distributed`` is true in a ``torch.distributed`` group of more than
+one rank (``-dist``), and the ranks of a group share rank 0's
+experiment directory.
 """
 
 from __future__ import annotations
@@ -86,8 +88,10 @@ def parse(config_path: str, phase: str, debug: bool = False,
         experiments_root = os.path.dirname(
             os.path.dirname(opt["path"]["resume_state"]))
     else:
+        from .parallel import broadcast_object
         experiments_root = os.path.join(
-            root, "experiments", f"{opt['name']}_{get_timestamp()}")
+            root, "experiments",
+            f"{opt['name']}_{broadcast_object(get_timestamp())}")
     opt["path"]["experiments_root"] = experiments_root
     for key, sub in list(opt["path"].items()):
         if "resume" not in key and "experiments" not in key and \
@@ -95,8 +99,8 @@ def parse(config_path: str, phase: str, debug: bool = False,
             opt["path"][key] = os.path.join(experiments_root, sub)
             mkdirs(opt["path"][key])
 
-    import torch
-    opt["distributed"] = torch.cuda.device_count() > 1
+    from .parallel import world_size
+    opt["distributed"] = world_size() > 1
 
     # debug shrink (reference core/logger.py:62-70)
     if debug:

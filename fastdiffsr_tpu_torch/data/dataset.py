@@ -2,8 +2,9 @@
 
 Counterpart of ``fastdiffsr_tpu/data/dataset.py``, copied with three
 changes: PIL is imported only to decode image folders (the JAX package's
-native C++ decoder is not ported), process sharding uses single-process
-defaults until the data-parallel slice, and ``datatype: lmdb`` raises.
+native C++ decoder is not ported), process sharding reads the rank and
+world of the ``torch.distributed`` group (``parallel.multihost``), and
+``datatype: lmdb`` raises.
 
 Parity target: data/LRHR_dataset.py + data/util.py of the reference —
 - folder tree ``{dataroot}/sr_{l}_{r}``, ``{dataroot}/hr_{r}``, optional
@@ -167,7 +168,7 @@ def _maybe_flip(sample: dict, seed: int, epoch: int) -> dict:
     a per-process stream — so the augmented sample is identical no matter
     which process loads it or where it lands in a batch (required for the
     single-process == multi-process training equality of
-    tests/test_multihost.py)."""
+    tests/test_torch_dist_cli.py)."""
     rng = np.random.default_rng((seed, epoch, int(sample["Index"])))
     if rng.random() < 0.5:
         sample = {k: (np.ascontiguousarray(v[:, ::-1, :])
@@ -179,9 +180,9 @@ def _maybe_flip(sample: dict, seed: int, epoch: int) -> dict:
 class DataLoader:
     """Epoch-seeded shuffling batcher with background prefetch.
 
-    Per-process sharding: pass process_index / process_count
-    (``shard_by_process=True`` means a single process until the
-    data-parallel slice is ported).
+    Per-process sharding: pass process_index / process_count, or
+    ``shard_by_process=True`` for this process's rank and world in the
+    ``torch.distributed`` group (0 and 1 without one).
 
     Sharded shuffling implements the reference DistIterSampler semantics
     (EDiffSR/codes/data/data_sampler.py:13-60): every epoch draws ONE
@@ -189,7 +190,7 @@ class DataLoader:
     it depends only on (seed, epoch) — of the ×``enlarge_ratio`` index
     stream taken modulo n, wraparound-padded so every process gets
     exactly the same number of samples (unequal shards would
-    desynchronize lockstep SPMD steps). Processes iterating in step
+    desynchronize the ranks' lockstep steps). Processes iterating in step
     therefore partition each epoch's permutation exactly
     (tests/test_data_config.py::test_loader_dist_iter_semantics).
 
@@ -197,11 +198,11 @@ class DataLoader:
     batches (P × batch_size) and process p takes the p-th contiguous
     batch_size sub-block of every global batch window — not the
     reference's element stride. Both rules partition the permutation;
-    the block rule additionally makes the global batch that
-    ``multihost.shard_local_batch`` assembles (process rows concatenate
-    in process order) bit-identical to the single-process batch drawn
-    from the same permutation, so multi-process training is testably
-    equivalent to single-process (tests/test_multihost.py loss parity).
+    the block rule additionally makes the global batch of the ranks'
+    rows (concatenated in rank order) bit-identical to the
+    single-process batch drawn from the same permutation, so
+    multi-process training is testably equivalent to single-process
+    (tests/test_torch_dist_cli.py loss parity).
     """
 
     def __init__(self, dataset: LRHRDataset, batch_size: int = 1,
@@ -221,8 +222,8 @@ class DataLoader:
         self.num_workers = max(1, int(num_workers or 1))
         self.epoch = 0
         if shard_by_process:
-            # single process until the data-parallel slice is ported
-            process_index, process_count = 0, 1
+            from ..parallel import rank, world_size
+            process_index, process_count = rank(), world_size()
         self.process_index = process_index
         self.process_count = process_count
         self.enlarge_ratio = max(1, int(enlarge_ratio or 1))
@@ -349,19 +350,15 @@ def create_dataloader(dataset: LRHRDataset, dataset_opt: dict,
     """train: cfg batch/shuffle; val: batch=1 sequential
     (reference data/__init__.py:7-21).
 
-    ``shard_by_process`` (multi-host SPMD mode, cli/sr_mfe.py -dist): the
-    configured batch_size is the GLOBAL batch; this process's loader
-    yields its batch_size/process_count rows of it (the reference's
-    per-rank batch split, EDiffSR data/__init__.py:10-19)."""
+    ``shard_by_process`` (cli/sr_mfe.py -dist): the configured batch_size
+    is the GLOBAL batch; this rank's loader yields its
+    batch_size/world rows of it (the reference's per-rank batch split,
+    EDiffSR data/__init__.py:10-19)."""
     if phase == "train":
         bsz = int(dataset_opt["batch_size"])
         if shard_by_process:
-            P = 1  # single process until the data-parallel slice
-            if bsz % P:
-                raise ValueError(
-                    f"batch_size {bsz} must divide evenly over "
-                    f"{P} processes")
-            bsz //= P
+            from ..parallel import local_batch
+            bsz = local_batch(bsz)
         return DataLoader(dataset,
                           batch_size=bsz,
                           shuffle=bool(dataset_opt.get("use_shuffle", True)),

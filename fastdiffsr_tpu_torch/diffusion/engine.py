@@ -111,7 +111,7 @@ class DiffusionEngine:
         if aux_ssim_weight:
             raise NotImplementedError(
                 "model.diffusion.aux_ssim_weight needs ops/dssim.py, which "
-                "is not ported yet (ROADMAP.md queue 5, opt-in ops)")
+                "is not ported yet (ROADMAP.md queue 1 item 3)")
         self.spec = spec
         self.buffers = buffers
 
@@ -136,6 +136,22 @@ class DiffusionEngine:
         hi = b.sqrt_alphas_cumprod_prev[t]
         u = torch.rand((batch,), generator=generator, device=dev)
         return lo + (hi - lo) * u, t
+
+    def training_draws(self, generator: Optional[torch.Generator], shape,
+                       device) -> dict:
+        """What :meth:`training_loss` draws for a batch of ``shape``
+        (B,H,W,C), in its order: ``noise``, then ``gamma`` (B,)
+        (continuous-gamma conditioning) or ``t`` (B,) (discrete-t). A rank
+        of a process group draws them for the global batch and keeps its
+        rows."""
+        noise = torch.randn(tuple(shape), generator=generator, device=device)
+        if self.spec.conditioning == "continuous_gamma":
+            return {"noise": noise,
+                    "gamma": self.sample_gammas(generator, shape[0])[0]}
+        return {"noise": noise,
+                "t": torch.randint(0, self.buffers.num_timesteps,
+                                   (shape[0],), generator=generator,
+                                   device=device)}
 
     def training_loss(self, denoise_fn: DenoiseFn, batch: dict,
                       generator: Optional[torch.Generator] = None, *,

@@ -146,6 +146,17 @@ class IRSDE:
                                 device=x0.device, dtype=torch.float32)
         return t, mean + noise * self.sigma_bar(t)
 
+    def training_draws(self, generator: Optional[torch.Generator], shape,
+                       device):
+        """(t, noise) as :meth:`generate_random_states` draws them for a
+        batch of ``shape`` (B,H,W,C): t (B,1,1,1) ~ U{1..T}, then the
+        noise. A rank of a process group draws them for the global batch
+        and keeps its rows."""
+        t = torch.randint(1, self.b.T + 1, (shape[0], 1, 1, 1),
+                          generator=generator, device=device)
+        return t, torch.randn(tuple(shape), generator=generator,
+                              device=device, dtype=torch.float32)
+
     def noise_state(self, tensor: torch.Tensor,
                     generators: Sequence[torch.Generator]) -> torch.Tensor:
         """x_T = mu + max_sigma * eps with eps drawn per image from its

@@ -24,12 +24,14 @@ weights renormalised per output pixel, horizontal pass first, each pass
 accumulated in float64 and stored in float32), written out in numpy.
 
 Against the JAX package: dataroots ending in ``lmdb`` raise
-(``data/lmdb_lite.py`` is ROADMAP.md queue 1 item 8), and the loaders do
-not shard by process (queue 1 item 2).
+(``data/lmdb_lite.py`` is ROADMAP.md queue 1 item 8).
 
 Crops/augments draw from a per-dataset ``np.random.Generator`` behind a
 lock: fresh randomness per access, thread-safe under the prefetching
 DataLoader, and the same draws as the JAX package's for the same seed.
+Each rank of a process group draws its own rows' crops in its own
+sequence, as each JAX process does, so a W-rank run crops other windows
+than a 1-rank run (the same images, the same order).
 """
 
 from __future__ import annotations
@@ -414,9 +416,14 @@ def create_ediffsr_dataset(dataset_opt: dict):
     return _MODES[mode](dataset_opt)
 
 
-def create_ediffsr_loaders(opt) -> dict:
+def create_ediffsr_loaders(opt, shard_by_process: bool = False) -> dict:
     """train: cfg batch + shuffle; val: batch=1 sequential
-    (reference data/__init__.py:8-33)."""
+    (reference data/__init__.py:8-33).
+
+    ``shard_by_process`` (-launcher pytorch): the configured batch_size
+    is the GLOBAL batch and this rank's train loader yields
+    batch_size/world rows of it — the reference's dist-aware batch split
+    (data/__init__.py:10-19)."""
     loaders = {}
     # train.manual_seed drives the crop/augment RNG (the reference seeds
     # the global random module from it, train.py util.set_random_seed);
@@ -427,10 +434,15 @@ def create_ediffsr_loaders(opt) -> dict:
             ds_opt["seed"] = int(seed) + i
         ds = create_ediffsr_dataset(ds_opt)
         if ds_opt["phase"] == "train":
+            bsz = int(ds_opt.get("batch_size") or 2)
+            if shard_by_process:
+                from ..parallel import local_batch
+                bsz = local_batch(bsz)
             loaders["train"] = DataLoader(
-                ds, batch_size=int(ds_opt.get("batch_size") or 2),
+                ds, batch_size=bsz,
                 shuffle=bool(ds_opt.get("use_shuffle", True)),
                 num_workers=int(ds_opt.get("n_workers") or 1),
+                shard_by_process=shard_by_process,
                 enlarge_ratio=int(
                     ds_opt.get("dataset_enlarge_ratio") or 1))
         else:

@@ -275,8 +275,10 @@ def parse_options(path: str, is_train: bool = True,
     if is_train:
         experiments_root = os.path.join(root, "experiments", name)
         # a fresh (non-resume) run archives a non-empty experiment dir
-        # (reference train.py:96-100, file_utils.mkdir_and_rename)
-        if (not opt["path"].get("resume_state")
+        # (reference train.py:96-100, file_utils.mkdir_and_rename; rank 0
+        # of a process group, before any rank makes the new one)
+        from ..parallel import barrier, is_main
+        if (is_main() and not opt["path"].get("resume_state")
                 and os.path.isdir(experiments_root)
                 and os.listdir(experiments_root)):
             import time
@@ -284,6 +286,7 @@ def parse_options(path: str, is_train: bool = True,
                         + time.strftime("%y%m%d-%H%M%S"))
             print(f"Path already exists. Rename it to [{new_name}]")
             os.rename(experiments_root, new_name)
+        barrier()
         paths = {"experiments_root": experiments_root,
                  "models": os.path.join(experiments_root, "models"),
                  "training_state": os.path.join(experiments_root,

@@ -41,8 +41,19 @@ from each image's own generator (``train.image_generator`` of the
 manual seed and the image's index), so ``--batch N`` gives the images of
 a batch-1 run.
 
-``-launcher`` other than ``none`` (multi-process data parallel) is not
-ported: it raises, naming its ROADMAP.md item.
+``-launcher pytorch`` runs data-parallel under ``torchrun`` (it raises
+without torchrun's variables; JAX ediffsr/train.py:259-311, 384-463):
+one process per GPU on ``cuda:{LOCAL_RANK}`` (NCCL; gloo with ``--device
+cpu``), the net in DistributedDataParallel, the train set's
+``batch_size`` the global batch of which each rank loads its rows; a
+step's t and noise are drawn for the global batch and each rank keeps
+its rows, so the step is the 1-rank step on the same batch (a W-rank
+run crops other windows, ``ediffsr.data``). Rank 0 validates, writes the
+logs and checkpoints while the others wait at a barrier. ``--test``
+splits each batch's images over the ranks (``parallel.sample_rows``),
+each rank writing its images, and all-reduces the per-image metrics
+that rank 0 logs; RK45, whose step control spans the batch, runs on
+rank 0 alone.
 """
 
 from __future__ import annotations
@@ -53,6 +64,9 @@ import time
 
 import numpy as np
 import torch
+
+from ..parallel import (all_reduce_mean, all_reduce_sum, barrier, is_main,
+                        rank, rank_rows, sample_rows, world_size)
 
 # reference ema_pytorch.EMA(beta=0.995, update_every=10): the per-step
 # equivalent decay is 0.995^(1/10)
@@ -131,8 +145,14 @@ def make_train_step(sde, scale: int, sched, loss_type: str = "l1",
         for group in state.optimizer.param_groups:
             group["lr"] = sched(state.step)
         mu = upscale(batch["LQ"], scale)
-        loss = weight * sde.matching_loss(net, batch["GT"], mu, generator,
-                                          loss_type=loss_type)
+        x0, world = batch["GT"], world_size()
+        total = x0.shape[0] * world
+        t, noise = sde.training_draws(generator, (total, *x0.shape[1:]),
+                                      x0.device)
+        rows = rank_rows(total, rank(), world)
+        loss = weight * sde.matching_loss(
+            state.train_net, x0, mu, generator, loss_type=loss_type,
+            t=t[rows], noise=noise[rows])
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
@@ -143,7 +163,7 @@ def make_train_step(sde, scale: int, sched, loss_type: str = "l1",
             torch._foreach_add_(ema, [p.detach() for _, p in named],
                                 alpha=1.0 - EMA_DECAY_PER_STEP)
         state.step += 1
-        return state, loss.detach()
+        return state, all_reduce_mean(loss.detach())
 
     return train_step
 
@@ -187,17 +207,23 @@ def iter_sample_batches(loader, batch_size: int, max_images=None):
 
 
 def restore_batched(net, sde, samples, full_b: int, seed: int,
-                    start_idx: int, scale: int, sampler: str, device):
+                    start_idx: int, scale: int, sampler: str, device,
+                    rows: slice = None):
     """Restore a list of batch-1 samples as one batch padded to
     ``full_b`` rows, image ``start_idx + i`` drawing from its own
-    generator; returns ((n,H,W,C) numpy SR of the real images, info)."""
+    generator; returns ((n,H,W,C) numpy SR of the real images, info).
+    ``rows`` (a rank's ``sample_rows``) restores only those rows of the
+    padded batch: the SR of samples ``rows.start`` on."""
     from ..train import pad_batch_with_keys
 
+    rows = rows or slice(0, full_b)
+    if rows.stop <= rows.start or rows.start >= len(samples):
+        return np.zeros((0,)), {}
     lq = np.concatenate([np.asarray(s["LQ"]) for s in samples], axis=0)
     lq, gens = pad_batch_with_keys(lq, full_b, seed, start_idx,
                                    device=device)
-    out, info = restore(net, sde, lq, gens, scale, sampler)
-    out = out[:len(samples)].cpu().numpy()        # waits for the device
+    out, info = restore(net, sde, lq[rows], gens[rows], scale, sampler)
+    out = out[:len(samples) - rows.start].cpu().numpy()   # waits for it
     if not np.isfinite(out).all():
         last = start_idx + len(samples) - 1
         raise FloatingPointError(f"non-finite SR output in images "
@@ -244,7 +270,7 @@ def _sync(device) -> None:
 
 
 def run_test(opt, args, net, sde, which, loaders, logger, device, seed,
-             scale) -> dict:
+             scale, shard: bool = False) -> dict:
     from .. import metrics as M
     from ..cli.infer import load_params
     from .deg import upscale
@@ -268,10 +294,15 @@ def run_test(opt, args, net, sde, which, loaders, logger, device, seed,
     ms = {"psnr": [], "ssim": [], "ergas": [], "lpips": []}
     t_steady, n_steady, t_first = 0.0, 0, None
     rk45 = []
+    rows = None
+    if shard:
+        rows = (sample_rows(vb, rank(), world_size())
+                if args.sampler != "rk45"
+                else slice(0, vb if is_main() else 0))
     for start, samples in iter_sample_batches(loaders["val"], vb):
         t0 = time.time()
         out, info = restore_batched(net, sde, samples, vb, seed, start,
-                                    scale, args.sampler, device)
+                                    scale, args.sampler, device, rows)
         dt = time.time() - t0
         if info:
             rk45.append(info)
@@ -280,29 +311,41 @@ def run_test(opt, args, net, sde, which, loaders, logger, device, seed,
         else:
             t_steady += dt
             n_steady += vb              # padded rows compute too
-        for j, s in enumerate(samples):
-            i = start + j
-            sr8, gt8 = to_u8(out[j]), to_u8(s["GT"][0])
-            name = os.path.splitext(os.path.basename(
-                s.get("LQ_path", [f"{i:03d}"])[0]))[0]
-            M.save_img(sr8, os.path.join(results_dir, f"{name}.png"))
+        names = [os.path.splitext(os.path.basename(
+            s.get("LQ_path", [f"{start + j:03d}"])[0]))[0]
+            for j, s in enumerate(samples)]
+        # psnr ssim ergas lpips, whether lpips was computed: this rank's
+        # images, then every rank's
+        per = np.zeros((len(samples), 5))
+        first = rows.start if rows else 0
+        for j, sr in enumerate(out, first):
+            s = samples[j]
+            sr8, gt8 = to_u8(sr), to_u8(s["GT"][0])
+            M.save_img(sr8, os.path.join(results_dir, f"{names[j]}.png"))
             p, q = M.calculate_psnr(sr8, gt8), M.calculate_ssim(sr8, gt8)
             e = M.calculate_ergas(sr8, gt8, scale=scale)
             lp = M.calculate_lpips(sr8, gt8, device=device)
-            for k, v in (("psnr", p), ("ssim", q), ("ergas", e),
-                         ("lpips", lp)):
-                if v is not None:
-                    ms[k].append(v)
+            per[j] = (p, q, e, lp or 0.0, lp is not None)
             if plots:
                 bc8 = to_u8(upscale(torch.from_numpy(
                     np.asarray(s["LQ"])), scale)[0].numpy())
-                M.plot_img(os.path.join(results_dir, f"{name}_plot.png"),
+                M.plot_img(os.path.join(results_dir,
+                                        f"{names[j]}_plot.png"),
                            bc8, sr8, gt8, p, q, e, lp)
+        if shard:
+            per = all_reduce_sum(per)
+        for j, (p, q, e, lp, has_lp) in enumerate(per):
+            lp = lp if has_lp else None
+            for k, v in (("psnr", p), ("ssim", q), ("ergas", e),
+                         ("lpips", lp)):
+                if v is not None:
+                    ms[k].append(float(v))
             note = " incl. set-up" if start == 0 else ""
             steps = (f", rk45 {info['rk45_accepted']} accepted of "
                      f"{info['rk45_trials']} trial steps" if info else "")
-            logger.info(f"img {i}: psnr {p:.3f} ssim {q:.4f} ergas {e:.4f} "
-                        f"lpips {'n/a' if lp is None else f'{lp:.4f}'} "
+            logger.info(f"img {start + j}: psnr {p:.3f} ssim {q:.4f} ergas "
+                        f"{e:.4f} lpips "
+                        f"{'n/a' if lp is None else f'{lp:.4f}'} "
                         f"({dt / vb:.3f}s/img{note}{steps})")
     res = {k: float(np.mean(v)) for k, v in ms.items() if v}
     res["images"] = len(ms["psnr"])
@@ -343,21 +386,21 @@ def main(argv=None) -> dict:
                              "validation (default 1); per-image "
                              "generators keep results those of batch 1")
     parser.add_argument("-launcher", default="none",
-                        choices=["none", "pytorch"])
+                        choices=["none", "pytorch"],
+                        help="pytorch: data parallel under torchrun")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"-launcher {args.launcher} (multi-process data parallel) is "
-            "not ported yet (ROADMAP.md queue 1 item 2)")
 
     from ..device import (resolve_device, set_cudnn_autotuning,
                           use_ieee_float32)
+    from ..parallel import initialize_from_env
     from ..utils.logging import setup_logger
     from .data import create_ediffsr_loaders
     from .options import check_resume, parse_options
 
-    device = resolve_device(args.device)
+    dist = args.launcher == "pytorch"
+    device = (initialize_from_env(args.device, flag="-launcher pytorch")
+              if dist else resolve_device(args.device))
     use_ieee_float32()
     opt = parse_options(args.opt, is_train=not args.test)
     logger = setup_logger("ediffsr", opt["path"]["log"],
@@ -367,14 +410,14 @@ def main(argv=None) -> dict:
     seed = int((opt["train"] or {}).get("manual_seed", 0) or 0)
     sde, net, which = build(opt, device, seed)
     scale = int((opt["degradation"] or {}).get("scale", 4))
-    loaders = create_ediffsr_loaders(opt)
+    loaders = create_ediffsr_loaders(opt, shard_by_process=dist)
     logger.info(f"{which}: device {device}, float32 without TF32, scale "
                 f"x{scale}, T={sde.b.T}")
 
     if args.test:
         set_cudnn_autotuning(False)
         return run_test(opt, args, net, sde, which, loaders, logger, device,
-                        seed, scale)
+                        seed, scale, shard=dist)
     return run_train(opt, args, net, sde, which, loaders, logger, device,
                      seed, scale)
 
@@ -434,7 +477,7 @@ def run_train(opt, args, net, sde, which, loaders, logger, device, seed,
                 continue
             _sync(device)
             t_pause = time.time()
-            if val_now:
+            if val_now and is_main():
                 img_dir = os.path.join(opt["path"]["val_images"], str(step))
                 os.makedirs(img_dir, exist_ok=True)
                 set_cudnn_autotuning(False)      # restores: heuristics
@@ -457,10 +500,11 @@ def run_train(opt, args, net, sde, which, loaders, logger, device, seed,
                             f" ({res['seconds'] / max(res['images'], 1):.3f}"
                             " s per image)")
                 val_logger.info(f"<iter:{step:8,d}, psnr: {res['psnr']:.6f}")
-            if save_now:
+            if save_now and is_main():
                 last_ckpt = save_state(state, opt["path"]["models"], it=step,
                                        epoch=0)
                 logger.info(f"saved {last_ckpt}")
+            barrier()               # the other ranks wait for rank 0's
             _sync(device)
             if steps_done > 1:
                 paused += time.time() - t_pause
@@ -482,3 +526,5 @@ def run_train(opt, args, net, sde, which, loaders, logger, device, seed,
 
 if __name__ == "__main__":
     main()
+    from ..parallel import shutdown
+    shutdown()

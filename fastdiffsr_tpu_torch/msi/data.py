@@ -197,7 +197,9 @@ class MSIDataLoader(DataLoader):
     """Batches of the shuffled (or ordered) samples, strings (path,
     class) kept as lists; a training batch is flipped left-right with
     probability 1/2, one draw per batch from ``default_rng(seed +
-    epoch)``."""
+    epoch)``. With ``shard_by_process`` a rank's batches are its rows of
+    the global batches (``DataLoader``'s split rule), and every rank
+    draws each global batch's flip alike."""
 
     def __iter__(self):
         idx = self._indices()

@@ -13,7 +13,8 @@ Here the summaries ride tensorboardX (same event-file format, no
 TensorFlow dependency, gated no-op when unavailable), the text logs keep
 the reference's exact row format, and the stdout tee is replaced by the
 package's standard logging FileHandler (utils/logging.setup_logger) —
-the python-native equivalent of PrintLogger.
+the python-native equivalent of PrintLogger. In a process group only
+rank 0 writes the text logs and summaries.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import os
 import time
 
+from ..parallel import is_main
 from ..utils.logging import get_logger, make_tb_writer
 
 
@@ -42,6 +44,9 @@ class MSILogger:
         self._log = get_logger("msi")
         self.loss_log_path = os.path.join(log_dir, "loss_log.txt")
         self.val_log_path = os.path.join(log_dir, "val_log.txt")
+        self.main = is_main()
+        if not self.main:
+            return
         with open(self.loss_log_path, "a") as f:
             f.write(f"=============== Time: {get_timestamp()} "
                     "=============\n")
@@ -88,8 +93,9 @@ class MSILogger:
         for label, value in rlt.items():
             message += fmt.format(label, value)
         self._log.info(message)
-        path = (self.loss_log_path if mode == "train"
-                else self.val_log_path)
-        with open(path, "a") as f:
-            f.write(message + "\n")
+        if self.main:
+            path = (self.loss_log_path if mode == "train"
+                    else self.val_log_path)
+            with open(path, "a") as f:
+                f.write(message + "\n")
         return message

@@ -6,6 +6,8 @@
         --scale_factor 4 --crop_size 256 --num_epochs 50 \\
         [--mode train|validate|validateByClass|test_single] \\
         [--resume <ckpt dir or .pth>] [--tiny] [--device cuda|cpu]
+    torchrun --nproc_per_node=<GPUs> -m fastdiffsr_tpu_torch.msi.main \\
+        --launcher pytorch ...
 
 The JAX CLI's flags, plus ``--device`` (CUDA unless ``--device cpu``);
 the initial weights come from seed 0, as JAX's from PRNGKey(0). Float32 is
@@ -14,6 +16,13 @@ for ``--mode train`` and keeps its heuristics for the evaluation modes
 (``device.set_cudnn_autotuning``). ``--tiny`` builds the small variants
 of the JAX CLI. ``main`` returns what the mode computed: the training
 summary, the validation means, the per-class report or the output path.
+
+``--launcher pytorch`` runs data-parallel under ``torchrun`` (it raises
+without torchrun's variables): one process per GPU on
+``cuda:{LOCAL_RANK}`` (NCCL; gloo with ``--device cpu``), ``--batch_size``
+the global batch, the evaluation modes' batches split over the ranks
+(``msi.trainer``); rank 0 writes the logs, checkpoints and plots, and
+``test_single`` runs on rank 0.
 """
 
 from __future__ import annotations
@@ -120,6 +129,8 @@ def parse_args(argv=None):
     p.add_argument("--output", type=str, default="sr_out.png")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--launcher", default="none", choices=["none", "pytorch"],
+                   help="pytorch: data parallel under torchrun")
     return p.parse_args(argv)
 
 
@@ -129,10 +140,13 @@ def main(argv=None):
 
     from ..device import (resolve_device, set_cudnn_autotuning,
                           use_ieee_float32)
+    from ..parallel import initialize_from_env, is_main
     from ..utils.logging import setup_logger
     from .trainer import SupervisedSRTrainer
 
-    device = resolve_device(args.device)
+    dist = args.launcher == "pytorch"
+    device = (initialize_from_env(args.device, flag="--launcher pytorch")
+              if dist else resolve_device(args.device))
     use_ieee_float32()
     set_cudnn_autotuning(args.mode == "train")
     logger = setup_logger("msi", args.save_dir, args.mode, screen=True)
@@ -148,13 +162,15 @@ def main(argv=None):
                              batch_size=args.batch_size,
                              max_steps=args.max_steps)
     if args.mode == "validate":
-        return trainer.validate([args.test_data_dir])
+        return trainer.validate([args.test_data_dir], shard=dist)
     if args.mode == "validateByClass":
-        return trainer.validate_by_class([args.test_data_dir])
+        return trainer.validate_by_class([args.test_data_dir], shard=dist)
     if not args.input:
         raise SystemExit("--input is required for --mode test_single")
-    return trainer.test_single(args.input, args.output)
+    return trainer.test_single(args.input, args.output) if is_main() else None
 
 
 if __name__ == "__main__":
     main()
+    from ..parallel import shutdown
+    shutdown()

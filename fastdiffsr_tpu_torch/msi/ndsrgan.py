@@ -28,6 +28,8 @@ import time
 import torch
 import torch.nn as nn
 
+from ..parallel import all_reduce_mean, data_parallel, local_batch
+
 
 def _conv3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1)
@@ -133,7 +135,17 @@ class GANTrainer:
     ndsrgan.py train():310+, LS penalty). ``args`` as the JAX trainer's:
     scale_factor, g_nf, g_nc, g_blocks, crop_size, lr, weight_gan; the
     initial weights come from ``seed`` (Flax defaults, ``msi.main.
-    init_weights``)."""
+    init_weights``).
+
+    Under a ``torch.distributed`` group (torchrun) each network trains in
+    its own DistributedDataParallel wrapper (JAX msi/ndsrgan.py:215-233):
+    the D step through D's, the G step through G's, with the G step's
+    adversarial term on the bare, frozen discriminator (its gradient
+    flows only into G, whose wrapper averages it). ``batch_size`` is the
+    global batch; a rank loads its rows. The discriminator's
+    GroupNorm(1, C) normalises each image alone, so the ranks' rows need
+    no SyncBatchNorm and a W-rank step is the 1-rank step. The returned
+    losses are means over the ranks."""
 
     def __init__(self, args, logger=None, device="cuda", seed: int = 0):
         from ..device import resolve_device
@@ -156,14 +168,16 @@ class GANTrainer:
                                       betas=(0.9, 0.999), eps=1e-8)
         self.w_gan = float(getattr(args, "weight_gan", 1e-3))
         self.step_count = 0
+        self.g_train = data_parallel(self.g)
+        self.d_train = data_parallel(self.d)
 
     def step(self, lr_b: torch.Tensor, hr_b: torch.Tensor) -> dict:
         """One D update then one G update; the four losses as tensors."""
         self.g.train()
         self.d.train()
-        fake = self.g(lr_b)
-        d_loss = ((self.d(hr_b) - 1.0) ** 2).mean() + \
-            (self.d(fake.detach()) ** 2).mean()
+        fake = self.g_train(lr_b)
+        d_loss = ((self.d_train(hr_b) - 1.0) ** 2).mean() + \
+            (self.d_train(fake.detach()) ** 2).mean()
         self.opt_d.zero_grad(set_to_none=True)
         d_loss.backward()
         self.opt_d.step()
@@ -177,8 +191,9 @@ class GANTrainer:
         self.opt_g.step()
         self.d.requires_grad_(True)
         self.step_count += 1
-        return {"g": g_loss.detach(), "d": d_loss.detach(),
-                "pixel": pixel.detach(), "adv": adv.detach()}
+        return {k: all_reduce_mean(v.detach()) for k, v in
+                (("g", g_loss), ("d", d_loss), ("pixel", pixel),
+                 ("adv", adv))}
 
     def train(self, train_dirs, num_epochs=1, batch_size=2,
               max_steps=None) -> dict:
@@ -187,7 +202,8 @@ class GANTrainer:
         from .data import MSIDataLoader, RGBSRDataset
         ds = RGBSRDataset(train_dirs, int(getattr(self.args, "crop_size", 64)),
                           self.scale, split="train")
-        loader = MSIDataLoader(ds, batch_size=batch_size, shuffle=True)
+        loader = MSIDataLoader(ds, batch_size=local_batch(batch_size),
+                               shuffle=True, shard_by_process=True)
         step, m, t1 = 0, {}, None
         for epoch in range(num_epochs):
             for batch in loader:

@@ -35,6 +35,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import rand_rows
+
 DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 
@@ -79,17 +81,19 @@ def shift_attn_mask(h: int, wd: int, w: int, shift: int,
 
 
 def drop_path(res: torch.Tensor, p: float, training: bool,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator) -> torch.Tensor:
     """Per-sample stochastic depth of a residual branch (B, N, C): kept
-    with probability 1 - p and scaled by 1 / (1 - p)."""
+    with probability 1 - p and scaled by 1 / (1 - p). ``generator`` is a
+    ``torch.Generator`` or, on a rank of a process group, a
+    ``parallel.RowGenerator``: the global batch's masks, this rank's
+    rows."""
     if p == 0.0 or not training:
         return res
     if generator is None:
         raise ValueError("drop-path in training draws its masks from an "
                          "explicit generator; pass generator=")
     keep = 1.0 - p
-    mask = torch.rand((res.shape[0], 1, 1), generator=generator,
-                      device=res.device) < keep
+    mask = rand_rows((res.shape[0], 1, 1), generator, res.device) < keep
     return res * mask.to(res.dtype) / keep
 
 

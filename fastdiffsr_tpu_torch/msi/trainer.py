@@ -26,8 +26,18 @@ model/{swinir,hsenet,transenet,ndsrgan,hat}.py, as one).
   calculate_lpips``); the panels and bar charts where matplotlib imports
   (one warning where it does not).
 
-One device: the JAX trainer's data-parallel mesh is not ported
-(ROADMAP.md queue 1 item 2).
+Data parallel under ``torchrun`` (``msi.main --launcher pytorch``; the
+counterpart of the JAX trainer's ``_enable_dp`` and eval mesh,
+msi/trainer.py:97-141): the net trains in DistributedDataParallel
+(``train.state.create_train_state``), ``batch_size`` is the global
+batch and each rank loads and trains its ``parallel.rank_rows`` block of
+it; SwinIR's drop-path masks are drawn for the global batch and sliced
+(``parallel.RowGenerator``), so a W-rank step is the 1-rank step; the
+logged loss is the mean over the ranks. Rank 0 runs the epoch-end
+validation and writes the logs, checkpoints and plots while the others
+wait at a barrier. ``validate`` / ``validate_by_class`` with ``shard``
+(every rank calls them) split each eval batch over the ranks
+(``parallel.sample_rows``) and all-reduce the metric sums.
 """
 
 from __future__ import annotations
@@ -42,6 +52,9 @@ import torch
 
 from .. import metrics as M
 from ..device import resolve_device, set_cudnn_autotuning
+from ..parallel import (RowGenerator, all_reduce_mean, all_reduce_sum,
+                        barrier, is_main, local_batch, rank, rank_rows,
+                        sample_rows, world_size)
 from ..train.checkpoint import load_state, save_state
 from ..train.state import create_train_state
 from ..train.steps import step_generator
@@ -50,6 +63,8 @@ from .data import MSIDataLoader, RGBSRDataset, load_rgb
 # the converter / reference-layout name of each model class
 ARCH_OF = {"SwinIR": "swinir", "HAT": "hat", "HSENet": "hsenet",
            "TransENet": "transenet", "DRRDBNet": "ndsrgan"}
+# the evaluation metrics, in the order of the logs
+METRICS = ("psnr", "ssim", "ergas", "mse", "psnr_bicubic", "lpips")
 
 
 def charbonnier(pred: torch.Tensor, target: torch.Tensor,
@@ -98,9 +113,15 @@ class SupervisedSRTrainer:
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
         """One Adam step on a (B,h,w,3) LR / (B,H,W,3) HR batch on the
-        device; returns the loss (not synchronised)."""
+        device (this rank's rows of the global batch); returns the loss,
+        averaged over the ranks (not synchronised)."""
         self.net.train()
-        out = self.net(lr, generator=generator)
+        world = world_size()
+        if world > 1 and generator is not None:
+            total = lr.shape[0] * world
+            generator = RowGenerator(generator,
+                                     rank_rows(total, rank(), world), total)
+        out = self.state.train_net(lr, generator=generator)
         loss = charbonnier(out, hr)
         if self.vgg is not None:
             with torch.no_grad():
@@ -110,7 +131,7 @@ class SupervisedSRTrainer:
         loss.backward()
         self.state.optimizer.step()
         self.state.step += 1
-        return loss.detach()
+        return all_reduce_mean(loss.detach())
 
     # ------------------------------------------------------------------ #
 
@@ -119,14 +140,16 @@ class SupervisedSRTrainer:
               ) -> dict:
         """Train; returns {steps, loss (per step), steady_steps_per_s
         (each epoch's first step excluded), validations, best_psnr,
-        checkpoint}."""
+        checkpoint} (rank 0's checkpoint and validations; None and []
+        on the other ranks)."""
         args = self.args
         num_epochs = num_epochs or int(getattr(args, "num_epochs", 50))
         batch_size = batch_size or int(getattr(args, "batch_size", 1))
         ds = RGBSRDataset(train_dirs, int(getattr(args, "crop_size", 256)),
                           self.scale, split="train")
         # shuffle=True implies drop_last
-        loader = MSIDataLoader(ds, batch_size=batch_size, shuffle=True)
+        loader = MSIDataLoader(ds, batch_size=local_batch(batch_size),
+                               shuffle=True, shard_by_process=True)
         step = start = int(self.state.step)
         best_psnr, path = -1.0, None
         all_losses, avg_losses, validations = [], [], []
@@ -164,7 +187,7 @@ class SupervisedSRTrainer:
             self.logger.info(
                 f"epoch {epoch + 1}/{num_epochs}: loss "
                 f"{np.mean(losses):.4e} ({time.time() - t0:.1f}s)")
-            if val_dirs:
+            if val_dirs and is_main():
                 set_cudnn_autotuning(False)
                 res = self.validate(val_dirs, max_images=8,
                                     save_images=False)
@@ -174,9 +197,10 @@ class SupervisedSRTrainer:
                     self.logger.info(f"best psnr {best_psnr:.4f} at epoch "
                                      f"{epoch + 1}, step {step}")
             path = self.save(epoch + 1)
+            barrier()           # the other ranks wait for rank 0's
             if max_steps and step >= max_steps:
                 break
-        if self._plots():
+        if is_main() and self._plots():
             from .plots import plot_loss
             plot_loss(avg_losses, len(avg_losses), save_dir=self.save_dir)
         return {"steps": step - start, "loss": all_losses,
@@ -184,7 +208,10 @@ class SupervisedSRTrainer:
                 "validations": validations, "best_psnr": best_psnr,
                 "checkpoint": path}
 
-    def save(self, epoch: int) -> str:
+    def save(self, epoch: int) -> Optional[str]:
+        """Rank 0 writes ``ckpt/I{it}_E{epoch}``; the others return None."""
+        if not is_main():
+            return None
         return save_state(self.state, os.path.join(self.save_dir, "ckpt"),
                           it=int(self.state.step), epoch=epoch)
 
@@ -216,14 +243,20 @@ class SupervisedSRTrainer:
         self.net.eval()
         return self.net(torch.from_numpy(lr).to(self.device)).cpu().numpy()
 
-    def _infer_batched(self, samples: list) -> np.ndarray:
+    def _infer_batched(self, samples: list, rows: slice = None
+                       ) -> np.ndarray:
         """SR of the samples' LR images in one forward at ``eval_batch``:
-        the tail is padded with the first image and its rows dropped."""
+        the tail is padded with the first image and its rows dropped.
+        ``rows`` (a rank's ``sample_rows``) computes only those rows of
+        the padded batch: the SR of samples ``rows.start`` on."""
+        rows = rows or slice(0, self.eval_batch)
+        if rows.stop <= rows.start or rows.start >= len(samples):
+            return np.zeros((0,))
         lr = np.stack([s["LR"] for s in samples])
         if lr.shape[0] < self.eval_batch:
             lr = np.concatenate([lr, np.repeat(
                 lr[:1], self.eval_batch - lr.shape[0], axis=0)])
-        return self._infer(lr)[:len(samples)]
+        return self._infer(lr[rows])[:len(samples) - rows.start]
 
     def _eval_one(self, sample: dict, save_dir: Optional[str] = None,
                   idx: int = 0, plot_dir: Optional[str] = None,
@@ -255,12 +288,31 @@ class SupervisedSRTrainer:
                              classname=classname)
         return res
 
+    def _eval_rows(self) -> slice:
+        return sample_rows(self.eval_batch, rank(), world_size())
+
+    @staticmethod
+    def _add(acc: np.ndarray, res: dict) -> None:
+        """Add one image's metrics to ``acc`` (METRICS, images, LPIPS
+        images)."""
+        acc[:len(METRICS)] += [res.get(k, 0.0) for k in METRICS]
+        acc[len(METRICS)] += 1
+        acc[len(METRICS) + 1] += "lpips" in res
+
+    @staticmethod
+    def _means(acc: np.ndarray) -> dict:
+        n = max(acc[len(METRICS)], 1)
+        return {k: float(v / n) for k, v in zip(METRICS, acc)
+                if k != "lpips" or acc[len(METRICS) + 1]}
+
     def validate(self, val_dirs, max_images: Optional[int] = None,
                  save_images: bool = True, crop: Optional[int] = None,
-                 save_plots: bool = False) -> dict:
+                 save_plots: bool = False, shard: bool = False) -> dict:
         """mfeNew_validate (swinir.py:1288+): mean metrics over the set,
         and ``infer_time``, the forward's seconds per image (the first
-        batch's set-up included), plus a val_log.txt row."""
+        batch's set-up included), plus a val_log.txt row. ``shard``:
+        each eval batch splits over the ranks, every rank saving its
+        images, and the sums are all-reduced."""
         ds = RGBSRDataset(val_dirs, crop or int(
             getattr(self.args, "test_crop_size", 256)), self.scale,
             split="val")
@@ -269,21 +321,24 @@ class SupervisedSRTrainer:
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
         plot_dir = self.save_dir if save_plots else None
-        agg, n, t_infer = {}, 0, 0.0
+        rows = self._eval_rows() if shard else None
+        acc, t_infer = np.zeros(len(METRICS) + 2), 0.0
         total = min(len(ds), max_images) if max_images else len(ds)
         for start in range(0, total, self.eval_batch):
             samples = [ds[i] for i in range(
                 start, min(start + self.eval_batch, total))]
             t0 = time.time()
-            srs = self._infer_batched(samples)
+            srs = self._infer_batched(samples, rows)
             t_infer += time.time() - t0
-            for j, s in enumerate(samples):
-                res = self._eval_one(s, save_dir, start + j,
-                                     plot_dir=plot_dir, sr=srs[j])
-                for k, v in res.items():
-                    agg[k] = agg.get(k, 0.0) + v
-                n += 1
-        out = {k: v / max(n, 1) for k, v in agg.items()}
+            first = rows.start if rows else 0
+            for j, sr in enumerate(srs):
+                self._add(acc, self._eval_one(
+                    samples[first + j], save_dir, start + first + j,
+                    plot_dir=plot_dir, sr=sr))
+        if shard:
+            acc = all_reduce_sum(acc)
+        n = int(acc[len(METRICS)])
+        out = self._means(acc)
         if n:
             out["infer_time"] = t_infer / n
         self.logger.info("validate: " + " ".join(
@@ -299,39 +354,43 @@ class SupervisedSRTrainer:
     def validate_by_class(self, val_dirs,
                           max_per_class: Optional[int] = None,
                           save_images: bool = False,
-                          save_plots: bool = False) -> dict:
+                          save_plots: bool = False,
+                          shard: bool = False) -> dict:
         """mfeNew_validateByClass (swinir.py:1430+): mean metrics per
         class subfolder and their mean (``__overall__``); with
         ``save_plots`` the panels under testplot/<class>/ and per-class
-        PSNR/ERGAS bar charts."""
+        PSNR/ERGAS bar charts (rank 0's). ``shard`` as ``validate``."""
         ds = RGBSRDataset(val_dirs, int(getattr(self.args, "test_crop_size",
                                                 256)),
                           self.scale, split="val")
-        per_class: dict = {}
+        counts: dict = {}
         picked = []
         for i in range(len(ds)):
             sample = ds[i]
-            slot = per_class.setdefault(sample["class"], {"_n": []})
-            if max_per_class and len(slot["_n"]) >= max_per_class:
+            cls = sample["class"]
+            if max_per_class and counts.get(cls, 0) >= max_per_class:
                 continue
-            slot["_n"].append(1)
+            counts[cls] = counts.get(cls, 0) + 1
             picked.append((i, sample))
+        classes = list(counts)
+        acc = np.zeros((len(classes), len(METRICS) + 2))
+        rows = self._eval_rows() if shard else None
         for start in range(0, len(picked), self.eval_batch):
             chunk = picked[start:start + self.eval_batch]
-            srs = self._infer_batched([s for _, s in chunk])
-            for (i, sample), sr in zip(chunk, srs):
+            srs = self._infer_batched([s for _, s in chunk], rows)
+            first = rows.start if rows else 0
+            for (i, sample), sr in zip(chunk[first:], srs):
                 cls = sample["class"]
                 res = self._eval_one(
                     sample, idx=i,
                     plot_dir=self.save_dir if save_plots else None,
                     classname=cls if save_plots else None, sr=sr)
-                slot = per_class[cls]
-                for k, v in res.items():
-                    slot[k] = slot.get(k, 0.0) + v
+                self._add(acc[classes.index(cls)], res)
+        if shard:
+            acc = all_reduce_sum(acc)
         report = {}
-        for cls, slot in per_class.items():
-            n = len(slot.pop("_n"))
-            report[cls] = {k: v / n for k, v in slot.items()}
+        for cls, a in zip(classes, acc):
+            report[cls] = self._means(a)
             self.logger.info(f"class {cls}: " + " ".join(
                 f"{k} {v:.4f}" for k, v in report[cls].items()))
         overall = {}
@@ -341,7 +400,7 @@ class SupervisedSRTrainer:
         report["__overall__"] = overall
         self.logger.info("overall: " + " ".join(
             f"{k} {v:.4f}" for k, v in overall.items()))
-        if save_plots and len(report) > 1 and self._plots():
+        if save_plots and len(report) > 1 and is_main() and self._plots():
             from .plots import plot_class_report
             for metric in ("psnr", "ergas"):
                 plot_class_report(report, metric, os.path.join(

@@ -5,7 +5,10 @@ for ``sm_90a`` (H100) at first use, one ``nvcc -c`` per source started
 together, then linked into one shared library with a plain C interface
 that is loaded with ``ctypes``. The library lands in ``build/kernels/``
 at the repository root (listed in ``.gitignore``) under a name that
-hashes the sources and flags, so an edited source is rebuilt.
+hashes the sources and flags, so an edited source is rebuilt. The ranks
+of a ``torchrun`` job reach the first use together: one builds while the
+others wait on a file lock beside the directory and then load its
+library.
 
 Each wrapper that launches a kernel adds one to its entry in
 ``LAUNCHES`` right after the launch, and nowhere else; a run resets the
@@ -16,6 +19,7 @@ show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -76,8 +80,16 @@ def build() -> pathlib.Path:
     lib_path = out_dir / "libfdsr_kernels.so"
     if lib_path.is_file():
         return lib_path
-    nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir.parent / f"{out_dir.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)       # released when it closes
+        if not lib_path.is_file():
+            _compile(out_dir, lib_path)
+    return lib_path
+
+
+def _compile(out_dir: pathlib.Path, lib_path: pathlib.Path) -> None:
+    nvcc = _find_nvcc()
     t0 = time.time()
     procs = []
     for src in SOURCES:
@@ -101,10 +113,9 @@ def build() -> pathlib.Path:
                          stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed: {' '.join(cmd)}\n{res.stdout}")
-    os.replace(tmp, lib_path)
     (out_dir / "build.log").write_text(
         f"built in {time.time() - t0:.1f} s\n" + "\n".join(logs))
-    return lib_path
+    os.replace(tmp, lib_path)
 
 
 def load() -> ctypes.CDLL:

@@ -4,7 +4,11 @@ Counterpart of ``fastdiffsr_tpu/train/state.py``. JAX keeps an immutable
 pytree and returns a new one per step; here :class:`TrainState` holds the
 live ``nn.Module`` and ``torch.optim.Optimizer`` and the train step
 updates them in place. The EMA parameters (decay 0.9999 from step 5000 by
-default) are a dict of tensors keyed by parameter name.
+default) are a dict of tensors keyed by parameter name. Under a
+``torch.distributed`` group the train step calls ``train_net``, the net
+in ``DistributedDataParallel`` (``parallel.data_parallel``); ``net``,
+the EMA and the checkpoints stay the bare module, so saved keys carry no
+``module.`` prefix.
 
 :func:`make_optimizer` builds the optimizers of the JAX package with
 optax's defaults: ``adam`` (b1 0.9, b2 0.999, eps 1e-8), ``adamw`` (the
@@ -28,6 +32,7 @@ class TrainState:
     net: torch.nn.Module
     optimizer: torch.optim.Optimizer
     ema_params: Dict[str, torch.Tensor]
+    train_net: torch.nn.Module          # net, or its DDP wrapper
 
     def ema_or_params(self, use_ema: bool = True) -> Dict[str, torch.Tensor]:
         """The EMA parameters, or the live ones, as a state dict."""
@@ -38,9 +43,14 @@ class TrainState:
 
 def create_train_state(net: torch.nn.Module,
                        optimizer: torch.optim.Optimizer) -> TrainState:
+    """The state at step 0; under a process group ``train_net`` wraps
+    ``net`` in DDP, which starts every rank from rank 0's parameters."""
+    from ..parallel import data_parallel
+    train_net = data_parallel(net)
     return TrainState(step=0, epoch=0, net=net, optimizer=optimizer,
                       ema_params={k: p.detach().clone()
-                                  for k, p in net.named_parameters()})
+                                  for k, p in net.named_parameters()},
+                      train_net=train_net)
 
 
 class Lion(torch.optim.Optimizer):

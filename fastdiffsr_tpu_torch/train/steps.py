@@ -11,6 +11,17 @@ seed, step) by :func:`step_generator`, the counterpart of
 one would. The JAX package's ``n_sub`` (several steps in one dispatch)
 has no counterpart: a call per step costs nothing extra here.
 
+Under a ``torch.distributed`` group of W ranks a rank's batch is its
+``parallel.rank_rows`` block of the global batch. Every rank draws the
+global batch's noise and noise level (cached: also its indices and
+flips) from the step's generator and keeps its rows, as JAX draws one
+global key, so the step equals the single-process step; DDP averages
+the gradients over the ranks before the update and the EMA, and the
+logged ``l_pix`` is the mean over the ranks. Dropout is the exception:
+with W > 1 a rank draws its masks at its own rows from a generator of
+(step, rank), so such a step is not the 1-rank step (JAX draws one
+global mask).
+
 :func:`pad_batch_with_keys` is the shared val/infer batching contract: a
 tail batch is padded to the full batch size and every image gets its own
 ``torch.Generator`` seeded from its GLOBAL index, so an image's output
@@ -27,6 +38,7 @@ import numpy as np
 import torch
 
 from ..diffusion.engine import DiffusionEngine
+from ..parallel import all_reduce_mean, rank, rank_rows, world_size
 from .state import TrainState
 
 
@@ -36,6 +48,14 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     state = np.random.SeedSequence([int(seed), 1, int(step)]).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+def rank_generator(generator: torch.Generator, r: int) -> torch.Generator:
+    """A stream of rank ``r``'s own, derived from ``generator``'s seed."""
+    state = np.random.SeedSequence(
+        [int(generator.initial_seed()), 3, int(r)]).generate_state(
+            1, np.uint64)[0]
+    return torch.Generator(device=generator.device).manual_seed(int(state))
 
 
 def make_train_step(engine: DiffusionEngine, ema_decay: float = 0.9999,
@@ -59,9 +79,18 @@ def make_train_step(engine: DiffusionEngine, ema_decay: float = 0.9999,
                    gamma=None, t=None):
         net = state.net
         net.train()
-
+        world = world_size()
+        if noise is None and gamma is None and t is None:
+            x = batch["HR"]
+            rows = rank_rows(x.shape[0] * world, rank(), world)
+            draws = engine.training_draws(
+                generator, (x.shape[0] * world, *x.shape[1:]), x.device)
+            noise, gamma, t = (draws[k][rows] if k in draws else None
+                               for k in ("noise", "gamma", "t"))
+        net_gen = (generator if world == 1 or generator is None
+                   else rank_generator(generator, rank()))
         def denoise(x_in, level):
-            return net(x_in, level, generator=generator)
+            return state.train_net(x_in, level, generator=net_gen)
 
         loss = engine.training_loss(denoise, batch, generator, noise=noise,
                                     gamma=gamma, t=t)
@@ -79,7 +108,8 @@ def make_train_step(engine: DiffusionEngine, ema_decay: float = 0.9999,
             torch._foreach_add_(ema, [p.detach() for _, p in named],
                                 alpha=1.0 - decay)
         state.step += 1
-        return state, {"l_pix": loss.detach(), "grad_norm": grad_norm}
+        return state, {"l_pix": all_reduce_mean(loss.detach()),
+                       "grad_norm": grad_norm}
 
     return train_step
 
@@ -91,20 +121,25 @@ def make_cached_train_step(engine: DiffusionEngine, batch_size: int,
 
     ``data`` is {'HR': (N,r,r,3), 'SR': (N,r,r,3)} uint8 tensors on the
     net's device, passed unchanged every call. Each step draws
-    ``batch_size`` indices WITH replacement, maps them to [-1, 1] as
-    ``u8 / 127.5 - 1`` and flips each pair horizontally with
-    probability 1/2, from ``step_generator(seed, state.step)``, and then
-    runs :func:`make_train_step`'s body with the same generator."""
+    ``batch_size`` (the global batch) indices WITH replacement, maps them
+    to [-1, 1] as ``u8 / 127.5 - 1`` and flips each pair horizontally
+    with probability 1/2, from ``step_generator(seed, state.step)``,
+    keeps this rank's rows, and then runs :func:`make_train_step`'s body
+    with the same generator."""
     body = make_train_step(engine, ema_decay, ema_start)
 
     def assemble(data, gen):
         n = data["HR"].shape[0]
         dev = data["HR"].device
         idx = torch.randint(0, n, (batch_size,), generator=gen, device=dev)
-        batch = {k: v[idx].float() / 127.5 - 1.0 for k, v in data.items()}
         flip = torch.rand((batch_size,), generator=gen, device=dev) < 0.5
-        sel = flip[:, None, None, None]
-        return {k: torch.where(sel, v.flip(2), v) for k, v in batch.items()}
+        rows = rank_rows(batch_size, rank(), world_size())
+        idx, sel = idx[rows], flip[rows, None, None, None]
+        out = {}
+        for k, v in data.items():
+            x = v[idx].float() / 127.5 - 1.0
+            out[k] = torch.where(sel, x.flip(2), x)
+        return out
 
     def train_step(state: TrainState, data: Dict[str, torch.Tensor],
                    seed: int):

@@ -2,7 +2,9 @@
 train logger and a 'val' logger, each writing ``{phase}.log`` under the run
 dir, plus optional TensorBoard via tensorboardX.
 
-Counterpart of ``fastdiffsr_tpu/utils/logging.py``."""
+Counterpart of ``fastdiffsr_tpu/utils/logging.py``. In a process group
+(``-dist``) only rank 0 writes logs and TensorBoard events; the other
+ranks' loggers pass warnings and errors to stderr and drop the rest."""
 
 from __future__ import annotations
 
@@ -12,7 +14,14 @@ import os
 
 def setup_logger(logger_name: str, root: str, phase: str,
                  level=logging.INFO, screen: bool = False) -> logging.Logger:
+    from ..parallel import is_main
     logger = logging.getLogger(logger_name)
+    if not is_main():
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+        logger.setLevel(logging.WARNING)
+        return logger
     target = os.path.abspath(os.path.join(root, f"{phase}.log"))
     if any(isinstance(h, logging.FileHandler)
            and getattr(h, "baseFilename", None) == target
@@ -51,7 +60,11 @@ def get_logger(name: str = "base") -> logging.Logger:
 
 
 def make_tb_writer(log_dir: str):
-    """TensorBoard writer or None when tensorboardX is unavailable."""
+    """TensorBoard writer or None when tensorboardX is unavailable (or
+    on a rank other than 0)."""
+    from ..parallel import is_main
+    if not is_main():
+        return None
     try:
         from tensorboardX import SummaryWriter
         return SummaryWriter(log_dir=log_dir)

@@ -160,6 +160,15 @@ def test_ema_decay_is_jaxs():
         jtrain.EMA_BETA, jtrain.EMA_UPDATE_EVERY)
 
 
-def test_launcher_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        ttrain.main(["-opt", str(YMLS[0]), "-launcher", "pytorch"])
+def test_launcher_without_torchrun_raises_naming_the_variables(
+        monkeypatch):
+    """-launcher pytorch never runs as one quiet process: without
+    torchrun's variables it raises and names them."""
+    names = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+             "MASTER_PORT")
+    for k in names:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="-launcher pytorch") as err:
+        ttrain.main(["-opt", str(YMLS[0]), "-launcher", "pytorch",
+                     "--device", "cpu"])
+    assert all(k in str(err.value) for k in names)

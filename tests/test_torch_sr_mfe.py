@@ -2,7 +2,7 @@
 CPU at a tiny size (inner 8, groups 4, mults [1, 2], 1 res block,
 8->16): -debug train -> I*_E* checkpoint -> val, resume, the device-cache
 loop, a JAX checkpoint in the val phase, the infer CLI on trainer
-checkpoints, and the flags that are not ported."""
+checkpoints, and -dist without torchrun's variables."""
 
 import json
 import logging
@@ -188,11 +188,26 @@ def test_infer_reads_trainer_checkpoints(tmp_path, monkeypatch):
                for a, b in zip(outs[False], outs[True]))
 
 
-@pytest.mark.parametrize("flag,queue", [("-dist", "queue 4")])
-def test_unported_flags_raise(tmp_path, flag, queue):
-    with pytest.raises(NotImplementedError, match=queue):
-        sr_mfe.main(["-c", _write(tmp_path, _config(tmp_path)), flag,
+TORCHRUN_ENV = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "29500"}
+
+
+@pytest.mark.parametrize("missing", [tuple(TORCHRUN_ENV), ("MASTER_PORT",)])
+def test_dist_without_torchrun_raises_naming_the_variables(
+        tmp_path, monkeypatch, missing):
+    """-dist never runs as one quiet process: without torchrun's
+    variables it raises and names the missing ones."""
+    for k, v in TORCHRUN_ENV.items():
+        if k in missing:
+            monkeypatch.delenv(k, raising=False)
+        else:
+            monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="torchrun") as err:
+        sr_mfe.main(["-c", _write(tmp_path, _config(tmp_path)), "-dist",
                      "--device", "cpu"])
+    assert all(k in str(err.value) for k in missing)
+    assert not any(k in str(err.value) for k in TORCHRUN_ENV
+                   if k not in missing)
 
 
 def test_train_cli_refuses_silent_cpu(tmp_path):
