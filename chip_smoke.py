@@ -18,7 +18,11 @@ limit:
    kernel's, the plain version's and one F.conv2d's times and the least
    time the card could take; then f32 again at batch 1, the validation
    batch, where the f32 kernel takes smaller tiles;
-3. the same for K2 (channel statistics) at its shapes;
+3. the same for K2 (channel statistics) at its shapes, at batch 16 in
+   bf16 and f32 and at batch 1 in f32 (the ``-p val`` shape): per shape
+   the kernels one call launches (the kernel nodes of a captured CUDA
+   graph: one), repeated calls and graph replays bit-equal, and the times
+   beside the launch floor (a one-element in-place add timed the same way);
 4. one full-width UNet eval at 256x256, fused forward against the plain
    UNet (its Blocks on gn_swish_reference), f32 (and bf16 fused against
    f32 plain);
@@ -29,8 +33,9 @@ limit:
    with no ``--dtype`` (float32, infer's default; K3 on the CUDA cores);
 6. K1 (GroupNorm -> Swish) against its plain version at every distinct
    K1 shape of one full-width training forward at batch 4, in f32 and
-   bf16, with the kernel's, the plain version's and the two library calls'
-   (F.group_norm then F.silu) times and the least time the card could take;
+   bf16 (two kernels per call: K2's, then the apply pass), with the
+   kernel's, the plain version's and the two library calls' (F.group_norm
+   then F.silu) times and the least time the card could take;
 7. a wiring check of gn_swish_custom at the largest K1 shape: K1 has no
    backward kernel, and its gradients (the VJP of gn_swish_reference)
    must match autograd of gn_swish_plain, K1's own formulation;
@@ -158,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -355,6 +361,34 @@ def device_ms(fn, reps: int) -> float:
 def timed(fn, reps: int):
     """(device ms, CUDA-event wall ms) per call of ``fn``."""
     return device_ms(fn, reps), time_ms(fn, reps)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_floor_ms() -> float:
+    """The single-launch floor of this card: device time per call of a
+    one-element PyTorch in-place op in device_ms's CUDA-graph harness,
+    measured once per run."""
+    import torch
+    one = torch.zeros(1, device="cuda")
+    return device_ms(lambda: one.add_(1.0), REPS)
+
+
+def same_bits_again(fn, want, n: int = 3) -> bool:
+    """``n`` more eager calls of ``fn``, and ``n`` replays of one call
+    captured in a CUDA graph, each give ``want``'s bits."""
+    import torch
+    if not all(torch.equal(fn(), want) for _ in range(n)):
+        return False
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(n):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            return False
+    return True
 
 
 def _k1_sites():
@@ -559,24 +593,33 @@ def print_k3_totals(rows, card, label=""):
               f"{total(rows, 'bound_ms', dt):.3f} ms", flush=True)
 
 
-def phase_k2(sigs, B, reps, card, seed):
+def phase_k2(sigs, B, reps, card, seed, dtypes=("bf16", "f32")):
+    """K2 against its plain version at every signature of ``sigs`` at batch
+    ``B`` in each of ``dtypes``: one kernel node per call (a captured
+    graph), repeated calls and graph replays bit-equal, then the device and
+    wall times of the kernel and the plain version beside the bound and the
+    launch floor."""
     import torch
 
+    from fastdiffsr_tpu_torch.ops import kernels
     from fastdiffsr_tpu_torch.ops.groupnorm import (channel_stats,
                                                     channel_stats_plain)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
+    floor = launch_floor_ms()
     rows, ok = [], True
     for (H, W, C), count in sorted(sigs.items()):
-        for dt_name, dt in (("bf16", torch.bfloat16),
-                            ("f32", torch.float32)):
+        for dt_name in dtypes:
+            dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dt_name]
             x = torch.randn((B, H, W, C), generator=g, device=dev).to(dt)
             got = channel_stats(x)
             torch.cuda.synchronize()
             want = channel_stats_plain(x)
             err = (got - want).abs().max().item()
             tol = STATS_RTOL * want[:, 1].abs().max().item() + 1e-3
-            row_ok = err <= tol
+            per_call = kernels.kernels_per_call(lambda: channel_stats(x))
+            same = same_bits_again(lambda: channel_stats(x), got)
+            row_ok = err <= tol and per_call == 1 and same
             ok &= row_ok
             ms, wall_ms = timed(lambda: channel_stats(x), reps)
             plain_ms, plain_wall_ms = timed(lambda: channel_stats_plain(x),
@@ -589,15 +632,43 @@ def phase_k2(sigs, B, reps, card, seed):
                          "tol": tol, "ok": row_ok, "ms": ms,
                          "plain_ms": plain_ms, "library_ms": None,
                          "wall_ms": wall_ms, "plain_wall_ms": plain_wall_ms,
-                         "bound_ms": b_ms, "bound_by": b_by})
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "launches_per_call": per_call, "bit_equal": same,
+                         "floor_ms": floor})
             print(f"[K2] {card} | {dt_name} B={B} {H}x{W} C={C} x{count}/eval"
-                  f" | max|d|={err:.3g} (tol {tol:.3g})"
-                  f" {'ok' if row_ok else 'FAIL'} | device: kernel {ms:.4f} "
-                  f"ms plain {plain_ms:.4f} ms | wall: kernel {wall_ms:.4f} "
-                  f"ms plain {plain_wall_ms:.4f} ms | bound {b_ms:.4f} ms "
-                  f"({b_by})",
-                  flush=True)
+                  f" | max|d|={err:.3g} (tol {tol:.3g}), {per_call} launch"
+                  f"/call, repeats and graph replays "
+                  f"{'bit-equal' if same else 'DIFFER'} "
+                  f"{'ok' if row_ok else 'FAIL'} | device: kernel {ms:.4f} "
+                  f"ms ({b_ms / ms:.2f} of bound) plain {plain_ms:.4f} ms | "
+                  f"wall: kernel {wall_ms:.4f} ms plain {plain_wall_ms:.4f} "
+                  f"ms | bound {b_ms:.4f} ms ({b_by}) | launch floor "
+                  f"{floor:.4f} ms", flush=True)
+            del x, got, want
     return rows, ok
+
+
+def floor_line(launches) -> str:
+    """``launches`` beside the time they take at the launch floor."""
+    floor = launch_floor_ms()
+    return (f"{launches} launches at the floor {floor:.4f} ms: "
+            f"{launches * floor:.4f} ms")
+
+
+def print_k2_totals(rows, card, label=""):
+    """One ``[K2 total ...]`` line per type of ``rows`` (one batch): per
+    eval, beside the bound and the floor of the eval's launches."""
+    for dt in sorted({r["dtype"] for r in rows}):
+        B = rows[0]["B"]
+        calls = sum(r["calls_per_eval"] for r in rows if r["dtype"] == dt)
+        launches = total(rows, "launches_per_call", dt)
+        kern, bnd = total(rows, "ms", dt), total(rows, "bound_ms", dt)
+        print(f"[K2 total {dt} B={B}{label}] {card} | per UNet eval "
+              f"({calls} calls), device: kernel {kern:.4f} ms "
+              f"({bnd / kern:.2f} of bound), plain "
+              f"{total(rows, 'plain_ms', dt):.4f} ms | wall: kernel "
+              f"{total(rows, 'wall_ms', dt):.4f} ms | bound {bnd:.4f} ms | "
+              f"{floor_line(launches)}", flush=True)
 
 
 def record_k1(net, x, level):
@@ -628,6 +699,7 @@ def phase_k1(sigs, B, reps, card, seed, dtypes=("f32", "bf16")):
     import torch
     import torch.nn.functional as F
 
+    from fastdiffsr_tpu_torch.ops import kernels
     from fastdiffsr_tpu_torch.ops.groupnorm import (gn_swish, gn_swish_plain,
                                                     gn_swish_reference)
     dev = torch.device("cuda")
@@ -651,6 +723,10 @@ def phase_k1(sigs, B, reps, card, seed, dtypes=("f32", "bf16")):
                 rel, atol = K1_TOL["bf16"]
                 row_ok = bool((dy <= want.float().abs() * rel + atol).all())
             row_ok &= bool(torch.isfinite(got).all())
+            # pass 1 (K2's kernel) and pass 2
+            per_call = kernels.kernels_per_call(
+                lambda: gn_swish(x, scale, bias, G))
+            row_ok &= per_call == 2
             ok &= row_ok
             del got, want, dy
             ms, wall_ms = timed(lambda: gn_swish(x, scale, bias, G), reps)
@@ -678,11 +754,13 @@ def phase_k1(sigs, B, reps, card, seed, dtypes=("f32", "bf16")):
                          "plain_wall_ms": plain_wall_ms,
                          "two_call_library_wall_ms": lib_wall_ms,
                          "reference_wall_ms": ref_wall_ms,
-                         "bound_ms": b_ms, "bound_by": b_by})
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "launches_per_call": per_call})
             print(f"[K1] {card} | {dt_name} B={B} {H}x{W} C={C} G={G} "
-                  f"x{count}/forward | max|dy|={err:.3g} "
-                  f"{'ok' if row_ok else 'FAIL'} | device: kernel {ms:.4f} "
-                  f"ms plain {plain_ms:.4f} ms F.group_norm+F.silu (two "
+                  f"x{count}/forward | max|dy|={err:.3g}, {per_call} "
+                  f"launches/call {'ok' if row_ok else 'FAIL'} | device: "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                  f"F.group_norm+F.silu (two "
                   f"library calls) {lib_ms:.4f} ms gn_swish_reference "
                   f"{ref_ms:.4f} ms | wall: kernel {wall_ms:.4f} ms plain "
                   f"{plain_wall_ms:.4f} ms two calls {lib_wall_ms:.4f} ms "
@@ -1271,12 +1349,16 @@ def phase_k1_variants(done_rows, card, seed):
                                   "two_call_library_ms", "wall_ms")}
             tot[key]["max_abs_err"] = max(rows[(*sg, dt, B)]["max_abs_err"]
                                           for sg in sigs)
+            tot[key]["launches"] = sum(
+                rows[(*sg, dt, B)]["launches_per_call"] * n
+                for sg, n in sigs.items())
             print(f"[K1 total {variant} {dt} B={B}] {card} | per forward, "
                   f"device: kernel {tot[key]['ms']:.3f} ms, plain "
                   f"{tot[key]['plain_ms']:.3f} ms, F.group_norm+F.silu "
                   f"{tot[key]['two_call_library_ms']:.3f} ms | wall: kernel "
                   f"{tot[key]['wall_ms']:.3f} ms | bound "
-                  f"{tot[key]['bound_ms']:.3f} ms", flush=True)
+                  f"{tot[key]['bound_ms']:.3f} ms | "
+                  f"{floor_line(tot[key]['launches'])}", flush=True)
         detail[variant] = {"shapes": [list(sg) + [n] for sg, n in
                                       sorted(sigs.items())],
                            "rows": new_rows + b1_rows, "total": tot}
@@ -1347,11 +1429,7 @@ def phase_512_kernels(card, seed):
                               dtypes=("f32", "bf16"))
     k2_rows, k2_ok = phase_k2(k2_sigs, 1, REPS, card, seed)
     print_k3_totals(k3_rows, card, f" {r}x{r}")
-    for dt in ("f32", "bf16"):
-        print(f"[K2 total {dt} B=1 {r}x{r}] {card} | per UNet eval, device: "
-              f"kernel {total(k2_rows, 'ms', dt):.4f} ms, plain "
-              f"{total(k2_rows, 'plain_ms', dt):.4f} ms | bound "
-              f"{total(k2_rows, 'bound_ms', dt):.4f} ms", flush=True)
+    print_k2_totals(k2_rows, card, f" {r}x{r}")
     return {"k3": k3_rows, "k2": k2_rows}, ok and k3_ok and k2_ok
 
 
@@ -2620,9 +2698,20 @@ def main(argv=None) -> int:
     k3_rows, k3_ok = phase_k3(k3_sigs, B, REPS, card, args.seed)
     k3_b1_rows, k3_b1_ok = phase_k3(k3_sigs, 1, REPS, card, args.seed,
                                     dtypes=("f32",))
+    floor = launch_floor_ms()
+    print(f"[floor] {card} | the launch floor: a one-element in-place add, "
+          f"device {floor:.4f} ms per call ({REPS} calls in one CUDA-graph "
+          f"replay)", flush=True)
+    detail["floor_ms"] = floor
     k2_rows, k2_ok = phase_k2(k2_sigs, B, REPS, card, args.seed)
-    ok &= k3_ok and k3_b1_ok and k2_ok
-    detail["k3"], detail["k3_b1"], detail["k2"] = k3_rows, k3_b1_rows, k2_rows
+    # batch 1 in float32, the -p val shape
+    k2_b1_rows, k2_b1_ok = phase_k2(k2_sigs, 1, REPS, card, args.seed,
+                                    dtypes=("f32",))
+    print_k2_totals(k2_rows, card)
+    print_k2_totals(k2_b1_rows, card)
+    ok &= k3_ok and k3_b1_ok and k2_ok and k2_b1_ok
+    detail["k3"], detail["k3_b1"] = k3_rows, k3_b1_rows
+    detail["k2"], detail["k2_b1"] = k2_rows, k2_b1_rows
     lap("2-3 K3, K2")
 
     # 4. one full-width UNet eval, fused vs plain
@@ -2794,7 +2883,8 @@ def main(argv=None) -> int:
     k1_tot = {k: total(k1_rows, k, "f32", "calls_per_forward")
               for k in ("ms", "plain_ms", "bound_ms", "two_call_library_ms",
                         "reference_ms", "wall_ms", "plain_wall_ms",
-                        "two_call_library_wall_ms", "reference_wall_ms")}
+                        "two_call_library_wall_ms", "reference_wall_ms",
+                        "launches_per_call")}
     print(f"[K1 total] {card} | f32 per training forward (B={B_TRAIN}), "
           f"device: kernel {k1_tot['ms']:.3f} ms, plain "
           f"{k1_tot['plain_ms']:.3f} ms, F.group_norm+F.silu "
@@ -2803,7 +2893,8 @@ def main(argv=None) -> int:
           f"wall: kernel {k1_tot['wall_ms']:.3f} ms, plain "
           f"{k1_tot['plain_wall_ms']:.3f} ms, two calls "
           f"{k1_tot['two_call_library_wall_ms']:.3f} ms | bound "
-          f"{k1_tot['bound_ms']:.3f} ms", flush=True)
+          f"{k1_tot['bound_ms']:.3f} ms | "
+          f"{floor_line(k1_tot['launches_per_call'])}", flush=True)
     detail["k1_total_f32"] = k1_tot
     kern = [
         {"name": "gn_swish", "route": "cuda",
@@ -2821,7 +2912,10 @@ def main(argv=None) -> int:
          "wall_ms": k1_tot["wall_ms"],
          "ms_b1": k1_b1["ms"], "plain_ms_b1": k1_b1["plain_ms"],
          "bound_ms_b1": k1_b1["bound_ms"],
-         "two_call_library_ms_b1": k1_b1["two_call_library_ms"]},
+         "two_call_library_ms_b1": k1_b1["two_call_library_ms"],
+         "launches_per_call": max(r["launches_per_call"]
+                                  for r in k1_all_rows),
+         "floor_ms": detail["floor_ms"]},
         # K3 has two hand-written kernels: bf16 maps (serving) run on the
         # tensor cores, f32 maps (validation) on the CUDA cores
         {"name": "fused_gn_swish_conv3x3", "route": "cuda",
@@ -2864,6 +2958,15 @@ def main(argv=None) -> int:
          "ms": total(k2_rows, "ms"), "plain_ms": total(k2_rows, "plain_ms"),
          "bound_ms": total(k2_rows, "bound_ms"), "bound_by": by(k2_rows),
          "library_ms": None, "wall_ms": total(k2_rows, "wall_ms"),
+         "ms_f32": total(k2_rows, "ms", "f32"),
+         "bound_ms_f32": total(k2_rows, "bound_ms", "f32"),
+         # batch 1, float32: the -p val shape
+         "ms_b1": total(k2_b1_rows, "ms", "f32"),
+         "plain_ms_b1": total(k2_b1_rows, "plain_ms", "f32"),
+         "bound_ms_b1": total(k2_b1_rows, "bound_ms", "f32"),
+         "launches_per_call": max(r["launches_per_call"]
+                                  for r in k2_rows + k2_b1_rows + k2_512),
+         "floor_ms": detail["floor_ms"],
          **at_512(k2_512, "bf16", "max_abs_err"),
          **{f"{k}_f32": v for k, v in
             at_512(k2_512, "f32", "max_abs_err").items()}},

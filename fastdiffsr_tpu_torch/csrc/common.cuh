@@ -3,8 +3,9 @@
 // Every kernel reads and writes NHWC maps in float32 or bfloat16 and does
 // its arithmetic in float32. Cross-block reductions never use float
 // atomics: a kernel writes per-block partial sums (B, nTiles, 2, C) and
-// launch_reduce_partials sums them over the tiles in a fixed order, so a
-// result is the same on every run.
+// they are summed over the tiles in a fixed order (K3: by
+// launch_reduce_partials; K2: by the last of its own blocks), so a result
+// is the same on every run.
 #pragma once
 
 #include <cstdint>
@@ -130,7 +131,8 @@ __device__ __forceinline__ void block_group_mean_inv(
   __syncthreads();
 }
 
-// (B, n_tiles, 2, C) partial sums -> (B, 2, C), summed over tiles in order.
+// (B, n_tiles, 2, C) partial sums -> (B, 2, C), summed over tiles in order
+// (reduce_partials.cu).
 void launch_reduce_partials(const float* partial, float* out, int B,
                             int n_tiles, int C, cudaStream_t stream);
 

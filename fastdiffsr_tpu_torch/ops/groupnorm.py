@@ -6,8 +6,9 @@ Counterpart of ``fastdiffsr_tpu/ops/groupnorm.py``:
   two-pass statistics (``_gn_swish_reference`` there);
 - :func:`channel_stats` is K2 (``channel_stats_pallas`` there): per-channel
   (sum, sum of squares) over H,W, (B,H,W,C) -> (B,2,C) float32. On a CUDA
-  tensor it launches the kernel in ``csrc/channel_stats.cu`` or raises;
-  the plain version runs only for tensors on the CPU;
+  tensor it launches the kernel in ``csrc/channel_stats.cu`` once, with the
+  plan of :func:`channel_stats_plan`, or raises; the plain version runs
+  only for tensors on the CPU;
 - :func:`gn_swish` is K1 (``_gn_swish_pallas`` there): channel sums (K2's
   kernel), then the channel->group collapse, normalise, affine and swish
   in ``csrc/gn_swish.cu``: two launches. :func:`gn_swish_plain` is the
@@ -23,6 +24,9 @@ Groups are contiguous channel slices, as in ``torch.nn.GroupNorm``.
 """
 
 from __future__ import annotations
+
+import threading
+from typing import NamedTuple
 
 import torch
 
@@ -52,26 +56,104 @@ def channel_stats_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_nhwc(x: torch.Tensor, what: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: dtype {x.dtype} (want float32 or bfloat16)")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{what}: want a contiguous NHWC map")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+SMS = 132                # the H100 SXM's SMs
+# constants of csrc/channel_stats.cu (kThreads, kSlab, kFinalLanes,
+# kCounterSlots, kSlotCounters); tests/test_torch_kernels_gpu.py holds them
+# to the library's
+K2_THREADS = 256
+K2_SLAB = 32
+K2_FINAL_LANES = 16
+K2_COUNTER_SLOTS = 128
+K2_SLOT_COUNTERS = 4096
+K2_BLOCKS_PER_SM = 2     # the grid K2's plan aims at, over all images
+K2_MAX_BLOCKS = 128      # blocks per (image, slab) the last block sums
+
+
+class ChannelStatsPlan(NamedTuple):
+    """How ``csrc/channel_stats.cu`` walks one call."""
+    vec: int          # channels per load (16 bytes, or 1: scalar loads)
+    slab_units: int   # channel vectors per block (32 channels)
+    n_slabs: int      # blocks across the channels of a pixel (grid y)
+    lanes: int        # pixel lanes per block
+    n_blocks: int     # blocks per (image, slab) (grid x)
+    final_lanes: int  # lanes of the last block's ordered sum over blocks
+
+
+def channel_stats_plan(B: int, HW: int, C: int, itemsize: int,
+                       aligned: bool = True) -> ChannelStatsPlan:
+    """K2's launch plan for a (B, HW, C) map of ``itemsize``-byte elements
+    (``aligned``: its data is 16-byte aligned), from the shape alone.
+
+    16-byte loads where C is a multiple of their channels, else scalar ones;
+    32 channels per block, the block's other threads pixel lanes. Each
+    (image, slab) gets enough blocks that the grid holds about
+    K2_BLOCKS_PER_SM blocks per SM, but at most K2_MAX_BLOCKS (unless that
+    leaves fewer blocks than SMs) and no more than give every lane one
+    pixel; block k of n takes pixels [k*HW // n, (k+1)*HW // n)."""
+    wide = 16 // itemsize
+    vec = wide if C % wide == 0 and aligned else 1
+    slab_units = K2_SLAB // vec
+    n_slabs = -(-C // K2_SLAB)
+    lanes = K2_THREADS // slab_units
+    per = B * n_slabs
+    want = max(-(-SMS // per),
+               min(-(-K2_BLOCKS_PER_SM * SMS // per), K2_MAX_BLOCKS))
+    n_blocks = min(want, -(-HW // lanes))
+    return ChannelStatsPlan(vec, slab_units, n_slabs, lanes, n_blocks,
+                            K2_FINAL_LANES)
+
+
+_SLOTS: dict = {}
+_SLOTS_LOCK = threading.Lock()
+
+
+def _counter_slot(device: torch.device) -> int:
+    """The counter slot of the current stream on ``device``: one per
+    (device, stream), never shared, so K2 calls that may run at once never
+    share a counter. A CUDA graph keeps the slot of the stream it was
+    captured on: graphs captured on one stream are replayed one at a
+    time."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _SLOTS_LOCK:
+        slot = _SLOTS.get(key)
+        if slot is None:
+            slot = sum(1 for k in _SLOTS if k[0] == device.index)
+            if slot >= K2_COUNTER_SLOTS:
+                raise RuntimeError(
+                    f"channel_stats: more than {K2_COUNTER_SLOTS} streams "
+                    f"on {device}")
+            _SLOTS[key] = slot
+    return slot
 
 
 def _channel_stats_cuda(x: torch.Tensor) -> torch.Tensor:
-    """K2's kernels on a checked CUDA map (no launch count)."""
+    """K2's kernel on a checked CUDA map, one launch (no launch count)."""
     B, H, W, C = x.shape
+    if x.numel() == 0:
+        raise ValueError("channel_stats: empty map")
+    plan = channel_stats_plan(B, H * W, C, x.element_size(),
+                              x.data_ptr() % 16 == 0)
+    if B * plan.n_slabs > K2_SLOT_COUNTERS:
+        raise ValueError(f"channel_stats: {B} images x {plan.n_slabs} "
+                         f"channel slabs exceed the kernel's "
+                         f"{K2_SLOT_COUNTERS} counters")
     lib = kernels.load()
-    n_tiles = lib.fdsr_channel_stats_tiles(H * W)
-    partial = torch.empty((B, n_tiles, 2, C), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty((B, plan.n_slabs, plan.n_blocks, 2, K2_SLAB),
+                          dtype=torch.float32, device=x.device)
     stats = torch.empty((B, 2, C), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         code = lib.fdsr_channel_stats(
             kernels.ptr(x), kernels.ptr(partial), kernels.ptr(stats), B,
-            H * W, C, int(x.dtype == torch.bfloat16),
+            H * W, C, int(x.dtype == torch.bfloat16), plan.vec,
+            plan.n_blocks, _counter_slot(x.device),
             kernels.stream_of(x.device))
     kernels.check(lib, code, "channel_stats")
     return stats

@@ -32,7 +32,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parent.parent.parent
              / "build" / "kernels")
 SOURCES = ("fused_conv.cu", "fused_conv_wgmma.cu", "channel_stats.cu",
-           "gn_swish.cu")
+           "reduce_partials.cu", "gn_swish.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -141,10 +141,20 @@ def load() -> ctypes.CDLL:
                        lib.fdsr_fused_conv_wgmma_max_channels):
                 fn.argtypes = []
                 fn.restype = i
-            lib.fdsr_channel_stats_tiles.argtypes = [i]
-            lib.fdsr_channel_stats_tiles.restype = i
-            lib.fdsr_channel_stats.argtypes = [p, p, p, i, i, i, i, p]
+            for fn in (lib.fdsr_channel_stats_threads,
+                       lib.fdsr_channel_stats_slab,
+                       lib.fdsr_channel_stats_final_lanes,
+                       lib.fdsr_channel_stats_unroll,
+                       lib.fdsr_channel_stats_counter_slots,
+                       lib.fdsr_channel_stats_slot_counters):
+                fn.argtypes = []
+                fn.restype = i
+            # x partial stats B HW C is_bf16 vec n_blocks slot stream
+            lib.fdsr_channel_stats.argtypes = [p, p, p, i, i, i, i, i, i, i,
+                                               p]
             lib.fdsr_channel_stats.restype = i
+            lib.fdsr_graph_kernel_nodes.argtypes = [p, ctypes.POINTER(i)]
+            lib.fdsr_graph_kernel_nodes.restype = i
             lib.fdsr_gn_swish_apply.argtypes = [p, p, i, f, p, p, p, i, i, i,
                                                 i, p]
             lib.fdsr_gn_swish_apply.restype = i
@@ -169,3 +179,25 @@ def ptr(t) -> "ctypes.c_void_p | None":
 def stream_of(device) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def kernels_per_call(fn) -> int:
+    """How many kernels one call of ``fn`` launches on the card: the kernel
+    nodes of a CUDA graph that captured one call. ``fn`` is called once on
+    a side stream first, so that nothing is built or cached for the first
+    time inside the capture."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    lib = load()
+    n = ctypes.c_int(0)
+    check(lib, lib.fdsr_graph_kernel_nodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.byref(n)),
+        "graph_kernel_nodes")
+    return n.value

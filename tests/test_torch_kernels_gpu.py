@@ -9,14 +9,15 @@ machine without them:
 import pytest
 import torch
 
-from fastdiffsr_tpu_torch.ops import fused_conv, kernels
+from fastdiffsr_tpu_torch.ops import fused_conv, groupnorm, kernels
 from test_torch_k3_f32_tiling import cdiv, f32_tile
 from test_torch_k3_route import FULL_WIDTH
+from torch_k2_model import k2_model
 from fastdiffsr_tpu_torch.ops.fused_conv import (
     fused_gn_swish_conv3x3, fused_gn_swish_conv3x3_plain)
 from fastdiffsr_tpu_torch.ops.groupnorm import (
-    channel_stats, channel_stats_plain, gn_swish, gn_swish_custom,
-    gn_swish_plain)
+    channel_stats, channel_stats_plain, channel_stats_plan, gn_swish,
+    gn_swish_custom, gn_swish_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -154,11 +155,24 @@ def test_f32_tile_count_is_the_launchers(cuda):
                 cdiv(hw, th) * cdiv(hw, tw)), (B, hw, Co)
 
 
+# (B, H, W, C) of K2 on the card: the serving shape; C = 40 (a second
+# slab of 8 channels); three images; the 512^2 eval's largest map (256^2 x
+# 64); C = 6 and 42, no multiple of the vector width (the scalar path);
+# C = 264, nine slabs
+K2_SHAPES = [(2, 128, 128, 64), (3, 7, 9, 40), (3, 64, 64, 128),
+             (1, 256, 256, 64), (2, 9, 7, 6), (2, 5, 11, 42),
+             (2, 16, 16, 264)]
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 128, 128, 64), (3, 7, 9, 40)])
+@pytest.mark.parametrize("shape", K2_SHAPES)
 def test_channel_stats_kernel_matches_plain(cuda, shape, dt):
-    """float32 sums in another order: rtol 1e-5 of the sum of squares."""
-    x = torch.randn(shape, device=cuda).to(dt)
+    """float32 sums in another order: rtol 1e-5 of the sum of squares. One
+    launch counted per call; the kernel's sums are bit-equal to the CPU
+    model of its order under the plan the wrapper gave it
+    (tests/torch_k2_model.py), and ten more calls to the first."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = (torch.randn(shape, generator=g, device=cuda) * 1.5 + 0.5).to(dt)
     before = kernels.LAUNCHES["channel_stats"]
     got = channel_stats(x)
     torch.cuda.synchronize()
@@ -166,6 +180,90 @@ def test_channel_stats_kernel_matches_plain(cuda, shape, dt):
     want = channel_stats_plain(x)
     scale = want[:, 1].abs().max().item()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    B, H, W, C = shape
+    plan = channel_stats_plan(B, H * W, C, x.element_size())
+    assert torch.equal(got.cpu(), k2_model(x.cpu(), plan))
+    for _ in range(10):
+        assert torch.equal(channel_stats(x), got)
+
+
+def test_channel_stats_constants_are_the_librarys(cuda):
+    """The plan's mirror of csrc/channel_stats.cu's constants."""
+    lib = kernels.load()
+    assert lib.fdsr_channel_stats_threads() == groupnorm.K2_THREADS
+    assert lib.fdsr_channel_stats_slab() == groupnorm.K2_SLAB
+    assert (lib.fdsr_channel_stats_final_lanes()
+            == groupnorm.K2_FINAL_LANES)
+    assert (lib.fdsr_channel_stats_counter_slots()
+            == groupnorm.K2_COUNTER_SLOTS)
+    assert (lib.fdsr_channel_stats_slot_counters()
+            == groupnorm.K2_SLOT_COUNTERS)
+    assert lib.fdsr_channel_stats_unroll() >= 4
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_channel_stats_unaligned_map_takes_scalar_loads(cuda, dt):
+    """A contiguous map whose data is not 16-byte aligned (a view one
+    element into a buffer) takes the scalar path, bit-equal to the model."""
+    buf = torch.randn(1 + 2 * 24 * 20 * 64, device=cuda).to(dt)
+    x = buf[1:].view(2, 24, 20, 64)
+    assert x.data_ptr() % 16 != 0
+    plan = channel_stats_plan(2, 24 * 20, 64, x.element_size(), False)
+    assert plan.vec == 1
+    got = channel_stats(x)
+    assert torch.equal(got.cpu(), k2_model(x.cpu(), plan))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_channel_stats_is_one_launch_and_replays_bit_equal(cuda, dt):
+    """One K2 call is one kernel node of a captured CUDA graph (K1 two, its
+    pass 1 and pass 2); three replays of a captured call give the eager
+    call's bits, so the last block's counter is back at 0 after each."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((1, 128, 128, 64), generator=g, device=cuda).to(dt)
+    one = torch.ones(64, device=cuda)
+    assert kernels.kernels_per_call(lambda: channel_stats(x)) == 1
+    assert kernels.kernels_per_call(lambda: gn_swish(x, one, one, 32)) == 2
+    eager = channel_stats(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = channel_stats(x)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_channel_stats_on_two_streams(cuda):
+    """Calls on two streams at once use counters of their own: each stream's
+    results equal the eager call's bits."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    xs = [torch.randn((4, 64, 64, 128), generator=g, device=cuda)
+          for _ in range(2)]
+    want = [channel_stats(x) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    outs = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(20):
+        for i, (s, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(s):
+                outs[i].append(channel_stats(x))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i])
+
+
+def test_channel_stats_refuses_what_its_counters_cannot_hold(cuda):
+    """B x channel slabs beyond a slot's counters, and an empty map, raise
+    before any launch."""
+    before = kernels.LAUNCHES["channel_stats"]
+    with pytest.raises(ValueError, match="counters"):
+        channel_stats(torch.zeros((200, 1, 1, 3072), device=cuda))
+    with pytest.raises(ValueError, match="empty"):
+        channel_stats(torch.zeros((0, 4, 4, 8), device=cuda))
+    assert kernels.LAUNCHES["channel_stats"] == before
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
