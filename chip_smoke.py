@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (fastdiffsr_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--gdp-reference | --ediffsr-only |
-                                      --msi-only | --dist-only]
+                                      --msi-only | --dist-only |
+                                      --serving-only]
 
 Run from the repository root. It needs one CUDA device and the CUDA
 toolkit (nvcc); without a device it exits non-zero and prints no result.
@@ -127,7 +128,32 @@ limit:
    (phase 16's run on one loader thread), ``msi.main --launcher
    pytorch`` for SwinIR (phase 17's) and NDSRGAN's GANTrainer in DDP,
    each against its plain run in this
-   process (losses, steady steps/s, peak GiB; no kernel of ours).
+   process (losses, steady steps/s, peak GiB; no kernel of ours);
+19. the serving export (``fastdiffsr_tpu_torch.serving``) at full width,
+   every artifact with a symbolic batch: 64->256 ancestral T=20 in f32
+   (through the CLI's ``main`` with ``--selftest``) and bf16, DPM-Solver++
+   10 steps in f32 (with a CPU copy, ``--platforms cuda,cpu``), and
+   128->512 ancestral in bf16, exported by one process each at once
+   (export seconds, artifact MB); then a fresh
+   process per artifact that imports torch and the op registry
+   (``fastdiffsr_tpu_torch.ops``) only loads it (seconds) and runs it on
+   the inputs of the in-process sampler, which a further fresh process
+   runs with the same per-image generators (64->256 at batches 16 and 3,
+   DPM at 2, 128->512 at 1 over 4 timed images): outputs within
+   EXPORT_TOL, K3 and K2 launches per image equal, 49 K3 and 4 K2 per
+   eval, and img/s of both; the DPM loader also runs the CPU copy on
+   image 0 against the card's (phase 10's tolerance); the workers take
+   the card in turns. Then
+   the host microseconds of one K3 call through its registered operator
+   and through a ``torch.library.custom_op`` of the same implementation
+   against the direct wrapper;
+20. ``model_api.DDPM`` on sr_fastdiffsr_train_64_256.json at full width,
+   batch 4: three ``optimize_parameters`` steps (45 K1 launches each,
+   l_pix equal bit for bit to ``make_train_step`` with the step's
+   generator), ``set_new_noise_schedule`` to val and ``test(continous=
+   True)`` (a (T,B,256,256,3) trajectory whose last frame is ``test()``,
+   49 K3 and 4 K2 per eval), ``save_network`` / ``load_network``
+   bit-equal, ``count_parameters`` equal to ``param_count``.
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -140,8 +166,10 @@ reuse a plan timed for phase 2's F.conv2d at the same shape.
 evaluation at its reference shape (ancestral T=1000 at 256x256 through
 ``cli.infer``, one image, f32 and bf16), which is too long for every run.
 ``--ediffsr-only`` runs, after the build, only phase 16,
-``--msi-only`` only phase 17 and ``--dist-only`` only phase 18
-(``--dist-worker <spec>`` is phase 18's rank, which torchrun starts).
+``--msi-only`` only phase 17, ``--dist-only`` only phase 18
+(``--dist-worker <spec>`` is phase 18's rank, which torchrun starts) and
+``--serving-only`` only phases 19-20 (``--serving-worker`` is a process
+of phase 19).
 
 Kernel times: ``ms`` is device time per call, the CUDA-event time of one
 replay of a CUDA graph that holds REPS calls (no host time between the
@@ -271,6 +299,26 @@ DIST_LPIX_RTOL = 2e-3
 DIST_PNG_TOL = 1
 DIST_TIMEOUT = 600
 ALLREDUCE_REPS = 20
+# phase 19, serving export: the cases (name, config, the fused forward's
+# type, sampler, steps, the batches of its runs: the first run of the
+# largest batch warms up, the later ones are timed; image indices count
+# on over a case's runs), the round-trip bound (the JAX package's,
+# tests/test_serving.py:72; both processes run the same kernels in the
+# same order on cuDNN's heuristics, so 0 is expected, in bf16 too), K3
+# calls per host-time reading, and the workers' time limit in seconds
+SERVING_CASES = (
+    ("f32", "sr_fastdiffsr_test_64_256", "f32", "ancestral", None,
+     (16, 16, 3)),
+    ("bf16", "sr_fastdiffsr_test_64_256", "bf16", "ancestral", None,
+     (16, 16, 3)),
+    ("dpm_f32", "sr_fastdiffsr_test_64_256", "f32", "dpm", 10, (2, 2)),
+    ("bf16_512", "sr_fastdiffsr_infer_x4", "bf16", "ancestral", None,
+     (1, 1, 1, 1, 1)),
+)
+EXPORT_TOL = 1e-5
+HOST_CALLS = 200
+SERVING_TIMEOUT = 600
+DDPM_STEPS = 3      # phase 20: optimize_parameters calls
 
 
 def card_line() -> str:
@@ -2553,6 +2601,585 @@ def phase_dist(card, seed):
     return detail, launches, ok
 
 
+def serving_spec(seed):
+    """Phase 19's cases as the workers read them: per case its config,
+    forward type, sampler, steps and run batches, and the files it
+    writes (artifact, in-process inputs and outputs, the loader's)."""
+    work = os.path.join(ROOT, "build", "smoke", "serving")
+    os.makedirs(work, exist_ok=True)
+    cases = []
+    for k, (name, cfg, dt, sampler, steps, runs) in enumerate(SERVING_CASES):
+        cases.append({
+            "name": name, "dtype": dt, "sampler": sampler, "steps": steps,
+            "runs": list(runs), "turn": k + 1,
+            "config": os.path.join(ROOT, "fastdiffsr_tpu_torch", "configs",
+                                   f"{cfg}.json"),
+            "artifact": os.path.join(work, f"sampler_{name}.pt2"),
+            # the DPM artifact is also saved for the CPU (serving's
+            # move_to_device_pass), which its loader runs on image 0
+            "platforms": "cuda,cpu" if name == "dpm_f32" else "cuda",
+            "cpu_artifact": os.path.join(work, f"sampler_{name}.cpu.pt2"),
+            # f32 and bf16 of one config and sampler share their inputs
+            "inputs": os.path.join(work, f"inputs_{cfg}_{sampler}_"
+                                         f"{steps}.pt"),
+            "export_out": os.path.join(work, f"export_{name}.json"),
+            "ref_out": os.path.join(work, f"ref_{name}.pt"),
+            "load_out": os.path.join(work, f"load_{name}.pt")})
+    return {"work": work, "seed": seed, "cases": cases,
+            "ref_json": os.path.join(work, "ref.json")}
+
+
+def _marker(spec, what, k):
+    return os.path.join(spec["work"], f"{what}_{k}")
+
+
+def _await(paths, timeout=SERVING_TIMEOUT):
+    t0 = time.time()
+    while not all(os.path.exists(p) for p in paths):
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"waited {timeout} s for {paths}")
+        time.sleep(0.1)
+
+
+@contextlib.contextmanager
+def gpu_turn(spec, k):
+    """Phase 19's stage 2: every worker prepares (loads or builds) at
+    once, then they take the card in turns (k = 0 the in-process
+    reference, then the loaders in case order), so no timed run shares
+    the host with another worker's work."""
+    n = len(spec["cases"]) + 1
+    with open(_marker(spec, "ready", k), "w"):
+        pass
+    try:
+        _await([_marker(spec, "ready", j) for j in range(n)])
+        if k:
+            _await([_marker(spec, "done", k - 1)])
+        yield
+    finally:
+        with open(_marker(spec, "done", k), "w"):
+            pass
+
+
+def timed_run(fn):
+    """(output, host seconds, launch counts) of one sampler call, the
+    counters set to 0 just before and read just after."""
+    import torch
+
+    from fastdiffsr_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def serving_export_worker(spec, case) -> int:
+    """Phase 19, stage 1: ``fastdiffsr_tpu_torch.serving``'s CLI (its
+    ``main``) exports one case; the f32 64->256 case with ``--selftest``,
+    the acceptance command."""
+    sys.path.insert(0, ROOT)
+    from fastdiffsr_tpu_torch import serving
+    argv = ["-c", case["config"], "-o", case["artifact"], "--dtype",
+            case["dtype"], "--sampler", case["sampler"], "--platforms",
+            case["platforms"]]
+    if case["steps"]:
+        argv += ["--steps", str(case["steps"])]
+    if case["name"] == "f32":
+        argv.append("--selftest")
+    res = serving.main(argv)
+    res["argv"] = argv
+    with open(case["export_out"], "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def serving_reference_worker(spec) -> int:
+    """Phase 19, stage 2, turn 0: the in-process sampler of every case (a
+    fresh process, cuDNN on its heuristics as ``cli.infer``), each run's
+    images with their own generators (``pad_batch_with_keys``, indices
+    counted over the case's runs). Before its turn it writes the inputs
+    the loaders feed the artifacts: the same params, cond and the noise
+    ``serving.draw_noise`` draws from the same generators."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from fastdiffsr_tpu_torch import serving
+    from fastdiffsr_tpu_torch.cli.infer import build_all, make_denoiser
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.device import (set_cudnn_autotuning,
+                                             use_ieee_float32)
+    from fastdiffsr_tpu_torch.train import make_sample_fn, pad_batch_with_keys
+
+    use_ieee_float32()
+    set_cudnn_autotuning(False)
+    seed = spec["seed"]
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    prepared = []
+    for case in spec["cases"]:
+        opt = load_json_config(case["config"])
+        # the seeded parameters serving.main's export_sampler builds
+        eng, net = build_all(opt, device="cuda", seed=0)
+        r = int(opt["datasets"]["val"]["r_resolution"])
+        sample = make_sample_fn(
+            eng, make_denoiser(net, True, dtypes[case["dtype"]]),
+            sampler=case["sampler"], ddim_steps=case["steps"])
+        _, draws, by_t = serving._plan(eng, case["sampler"], case["steps"],
+                                       0.0)
+        runs, start = [], 0
+        for b in case["runs"]:
+            cond = np.random.default_rng([seed, start]).uniform(
+                -1, 1, (b, r, r, 3)).astype(np.float32)
+            runs.append((cond, start))
+            start += b
+        if not os.path.exists(case["inputs"]):
+            feed = []
+            for cond, start in runs:
+                cond_t, gens = pad_batch_with_keys(cond, len(cond), seed,
+                                                   start, device="cuda")
+                init, seq = serving.draw_noise(gens, cond.shape[1:], draws,
+                                               by_t, "cuda")
+                feed.append({"cond": cond_t, "init": init, "seq": seq})
+            params = {k: v.detach() for k, v in net.state_dict().items()}
+            tmp = case["inputs"] + ".tmp"
+            torch.save({"params": params, "runs": feed}, tmp)
+            os.replace(tmp, case["inputs"])
+        prepared.append((case, sample, runs))
+    res = {}
+    with gpu_turn(spec, 0):
+        for case, sample, runs in prepared:
+            outs, rows = [], []
+            for cond, start in runs:
+                cond_t, gens = pad_batch_with_keys(cond, len(cond), seed,
+                                                   start, device="cuda")
+                out, dt, launches = timed_run(lambda: sample(cond_t, gens))
+                outs.append(out.cpu())
+                rows.append({"batch": len(cond), "s": dt,
+                             "launches": launches})
+            torch.save(outs, case["ref_out"])
+            res[case["name"]] = rows
+    with open(spec["ref_json"], "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def serving_load_worker(spec, case) -> int:
+    """Phase 19, stage 2: a fresh process that imports torch and the
+    port's op registry (``fastdiffsr_tpu_torch.ops``) and nothing else of
+    the port, loads one artifact with ``torch.export.load`` and runs it
+    on the reference's inputs in its turn."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import fastdiffsr_tpu_torch.ops  # noqa: F401  (the op registry)
+
+    # as the reference: full float32, cuDNN's heuristics
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    t0 = time.time()
+    extra = {"fdsr_sampler.json": ""}
+    ep = torch.export.load(case["artifact"], extra_files=extra)
+    module = ep.module()
+    load_s = time.time() - t0
+    cpu_copy = None
+    if "," in case["platforms"]:             # the CPU copy beside it
+        t0 = time.time()
+        cpu_copy = torch.export.load(case["cpu_artifact"]).module()
+        cpu_load_s = time.time() - t0
+    _await([case["inputs"]])
+    feed = torch.load(case["inputs"])
+    res = {"load_s": load_s, "meta": json.loads(extra["fdsr_sampler.json"]),
+           "rows": []}
+    outs = []
+    with gpu_turn(spec, case["turn"]):
+        for run in feed["runs"]:
+            args = (feed["params"], run["cond"], run["init"])
+            if run["seq"] is not None:
+                args += (run["seq"],)
+            with torch.no_grad():
+                out, dt, launches = timed_run(lambda: module(*args))
+            outs.append(out.cpu())
+            res["rows"].append({"batch": run["cond"].shape[0], "s": dt,
+                                "launches": launches})
+        if cpu_copy is not None:
+            # image 0 of the first run on the CPU copy (the kernels'
+            # plain versions), full float32
+            run = feed["runs"][0]
+            args = ({k: v.cpu() for k, v in feed["params"].items()},
+                    run["cond"][:1].cpu(), run["init"][:1].cpu())
+            t0 = time.time()
+            with torch.no_grad():
+                out = cpu_copy(*args)
+            res["cpu_copy"] = {"load_s": cpu_load_s, "s": time.time() - t0,
+                               "device": str(out.device)}
+            outs.append(out)
+    res["port_modules"] = sorted(m for m in sys.modules
+                                 if m.split(".")[0].startswith(
+                                     "fastdiffsr_tpu"))
+    res["jax"] = "jax" in sys.modules
+    torch.save({"outs": outs, "res": res}, case["load_out"])
+    return 0
+
+
+def serving_worker(role, spec_path, name) -> int:
+    with open(spec_path) as f:
+        spec = json.load(f)
+    case = next((c for c in spec["cases"] if c["name"] == name), None)
+    if role == "export":
+        return serving_export_worker(spec, case)
+    k = 0 if role == "reference" else case["turn"]
+    try:
+        if role == "reference":
+            return serving_reference_worker(spec)
+        return serving_load_worker(spec, case)
+    finally:
+        # a worker that fails before or in its turn lets the others go on
+        for what in ("ready", "done"):
+            open(_marker(spec, what, k), "a").close()
+
+
+def run_workers(spec_path, jobs, work, timeout=SERVING_TIMEOUT):
+    """Start ``jobs`` ((role, name) pairs) as processes of this script at
+    once, wait for all (killing what outlives ``timeout``); returns
+    {(role, name): (exit code, seconds, log tail)}."""
+    import signal
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = []
+    t0 = time.time()
+    for role, name in jobs:
+        log = open(os.path.join(work, f"{role}_{name}.log"), "w")
+        procs.append((role, name, log, subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--serving-worker", role, spec_path, name], cwd=work,
+            stdout=log, stderr=subprocess.STDOUT, env=env,
+            start_new_session=True)))
+    out = {}
+    for role, name, log, proc in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        log.close()
+        with open(log.name) as f:
+            tail = f.read()[-3000:]
+        out[(role, name)] = (rc, time.time() - t0, tail)
+    return out
+
+
+def serving_alphas(config):
+    """alpha-bar of a config's val schedule, for sampler_gains."""
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.diffusion import ScheduleBuffers
+    sched = load_json_config(config)["model"]["beta_schedule"]["val"]
+    return ScheduleBuffers.create(sched, device="cpu").alphas_cumprod.numpy()
+
+
+def op_host_us(seed):
+    """Host microseconds per K3 call at one bf16 block of a 128->512 eval
+    (64x64, 256 -> 256 channels, batch 1), HOST_CALLS calls per reading:
+    the direct wrapper, its registered operator (``torch.library.define``
+    / ``impl``, the port's), and the same CUDA implementation registered
+    here as a ``torch.library.custom_op``, in turns direct, operator,
+    custom_op, custom_op, operator, direct."""
+    import torch
+
+    from fastdiffsr_tpu_torch.ops.fused_conv import fused_gn_swish_conv3x3
+    from fastdiffsr_tpu_torch.ops.groupnorm import channel_stats
+    from fastdiffsr_tpu_torch.ops.library import K3_SCHEMA, _k3_cuda
+
+    k3_custom = torch.library.custom_op(
+        "fdsr_smoke::k3", mutates_args=(), device_types="cuda",
+        schema=K3_SCHEMA)(_k3_cuda)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 64, 64, 256), generator=g, device="cuda").to(
+        torch.bfloat16)
+    st = channel_stats(x)
+    w = (torch.randn((3, 3, 256, 256), generator=g, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    b = torch.zeros(256, device="cuda")
+    sc, bi = torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")
+    shift = torch.zeros((1, 256), device="cuda")
+    calls = {
+        "direct": lambda: fused_gn_swish_conv3x3(x, sc, bi, st, w, b,
+                                                 shift=shift, groups=32),
+        "op": lambda: torch.ops.fdsr.fused_gn_swish_conv3x3(
+            [x], sc, bi, [st], w, b, shift, None, 32, 1e-5, True, True),
+        "custom_op": lambda: k3_custom(
+            [x], sc, bi, [st], w, b, shift, None, 32, 1e-5, True, True)}
+    got = {k: [] for k in calls}
+    for name in ("direct", "op", "custom_op", "custom_op", "op", "direct"):
+        fn = calls[name]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        got[name].append((t1 - t0) / HOST_CALLS * 1e6)
+    return got
+
+
+def phase_serving(card, seed):
+    """Phase 19: the serving export at full width (module docstring).
+    Returns (detail, kernel launches of the artifacts' and the in-process
+    runs by K3 route and K2, ok)."""
+    import torch
+
+    t_phase = time.time()
+    spec = serving_spec(seed)
+    for p in os.listdir(spec["work"]):
+        if p.startswith(("ready_", "done_", "inputs_")):
+            os.remove(os.path.join(spec["work"], p))
+    spec_path = os.path.join(spec["work"], "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    names = [c["name"] for c in spec["cases"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # stage 1: the exports, one process each, at once
+    t0 = time.time()
+    st1 = run_workers(spec_path, [("export", n) for n in names],
+                      spec["work"])
+    stage1_s = time.time() - t0
+    ok = True
+    exports = {}
+    for n in names:
+        rc, _, tail = st1[("export", n)]
+        if rc != 0:
+            print(f"[serve export] {card} | {n}: export FAIL (exit {rc}):"
+                  f"\n{tail}", flush=True)
+            ok = False
+            continue
+        with open(spec["cases"][names.index(n)]["export_out"]) as f:
+            exports[n] = json.load(f)
+    if not ok:
+        return {"stage1": {str(k): v[:2] for k, v in st1.items()}}, {}, False
+    # stage 2: the in-process reference and one loader per artifact
+    t0 = time.time()
+    st2 = run_workers(spec_path, [("reference", "-")]
+                      + [("load", n) for n in names], spec["work"])
+    stage2_s = time.time() - t0
+    for key, (rc, _, tail) in st2.items():
+        if rc != 0:
+            print(f"[serve export] {card} | {key[0]} {key[1]}: FAIL (exit "
+                  f"{rc}):\n{tail}", flush=True)
+            ok = False
+    if not ok:
+        return {"stage2": {str(k): v[:2] for k, v in st2.items()}}, {}, False
+    with open(spec["ref_json"]) as f:
+        ref = json.load(f)
+    detail = {"stage1_s": stage1_s, "stage2_s": stage2_s, "cases": {}}
+    launches = {"wgmma": 0, "cuda_cores": 0, "channel_stats": 0}
+    for case in spec["cases"]:
+        n = case["name"]
+        ex, rows = exports[n], ref[n]
+        want = torch.load(case["ref_out"])
+        got = torch.load(case["load_out"])
+        lres = got["res"]
+        cpu = lres.get("cpu_copy")
+        if cpu is not None:
+            # the CPU copy against the card's image 0: the kernels' plain
+            # versions in another summation order, phase 10's tolerance
+            out = got["outs"].pop()
+            gains = sampler_gains(
+                serving_alphas(case["config"]), case["steps"], "dpm")
+            cpu["tol"] = SAMPLER_EPS_GAP * float(gains.sum())
+            cpu["max_abs_err"] = (out - want[0][:1]).abs().max().item()
+            cpu["ok"] = (cpu["device"] == "cpu"
+                         and cpu["max_abs_err"] <= cpu["tol"])
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got["outs"], want)]
+        fin = all(bool(torch.isfinite(a).all()) for a in got["outs"])
+        same_launch = all(a["launches"] == b["launches"]
+                          for a, b in zip(lres["rows"], rows))
+        evals = ex["meta"]["evals"]
+        k3 = [r["launches"]["fused_gn_swish_conv3x3"] / r["batch"]
+              for r in lres["rows"]]
+        # per image: 49 K3 and 4 K2 per eval, whatever the batch (K3 and
+        # K2 take the batch in one launch; the count is per call)
+        calls_ok = all(r["launches"] == {"fused_gn_swish_conv3x3": 49 * evals,
+                                         "channel_stats": 4 * evals,
+                                         "gn_swish": 0}
+                       for r in lres["rows"] + rows)
+        mods_ok = (not lres["jax"] and all(
+            m in ("fastdiffsr_tpu_torch", "fastdiffsr_tpu_torch.ops")
+            or m.startswith("fastdiffsr_tpu_torch.ops.")
+            for m in lres["port_modules"]))
+        c_ok = (len(errs) == len(case["runs"]) and max(errs) <= EXPORT_TOL
+                and fin and same_launch and calls_ok and mods_ok
+                and (ex["selftest_err"] is None
+                     or ex["selftest_err"] <= EXPORT_TOL)
+                and (cpu is None or cpu["ok"]))
+        ok &= c_ok
+        route = "wgmma" if case["dtype"] == "bf16" else "cuda_cores"
+        for r in lres["rows"] + rows:
+            launches[route] += r["launches"]["fused_gn_swish_conv3x3"]
+            launches["channel_stats"] += r["launches"]["channel_stats"]
+
+        def rate(rs):
+            """img/s over the runs after the first of the largest batch
+            (the first warms up), and s/img."""
+            big = max(r["batch"] for r in rs)
+            timed = [r for r in rs if r["batch"] == big][1:]
+            s = sum(r["s"] for r in timed) / sum(r["batch"] for r in timed)
+            return 1.0 / s, s, big, len(timed)
+
+        ip, ip_s, big, n_t = rate(rows)
+        xp, xp_s, _, _ = rate(lres["rows"])
+        print(f"[serve export] {card} | {n}: {os.path.basename(case['config'])}"
+              f" {case['sampler']} {evals} evals, fused {case['dtype']}, "
+              f"symbolic batch | export+save {ex['export_s']:.1f} s "
+              f"(concurrent with the other exports), {ex['mb'][0]:.2f} MB, "
+              f"export peak {ex['peak_gib'] or math.nan:.2f} GiB, load "
+              f"{lres['load_s']:.1f} s in a process importing "
+              f"{len(lres['port_modules'])} port modules (ops only: "
+              f"{mods_ok}) | batches {case['runs']}: max|d| artifact vs "
+              f"in-process {max(errs):.3g} (tol {EXPORT_TOL}), K3 per image "
+              f"{k3[0]:.1f} (want {49 * evals / case['runs'][0]:.1f} at "
+              f"B={case['runs'][0]}), launches equal {same_launch} | B={big} "
+              f"over {n_t} timed run(s): in-process {ip:.3f} img/s "
+              f"({ip_s:.4f} s/img), exported {xp:.3f} img/s ({xp_s:.4f} "
+              f"s/img)"
+              + (f" | --selftest max|d| {ex['selftest_err']:.3g}"
+                 if ex["selftest_err"] is not None else "")
+              + (f" | CPU copy ({ex['mb'][1]:.2f} MB, move_to_device_pass):"
+                 f" load {cpu['load_s']:.1f} s, image 0 on {cpu['device']} "
+                 f"in {cpu['s']:.1f} s, max|d| vs the card "
+                 f"{cpu['max_abs_err']:.3g} (tol {cpu['tol']:.3g})"
+                 if cpu is not None else "")
+              + f" {'ok' if c_ok else 'FAIL'}", flush=True)
+        detail["cases"][n] = {
+            "export_s": ex["export_s"], "mb": ex["mb"][0],
+            "export_peak_gib": ex["peak_gib"], "evals": evals,
+            "load_s": lres["load_s"], "max_abs_err": max(errs),
+            "selftest_err": ex["selftest_err"],
+            "in_process": rows, "exported": lres["rows"],
+            "img_per_s_in_process": ip, "img_per_s_exported": xp,
+            "s_per_img_in_process": ip_s, "s_per_img_exported": xp_s,
+            "loader_modules": lres["port_modules"], "cpu_copy": cpu,
+            "ok": c_ok}
+    host = op_host_us(seed)
+    detail["host_us"] = host
+    rng = {k: f"{min(v):.1f}-{max(v):.1f}" for k, v in host.items()}
+    print(f"[serve host] {card} | K3 host time per call, bf16 64x64 "
+          f"256->256 B=1 ({HOST_CALLS} calls a reading, in turns "
+          f"direct/op/custom_op/custom_op/op/direct): direct wrapper "
+          f"{rng['direct']} us, the registered operator (define/impl, what "
+          f"an exported program calls) {rng['op']} us, the same as a "
+          f"torch.library.custom_op {rng['custom_op']} us; eager calls take "
+          f"the direct route", flush=True)
+    detail["seconds"] = time.time() - t_phase
+    print(f"[serve export] {card} | phase 19 took {detail['seconds']:.1f} s "
+          f"(stage 1, the exports at once: {stage1_s:.1f} s; stage 2, loads "
+          f"at once then the card in turns: {stage2_s:.1f} s) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return detail, launches, ok
+
+
+def phase_ddpm(card, seed):
+    """Phase 20: ``model_api.DDPM`` at full width (module docstring).
+    Returns (detail, K1 launches of its training, K3 and K2 launches of
+    its sampling, ok)."""
+    import copy
+
+    import torch
+
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.model_api import create_model
+    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.train import make_train_step, step_generator
+    from fastdiffsr_tpu_torch.utils.profiling import param_count
+
+    t_phase = time.time()
+    work = os.path.join(ROOT, "build", "smoke", "ddpm")
+    cfg = load_json_config(os.path.join(
+        ROOT, "fastdiffsr_tpu_torch", "configs",
+        "sr_fastdiffsr_train_64_256.json"))
+    cfg["seed"] = seed
+    cfg["path"] = {"checkpoint": os.path.join(work, "checkpoint"),
+                   "resume_state": None}
+    dev = torch.device("cuda")
+    m = create_model(cfg, device="cuda")
+    twin = create_model(cfg, device="cuda")
+    ema = cfg["train"]["ema_scheduler"]
+    direct = make_train_step(twin.engine, ema_decay=float(ema["ema_decay"]),
+                             ema_start=int(ema["step_start_ema"]))
+    r = int(cfg["datasets"]["train"]["r_resolution"])
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {k: torch.rand((B_TRAIN, r, r, 3), generator=g, device="cuda")
+             * 2 - 1 for k in ("HR", "SR")}
+    m.feed_data(batch)
+    steps, ok = [], True
+    for _ in range(DDPM_STEPS):
+        # the twin takes the same step from the same parameters, through
+        # make_train_step with the step's generator
+        twin.state.net.load_state_dict(m.state.net.state_dict())
+        k = m.state.step
+        _, launches_m = timed_run(m.optimize_parameters)[1:]
+        _, met = direct(twin.state, batch, step_generator(seed, k, dev))
+        l_direct = float(met["l_pix"])
+        steps.append({"l_pix": m.log_dict["l_pix"], "l_pix_direct": l_direct,
+                      "k1": launches_m["gn_swish"]})
+    step_ok = all(s["l_pix"] == s["l_pix_direct"]
+                  and s["k1"] == K1_PER_FORWARD["fastdiffsr"] for s in steps)
+    del twin
+    m.set_new_noise_schedule(schedule_phase="val")
+    T = m.engine.buffers.num_timesteps
+    traj, t_traj, l_traj = timed_run(lambda: m.test(continous=True))
+    final, t_final, l_final = timed_run(m.test)
+    want_l = {"fused_gn_swish_conv3x3": 49 * T, "channel_stats": 4 * T,
+              "gn_swish": 0}
+    test_ok = (tuple(traj.shape) == (T, B_TRAIN, r, r, 3)
+               and torch.equal(traj[-1], final)
+               and bool(torch.isfinite(traj).all())
+               and l_traj == want_l and l_final == want_l)
+    path = m.save_network(epoch=1, iter_step=DDPM_STEPS)
+    cfg2 = copy.deepcopy(cfg)
+    cfg2["path"]["resume_state"] = path
+    m2 = create_model(cfg2, device="cuda")
+    sd, sd2 = m.state.net.state_dict(), m2.state.net.state_dict()
+    reload_ok = (m2.begin_step == DDPM_STEPS and m2.begin_epoch == 1
+                 and all(torch.equal(sd[k], sd2[k]) for k in sd)
+                 and all(torch.equal(m.state.ema_params[k],
+                                     m2.state.ema_params[k])
+                         for k in m.state.ema_params))
+    n_par = m.count_parameters()
+    count_ok = n_par == param_count(m.net) == sum(
+        p.numel() for p in m.net.parameters())
+    ok = step_ok and test_ok and reload_ok and count_ok
+    k1 = sum(s["k1"] for s in steps)
+    print(f"[ddpm] {card} | model_api.create_model("
+          f"sr_fastdiffsr_train_64_256.json) full width, B={B_TRAIN} "
+          f"{r}x{r}: {DDPM_STEPS} optimize_parameters, l_pix "
+          + ", ".join(f"{s['l_pix']:.6g}" for s in steps)
+          + f", equal to make_train_step with the step's generator bit for "
+          f"bit: {all(s['l_pix'] == s['l_pix_direct'] for s in steps)}; K1 "
+          f"launches per step {[s['k1'] for s in steps]} (want "
+          f"{K1_PER_FORWARD['fastdiffsr']}) | test(continous=True) "
+          f"trajectory {tuple(traj.shape)} in {t_traj:.2f} s, last frame "
+          f"equal to test() {torch.equal(traj[-1], final)}, launches per "
+          f"test K3 {l_final['fused_gn_swish_conv3x3']} K2 "
+          f"{l_final['channel_stats']} (want {49 * T}, {4 * T}) | "
+          f"save_network/load_network {os.path.basename(path)} bit-equal "
+          f"{reload_ok} | count_parameters {n_par:,} = param_count "
+          f"{count_ok} | {time.time() - t_phase:.1f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    del m, m2, traj, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    detail = {"steps": steps, "test_s": t_final, "trajectory_s": t_traj,
+              "n_params": n_par, "checkpoint": path,
+              "seconds": time.time() - t_phase, "ok": ok}
+    return detail, k1, {"cuda_cores": 2 * 49 * T, "channel_stats": 2 * 4 * T}, ok
+
+
 def gdp_reference(card, seed):
     """``--gdp-reference``: cli.infer of configs/sr_gdp_test_64_256.json
     (the guided UNet at full width, ancestral sampling over T=1000 at
@@ -2601,9 +3228,17 @@ def main(argv=None) -> int:
                          "parallel under torchrun)")
     ap.add_argument("--dist-worker", metavar="SPEC",
                     help="phase 18's rank, started by torchrun")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="in place of phases 2-18: only phases 19-20 (the "
+                         "serving export and the DDPM wrapper)")
+    ap.add_argument("--serving-worker", nargs=3,
+                    metavar=("ROLE", "SPEC", "CASE"),
+                    help="a worker process of phase 19")
     args = ap.parse_args(argv)
     if args.dist_worker:
         return dist_worker(args.dist_worker)
+    if args.serving_worker:
+        return serving_worker(*args.serving_worker)
 
     t_start = time.time()
     import torch
@@ -2664,6 +3299,12 @@ def main(argv=None) -> int:
         with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
             json.dump(detail, f, indent=1)
         return 0 if d_ok else 1
+    if args.serving_only:
+        detail["serving"], _, s_ok = phase_serving(card, args.seed)
+        detail["ddpm"], _, _, d_ok = phase_ddpm(card, args.seed)
+        with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        return 0 if s_ok and d_ok else 1
     laps, t_lap = {}, [time.time()]
 
     def lap(name):
@@ -2836,6 +3477,17 @@ def main(argv=None) -> int:
     detail["dist"], dist_launches, dist_ok = phase_dist(card, args.seed)
     lap("18 dist")
     ok &= dist_ok
+
+    # 19. the serving export; 20. the DDPM wrapper
+    gc.collect()
+    torch.cuda.empty_cache()
+    detail["serving"], serve_launches, export_ok = phase_serving(card,
+                                                                 args.seed)
+    lap("19 serving export")
+    detail["ddpm"], ddpm_k1, ddpm_launches, ddpm_ok = phase_ddpm(card,
+                                                                 args.seed)
+    lap("20 DDPM wrapper")
+    ok &= export_ok and ddpm_ok
     k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]
     k1_all_rows = k1_rows + [r for v in detail["k1_variants"].values()
                              for r in v["rows"]]
@@ -2844,7 +3496,8 @@ def main(argv=None) -> int:
     k1_b1 = detail["k1_variants"]["ddpm"]["total"]["f32_b1"]
     wgmma_launches = detail["serve"]["routes"]["wgmma"] + sum(
         detail["samplers"][s]["routes"]["wgmma"] for s in ("ddim", "dpm")) \
-        + detail["infer_512"]["bf16"]["routes"]["wgmma"]
+        + detail["infer_512"]["bf16"]["routes"]["wgmma"] \
+        + serve_launches.get("wgmma", 0)
     k2_launches = (detail["serve"]["launches"]["channel_stats"]
                    + detail["serve_f32"]["launches"]["channel_stats"]
                    + detail["train"]["val_launches"]["channel_stats"]
@@ -2852,7 +3505,9 @@ def main(argv=None) -> int:
                          for s in ("ddim", "dpm"))
                    + sum(detail["infer_512"][dt]["launches"]["channel_stats"]
                          for dt in ("f32", "bf16"))
-                   + dist_launches.get("channel_stats", 0))
+                   + dist_launches.get("channel_stats", 0)
+                   + serve_launches.get("channel_stats", 0)
+                   + ddpm_launches["channel_stats"])
 
     def k3_route_of(dt):
         """The kernel every K3 row of that type ran on (or "mixed")."""
@@ -2901,7 +3556,7 @@ def main(argv=None) -> int:
          "source": "fastdiffsr_tpu_torch/csrc/gn_swish.cu",
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:54",
          "launches": k1_launches + k1_variant_launches
-         + dist_launches.get("gn_swish", 0),
+         + dist_launches.get("gn_swish", 0) + ddpm_k1,
          "max_abs_err": max(r["max_abs_err"] for r in k1_all_rows
                             if r["dtype"] == "f32"),
          "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],
@@ -2935,7 +3590,9 @@ def main(argv=None) -> int:
          "launches": detail["train"]["val_routes"]["cuda_cores"]
          + detail["serve_f32"]["routes"]["cuda_cores"]
          + detail["infer_512"]["f32"]["routes"]["cuda_cores"]
-         + dist_launches.get("cuda_cores", 0),
+         + dist_launches.get("cuda_cores", 0)
+         + serve_launches.get("cuda_cores", 0)
+         + ddpm_launches["cuda_cores"],
          "kernel_route": k3_route_of("f32"),
          "max_abs_err": max(r["max_abs_err_y"] for r in k3_rows
                             if r["dtype"] == "f32"),

@@ -19,7 +19,10 @@ IR-SDE in ``diffusion/sde.py``, ``models/nafnet.py``,
 and the five MSI baselines with their shared trainer and CLI (``msi/``,
 ``models/vgg_feat.py``), which have none either; and data parallelism
 for every trainer and evaluation CLI on ``torch.distributed``
-(``parallel/``, launched by ``torchrun``).
+(``parallel/``, launched by ``torchrun``); and the serving surface: the
+sampler as a ``torch.export`` artifact (``serving.py``, the kernels as
+the registered operators of ``ops/library.py``), the reference's
+``DDPM`` wrapper (``model_api.py``) and ``utils/profiling.py``.
 """
 
 __version__ = "0.1.0"

@@ -36,7 +36,11 @@ Weights & Biases where ``wandb`` imports and is a no-op otherwise.
 
 ``--seed`` seeds the initial parameters, the train steps' draws
 (``train.step_generator``) and the per-image sampling noise (pass k of
-the K-sample average from ``train.pass_seed``). ``-debug``
+the K-sample average from ``train.pass_seed``); a config's ``val_seed``,
+when set, seeds the validation noise in its place (JAX
+cli/sr_mfe.py:183). ``train.steps_per_call`` above 1 (JAX's chained
+steps per dispatch) raises: it waits for the CUDA-graph train step
+(ROADMAP.md queue 1 item 7e). ``-debug``
 shrinks the run as the reference does and writes a synthetic 6-image
 npy pack for any dataroot that does not exist. ``-gpu`` is accepted and
 logged.
@@ -295,6 +299,16 @@ def main(argv=None) -> dict:
     opt = parse(args.config, args.phase, debug=args.debug,
                 enable_wandb=args.enable_wandb,
                 log_wandb_ckpt=args.log_wandb_ckpt, log_eval=args.log_eval)
+    chain = (opt.get("train") or {}).get("steps_per_call")
+    if args.phase == "train" and chain is not None and int(chain) > 1:
+        raise NotImplementedError(
+            f"train.steps_per_call={chain}: chaining train steps per call "
+            "(JAX cli/sr_mfe.py:488-512) needs the CUDA-graph train step, "
+            "which is not ported yet (ROADMAP.md queue 1 item 7e); remove "
+            "the key or set it to 1")
+    # the validation noise's seed (JAX keys it with val_seed, :183)
+    val_seed = (args.seed if opt.get("val_seed") is None
+                else int(opt["val_seed"]))
     logger = setup_logger("base", opt["path"]["log"], "train", screen=True)
     val_logger = setup_logger("val", opt["path"]["log"], "val")
     if args.debug:
@@ -327,7 +341,7 @@ def main(argv=None) -> dict:
         os.makedirs(result_path, exist_ok=True)
         res = run_validation(opt, eng_val, make_denoiser(net, fused,
                                                          torch.float32),
-                             result_path, val_logger, seed=args.seed,
+                             result_path, val_logger, seed=val_seed,
                              device=device, scale=scale,
                              wandb_logger=wandb_logger, save_plots=True,
                              shard=args.dist)
@@ -441,7 +455,7 @@ def main(argv=None) -> dict:
                     res = val_res = run_validation(
                         opt, eng_val,
                         make_denoiser(val_net, fused, torch.float32),
-                        result_path, val_logger, seed=args.seed,
+                        result_path, val_logger, seed=val_seed,
                         device=device, scale=scale,
                         wandb_logger=wandb_logger)
                     set_cudnn_autotuning(True)

@@ -114,6 +114,10 @@ class DiffusionEngine:
                 "is not ported yet (ROADMAP.md queue 1 item 3)")
         self.spec = spec
         self.buffers = buffers
+        # the fast samplers' host-side constants start from this copy (a
+        # traced sampler cannot read a tensor back to the host)
+        self._alphas_cumprod_host = (buffers.alphas_cumprod.cpu().numpy()
+                                     .astype(np.float64))
 
     # forward process and training loss
 
@@ -285,7 +289,8 @@ class DiffusionEngine:
                generators: Optional[Sequence[torch.Generator]] = None,
                shape: Optional[tuple] = None,
                init_noise: Optional[torch.Tensor] = None,
-               noise_seq: Optional[torch.Tensor] = None) -> torch.Tensor:
+               noise_seq: Optional[torch.Tensor] = None,
+               return_trajectory: bool = False):
         """Ancestral reverse diffusion over t = T-1 ... 0.
 
         ``cond`` is the bicubic-upsampled LR batch (B,H,W,C) in [-1, 1]
@@ -293,13 +298,18 @@ class DiffusionEngine:
         holds one generator per image; ``init_noise`` (B,H,W,C) and
         ``noise_seq`` (T,B,H,W,C, indexed by timestep t) override the
         draws. Returns the final image, folded back through
-        :func:`res2img` when the target space is the residual.
+        :func:`res2img` when the target space is the residual and
+        ``cond`` is given; with ``return_trajectory``, (final, trajectory):
+        the (T,B,H,W,C) stack of every x_{t-1} in sampling order (t = T-1
+        ... 0), each folded back the same way, so its last frame is the
+        final image.
         """
         b = self.buffers
         x, shape, device = self._start(
             cond, shape, generators, init_noise,
             init_noise is None or noise_seq is None)
         bsz = shape[0]
+        frames = []
         for t in range(b.num_timesteps - 1, -1, -1):
             level = self._level(t, b.sqrt_alphas_cumprod_prev[t + 1], bsz,
                                 device)
@@ -309,6 +319,10 @@ class DiffusionEngine:
             else:
                 noise = normal_per_generator(generators, shape[1:], device)
             x = self._ancestral_step(x, model_out, t, noise)
+            if return_trajectory:
+                frames.append(self._finish(x, cond))
+        if return_trajectory:
+            return frames[-1], torch.stack(frames)
         return self._finish(x, cond)
 
     def _subsequence(self, steps: Optional[int]):
@@ -320,7 +334,7 @@ class DiffusionEngine:
         ts = np.unique(np.linspace(0, T - 1, int(steps or T)).round()
                        .astype(np.int64))[::-1]
         t_prev = np.append(ts[1:], -1)
-        ac = self.buffers.alphas_cumprod.cpu().numpy().astype(np.float64)
+        ac = self._alphas_cumprod_host
         a_prev = np.where(t_prev >= 0, ac[np.maximum(t_prev, 0)], 1.0)
         return ts, t_prev, ac[ts], a_prev
 

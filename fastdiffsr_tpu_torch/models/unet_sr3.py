@@ -45,8 +45,8 @@ def refuse_upsample_mode(mode: str) -> None:
     if mode:
         raise NotImplementedError(
             f"upsample_mode={mode!r}: only the literal nearest x2 + conv "
-            "Upsample ('') is ported (tconv/d2s2: ROADMAP.md queue 5, "
-            "opt-in ops)")
+            "Upsample ('') is ported (tconv/d2s2: ROADMAP.md queue 1 item "
+            "3e, the exact rewrites)")
 
 
 class SR3ResnetBlock(nn.Module):

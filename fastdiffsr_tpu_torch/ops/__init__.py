@@ -1,3 +1,4 @@
+from . import library  # noqa: F401  (registers the fdsr:: operators)
 from .fused_conv import fused_gn_swish_conv3x3, group_stats_to_norm
 from .groupnorm import (channel_stats, gn_swish, gn_swish_custom,
                         gn_swish_reference)

@@ -229,6 +229,13 @@ def fused_gn_swish_conv3x3(x: Maps, gn_scale: Optional[torch.Tensor],
     (B,H,W,Co) in x.dtype and, when want_stats, stats_y (B,2,Co) float32.
     """
     xs = x if isinstance(x, tuple) else (x,)
+    if kernels.traced():
+        sts = (() if stats_in is None else
+               stats_in if isinstance(stats_in, tuple) else (stats_in,))
+        out = torch.ops.fdsr.fused_gn_swish_conv3x3(
+            list(xs), gn_scale, gn_bias, list(sts), w, b, shift, res, groups,
+            eps, apply_norm, want_stats)
+        return tuple(out) if want_stats else out[0]
     if xs[0].device.type == "cpu":
         return fused_gn_swish_conv3x3_plain(
             x, gn_scale, gn_bias, stats_in, w, b, shift=shift, res=res,

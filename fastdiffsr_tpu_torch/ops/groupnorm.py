@@ -20,7 +20,10 @@ Counterpart of ``fastdiffsr_tpu/ops/groupnorm.py``:
   Every UNet ``Block`` runs it; :func:`gn_swish_reference` stands in for
   it where a test or an on-card check needs the UNet without the kernel.
 
-Groups are contiguous channel slices, as in ``torch.nn.GroupNorm``.
+Groups are contiguous channel slices, as in ``torch.nn.GroupNorm``. A
+traced call of :func:`channel_stats` or :func:`gn_swish` goes through its
+registered operator (``fdsr::channel_stats``, ``fdsr::gn_swish`` in
+``ops/library.py``).
 """
 
 from __future__ import annotations
@@ -161,8 +164,15 @@ def _channel_stats_cuda(x: torch.Tensor) -> torch.Tensor:
 
 def channel_stats(x: torch.Tensor) -> torch.Tensor:
     """Per-channel (sum, sum of squares) over H,W: (B,H,W,C) -> (B,2,C)."""
+    if kernels.traced():
+        return torch.ops.fdsr.channel_stats(x)
     if x.device.type == "cpu":
         return channel_stats_plain(x)
+    return channel_stats_launch(x)
+
+
+def channel_stats_launch(x: torch.Tensor) -> torch.Tensor:
+    """K2 on a CUDA map: one counted launch."""
     _check_nhwc(x, "channel_stats")
     stats = _channel_stats_cuda(x)
     kernels.count_launch("channel_stats")
@@ -188,8 +198,17 @@ def gn_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              groups: int, eps: float = 1e-5) -> torch.Tensor:
     """K1: swish(GroupNorm(x) * scale + bias) of a (B,H,W,C) map, float32
     statistics, output in x.dtype. scale, bias: (C,)."""
+    if kernels.traced():
+        return torch.ops.fdsr.gn_swish(x, scale, bias, groups, eps)
     if x.device.type == "cpu":
         return gn_swish_plain(x, scale, bias, groups, eps)
+    return gn_swish_launch(x, scale, bias, groups, eps)
+
+
+def gn_swish_launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """K1 on a CUDA map: two launches (K2's kernel, then the apply pass),
+    counted once."""
     _check_nhwc(x, "gn_swish")
     B, H, W, C = x.shape
     if C % groups:

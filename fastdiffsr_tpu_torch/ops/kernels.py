@@ -14,6 +14,11 @@ Each wrapper that launches a kernel adds one to its entry in
 ``LAUNCHES`` right after the launch, and nowhere else; a run resets the
 counts with :func:`reset_launch_counts` and reads them afterwards to
 show that its path went through the kernels.
+
+A wrapper that is :func:`traced` (by ``torch.export``, or under a
+dispatch mode such as ``FlopCounterMode``) calls its registered operator
+(``ops/library.py``) instead: those see registered operators only, not a
+``ctypes`` launch. Eager calls launch directly.
 """
 
 from __future__ import annotations
@@ -40,6 +45,14 @@ LAUNCHES = {"fused_gn_swish_conv3x3": 0, "channel_stats": 0, "gn_swish": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
+
+
+def traced() -> bool:
+    """Whether the current call is traced by ``torch.export`` or watched
+    by a dispatch mode (``FlopCounterMode``, ``FakeTensorMode``)."""
+    import torch
+    return (torch.compiler.is_exporting()
+            or torch._C._len_torch_dispatch_stack() > 0)
 
 
 def reset_launch_counts() -> None:

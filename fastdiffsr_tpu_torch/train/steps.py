@@ -191,26 +191,37 @@ def make_sample_fn(engine: DiffusionEngine,
                                         torch.Tensor],
                    sampler: str = "ancestral",
                    ddim_steps: Optional[int] = None,
-                   ddim_eta: float = 0.0):
-    """Returns sample(cond, generators) -> SR batch (B,H,W,C).
+                   ddim_eta: float = 0.0,
+                   return_trajectory: bool = False):
+    """Returns sample(cond, generators, *, init_noise=None, noise_seq=None)
+    -> SR batch (B,H,W,C), or (SR batch, (T,B,H,W,C) trajectory) with
+    ``return_trajectory`` (ancestral only, as in JAX).
 
     ``cond`` is the bicubic-upsampled LR batch in [-1, 1]; ``generators``
     holds one generator per image. ``sampler='ddim'`` runs DDIM with
     ``ddim_steps`` UNet evals (T when None; deterministic when
     ``ddim_eta == 0``), ``sampler='dpm'`` DPM-Solver++(2M) with the same
     step count, ``'ancestral'`` the T-step reverse process.
+    ``init_noise`` and ``noise_seq`` replace the generators' draws, as
+    the engine's samplers take them (``serving.py`` passes them).
     """
     if sampler not in ("ancestral", "ddim", "dpm"):
         raise ValueError(
             f"sampler={sampler!r} (want 'ancestral', 'ddim' or 'dpm')")
+    if sampler != "ancestral" and return_trajectory:
+        raise ValueError("trajectory output is ancestral-only")
 
-    def sample(cond, generators):
+    def sample(cond, generators=None, *, init_noise=None, noise_seq=None):
+        kw = {k: v for k, v in (("init_noise", init_noise),
+                                ("noise_seq", noise_seq)) if v is not None}
         if sampler == "dpm":
             return engine.sample_dpm(denoise_fn, cond, generators,
-                                     steps=ddim_steps)
+                                     steps=ddim_steps, **kw)
         if sampler == "ddim":
             return engine.sample_ddim(denoise_fn, cond, generators,
-                                      steps=ddim_steps, eta=ddim_eta)
-        return engine.sample(denoise_fn, cond, generators)
+                                      steps=ddim_steps, eta=ddim_eta, **kw)
+        if return_trajectory:
+            kw["return_trajectory"] = True
+        return engine.sample(denoise_fn, cond, generators, **kw)
 
     return sample

@@ -228,3 +228,37 @@ def test_write_pack_is_seeded_and_readable(tmp_path):
     item = ds[2]
     assert len(ds) == 3 and item["HR"].shape == (16, 16, 3)
     assert -1.0 <= item["SR"].min() and item["SR"].max() <= 1.0
+
+
+def test_val_seed_keys_the_validation_noise(tmp_path):
+    """A config's val_seed seeds the validation generators in place of
+    --seed (JAX cli/sr_mfe.py:183), on the same checkpoint."""
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.train import create_train_state, make_optimizer
+    from fastdiffsr_tpu_torch.train.checkpoint import save_state
+
+    write_pack(str(tmp_path / "pack"), 2, 3, 8, 16)
+    cfg = _config(tmp_path, "pack")
+    net = unet_from_config(cfg["model"]["unet"], device="cpu", seed=1)
+    cfg["path"]["resume_state"] = save_state(
+        create_train_state(net, make_optimizer(net.parameters())),
+        str(tmp_path / "ck"))
+    res = {}
+    for name, val_seed, seed in (("keyed", 5, "0"), ("seeded", None, "5"),
+                                 ("default", None, "0")):
+        run = dict(cfg, val_seed=val_seed)
+        res[name] = sr_mfe.main(["-p", "val", "-c",
+                                 _write(tmp_path, run, f"{name}.json"),
+                                 "--device", "cpu", "--seed", seed])
+    for k in ("psnr", "ssim", "mse"):
+        assert res["keyed"][k] == res["seeded"][k]
+    assert res["keyed"]["mse"] != res["default"]["mse"]
+
+
+def test_steps_per_call_above_one_raises(tmp_path):
+    """train.steps_per_call chains steps per dispatch in JAX; the port
+    refuses it, naming ROADMAP item 7e, instead of ignoring it."""
+    cfg = _config(tmp_path, steps_per_call=4)
+    with pytest.raises(NotImplementedError, match="item 7e"):
+        sr_mfe.main(["-p", "train", "-c", _write(tmp_path, cfg),
+                     "--device", "cpu"])

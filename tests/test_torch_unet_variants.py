@@ -198,7 +198,7 @@ def test_from_config_constructors():
                              device="cpu")
     assert s.downs[1].attn is None and s.downs[3].attn is not None
     for cls, kw in ((SR3UNet, SR3_KW), (GuidedUNet, GUIDED_KW)):
-        with pytest.raises(NotImplementedError, match="queue 5"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 3e"):
             cls(**kw, upsample_mode="tconv")
 
 
