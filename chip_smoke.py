@@ -132,21 +132,21 @@ limit:
 19. the serving export (``fastdiffsr_tpu_torch.serving``) at full width,
    every artifact with a symbolic batch: 64->256 ancestral T=20 in f32
    (through the CLI's ``main`` with ``--selftest``) and bf16, DPM-Solver++
-   10 steps in f32 (with a CPU copy, ``--platforms cuda,cpu``), and
-   128->512 ancestral in bf16, exported by one process each at once
-   (export seconds, artifact MB); then a fresh
-   process per artifact that imports torch and the op registry
-   (``fastdiffsr_tpu_torch.ops``) only loads it (seconds) and runs it on
-   the inputs of the in-process sampler, which a further fresh process
-   runs with the same per-image generators (64->256 at batches 16 and 3,
-   DPM at 2, 128->512 at 1 over 4 timed images): outputs within
-   EXPORT_TOL, K3 and K2 launches per image equal, 49 K3 and 4 K2 per
-   eval, and img/s of both; the DPM loader also runs the CPU copy on
-   image 0 against the card's (phase 10's tolerance); the workers take
-   the card in turns. Then
-   the host microseconds of one K3 call through its registered operator
-   and through a ``torch.library.custom_op`` of the same implementation
-   against the direct wrapper;
+   10 steps in f32 (with a CPU copy, ``--platforms cuda,cpu``), 128->512
+   ancestral in bf16 (the fused forward: K3 and K2), and ddpm's DDIM 5
+   steps in f32 (the plain SR3 forward: K1), exported by one process each
+   (export seconds, artifact MB); a fresh process per artifact that
+   imports torch and the op registry (``fastdiffsr_tpu_torch.ops``) only
+   loads it (seconds) as soon as its export is written, and runs it on the
+   inputs of the in-process sampler, which a further fresh process runs
+   with the same per-image generators (64->256 at batches 16 and 3, DPM
+   and DDIM at 2, 128->512 at 1 over 4 timed images): outputs within
+   EXPORT_TOL, launches per image of each kernel, and of K3 per route,
+   equal, 49 K3 and 4 K2 (fused) or 45 K1 (SR3) per eval, and img/s of
+   both; the DPM loader also runs the CPU copy on image 0 against the
+   card's (phase 10's tolerance) before its turn; the workers take the
+   card in turns. Then the host microseconds of one K3 call through its
+   registered operator against the direct wrapper;
 20. ``model_api.DDPM`` on sr_fastdiffsr_train_64_256.json at full width,
    batch 4: three ``optimize_parameters`` steps (45 K1 launches each,
    l_pix equal bit for bit to ``make_train_step`` with the step's
@@ -196,6 +196,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -314,6 +315,9 @@ SERVING_CASES = (
     ("dpm_f32", "sr_fastdiffsr_test_64_256", "f32", "dpm", 10, (2, 2)),
     ("bf16_512", "sr_fastdiffsr_infer_x4", "bf16", "ancestral", None,
      (1, 1, 1, 1, 1)),
+    # the plain forward traces to ~2.5x the fused one's nodes per eval:
+    # 5 evals check K1 through the artifact within the fused cases' time
+    ("ddpm_ddim", "sr_ddpm_test_64_256", "f32", "ddim", 5, (2, 2)),
 )
 EXPORT_TOL = 1e-5
 HOST_CALLS = 200
@@ -2603,17 +2607,21 @@ def phase_dist(card, seed):
 
 def serving_spec(seed):
     """Phase 19's cases as the workers read them: per case its config,
-    forward type, sampler, steps and run batches, and the files it
-    writes (artifact, in-process inputs and outputs, the loader's)."""
+    variant, forward type, sampler, steps and run batches, and the files
+    it writes (artifact, in-process inputs and outputs, the loader's)."""
+    from fastdiffsr_tpu_torch.config import load_json_config
+
     work = os.path.join(ROOT, "build", "smoke", "serving")
-    os.makedirs(work, exist_ok=True)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
     cases = []
     for k, (name, cfg, dt, sampler, steps, runs) in enumerate(SERVING_CASES):
+        config = os.path.join(ROOT, "fastdiffsr_tpu_torch", "configs",
+                              f"{cfg}.json")
         cases.append({
             "name": name, "dtype": dt, "sampler": sampler, "steps": steps,
-            "runs": list(runs), "turn": k + 1,
-            "config": os.path.join(ROOT, "fastdiffsr_tpu_torch", "configs",
-                                   f"{cfg}.json"),
+            "runs": list(runs), "turn": k + 1, "config": config,
+            "variant": load_json_config(config)["model"]["which_model_G"],
             "artifact": os.path.join(work, f"sampler_{name}.pt2"),
             # the DPM artifact is also saved for the CPU (serving's
             # move_to_device_pass), which its loader runs on image 0
@@ -2643,7 +2651,7 @@ def _await(paths, timeout=SERVING_TIMEOUT):
 
 @contextlib.contextmanager
 def gpu_turn(spec, k):
-    """Phase 19's stage 2: every worker prepares (loads or builds) at
+    """Every worker of phase 19 prepares (exports, loads or builds) at
     once, then they take the card in turns (k = 0 the in-process
     reference, then the loaders in case order), so no timed run shares
     the host with another worker's work."""
@@ -2661,23 +2669,26 @@ def gpu_turn(spec, k):
 
 
 def timed_run(fn):
-    """(output, host seconds, launch counts) of one sampler call, the
-    counters set to 0 just before and read just after."""
+    """(output, host seconds, launch counts, K3 launches by route) of one
+    call, the counters read just before and just after."""
     import torch
 
-    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.ops import fused_conv, kernels
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    routes0 = dict(fused_conv.ROUTE_TAKEN)
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+    dt = time.perf_counter() - t0
+    return out, dt, dict(kernels.LAUNCHES), {
+        r: n - routes0[r] for r, n in fused_conv.ROUTE_TAKEN.items()}
 
 
 def serving_export_worker(spec, case) -> int:
-    """Phase 19, stage 1: ``fastdiffsr_tpu_torch.serving``'s CLI (its
-    ``main``) exports one case; the f32 64->256 case with ``--selftest``,
-    the acceptance command."""
+    """Phase 19: ``fastdiffsr_tpu_torch.serving``'s CLI (its ``main``)
+    exports one case; the f32 64->256 case with ``--selftest``, the
+    acceptance command."""
     sys.path.insert(0, ROOT)
     from fastdiffsr_tpu_torch import serving
     argv = ["-c", case["config"], "-o", case["artifact"], "--dtype",
@@ -2695,18 +2706,20 @@ def serving_export_worker(spec, case) -> int:
 
 
 def serving_reference_worker(spec) -> int:
-    """Phase 19, stage 2, turn 0: the in-process sampler of every case (a
-    fresh process, cuDNN on its heuristics as ``cli.infer``), each run's
-    images with their own generators (``pad_batch_with_keys``, indices
-    counted over the case's runs). Before its turn it writes the inputs
-    the loaders feed the artifacts: the same params, cond and the noise
-    ``serving.draw_noise`` draws from the same generators."""
+    """Phase 19, turn 0: the in-process sampler of every case (a fresh
+    process, cuDNN on its heuristics as ``cli.infer``), on the forward
+    ``cli.infer.resolve_fused`` picks, each run's images with their own
+    generators (``pad_batch_with_keys``, indices counted over the case's
+    runs). Before its turn it writes the inputs the loaders feed the
+    artifacts: the same params, cond and the noise ``serving.draw_noise``
+    draws from the same generators."""
     import numpy as np
     import torch
 
     sys.path.insert(0, ROOT)
     from fastdiffsr_tpu_torch import serving
-    from fastdiffsr_tpu_torch.cli.infer import build_all, make_denoiser
+    from fastdiffsr_tpu_torch.cli.infer import (build_all, make_denoiser,
+                                                resolve_fused)
     from fastdiffsr_tpu_torch.config import load_json_config
     from fastdiffsr_tpu_torch.device import (set_cudnn_autotuning,
                                              use_ieee_float32)
@@ -2723,7 +2736,8 @@ def serving_reference_worker(spec) -> int:
         eng, net = build_all(opt, device="cuda", seed=0)
         r = int(opt["datasets"]["val"]["r_resolution"])
         sample = make_sample_fn(
-            eng, make_denoiser(net, True, dtypes[case["dtype"]]),
+            eng, make_denoiser(net, resolve_fused(case["variant"], None),
+                               dtypes[case["dtype"]]),
             sampler=case["sampler"], ddim_steps=case["steps"])
         _, draws, by_t = serving._plan(eng, case["sampler"], case["steps"],
                                        0.0)
@@ -2753,10 +2767,11 @@ def serving_reference_worker(spec) -> int:
             for cond, start in runs:
                 cond_t, gens = pad_batch_with_keys(cond, len(cond), seed,
                                                    start, device="cuda")
-                out, dt, launches = timed_run(lambda: sample(cond_t, gens))
+                out, dt, launches, routes = timed_run(
+                    lambda: sample(cond_t, gens))
                 outs.append(out.cpu())
                 rows.append({"batch": len(cond), "s": dt,
-                             "launches": launches})
+                             "launches": launches, "routes": routes})
             torch.save(outs, case["ref_out"])
             res[case["name"]] = rows
     with open(spec["ref_json"], "w") as f:
@@ -2765,9 +2780,10 @@ def serving_reference_worker(spec) -> int:
 
 
 def serving_load_worker(spec, case) -> int:
-    """Phase 19, stage 2: a fresh process that imports torch and the
-    port's op registry (``fastdiffsr_tpu_torch.ops``) and nothing else of
-    the port, loads one artifact with ``torch.export.load`` and runs it
+    """Phase 19: a fresh process that imports torch and the port's op
+    registry (``fastdiffsr_tpu_torch.ops``) and nothing else of the port,
+    loads one artifact with ``torch.export.load`` once its export is
+    written, runs the CPU copy (if any) before its turn and the artifact
     on the reference's inputs in its turn."""
     import torch
 
@@ -2778,43 +2794,46 @@ def serving_load_worker(spec, case) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
+    _await([_marker(spec, "exported", case["turn"])])
+    if not os.path.exists(case["export_out"]):
+        raise RuntimeError(f"{case['name']}: the export failed")
     t0 = time.time()
     extra = {"fdsr_sampler.json": ""}
     ep = torch.export.load(case["artifact"], extra_files=extra)
     module = ep.module()
     load_s = time.time() - t0
-    cpu_copy = None
-    if "," in case["platforms"]:             # the CPU copy beside it
-        t0 = time.time()
-        cpu_copy = torch.export.load(case["cpu_artifact"]).module()
-        cpu_load_s = time.time() - t0
     _await([case["inputs"]])
     feed = torch.load(case["inputs"])
     res = {"load_s": load_s, "meta": json.loads(extra["fdsr_sampler.json"]),
            "rows": []}
     outs = []
+    cpu_out = None
+    if "," in case["platforms"]:
+        # the CPU copy beside it: image 0 of the first run (the kernels'
+        # plain versions), full float32, while the other workers prepare
+        t0 = time.time()
+        cpu_copy = torch.export.load(case["cpu_artifact"]).module()
+        cpu_load_s = time.time() - t0
+        run = feed["runs"][0]
+        args = ({k: v.cpu() for k, v in feed["params"].items()},
+                run["cond"][:1].cpu(), run["init"][:1].cpu())
+        t0 = time.time()
+        with torch.no_grad():
+            cpu_out = cpu_copy(*args)
+        res["cpu_copy"] = {"load_s": cpu_load_s, "s": time.time() - t0,
+                           "device": str(cpu_out.device)}
     with gpu_turn(spec, case["turn"]):
         for run in feed["runs"]:
             args = (feed["params"], run["cond"], run["init"])
             if run["seq"] is not None:
                 args += (run["seq"],)
             with torch.no_grad():
-                out, dt, launches = timed_run(lambda: module(*args))
+                out, dt, launches, routes = timed_run(lambda: module(*args))
             outs.append(out.cpu())
             res["rows"].append({"batch": run["cond"].shape[0], "s": dt,
-                                "launches": launches})
-        if cpu_copy is not None:
-            # image 0 of the first run on the CPU copy (the kernels'
-            # plain versions), full float32
-            run = feed["runs"][0]
-            args = ({k: v.cpu() for k, v in feed["params"].items()},
-                    run["cond"][:1].cpu(), run["init"][:1].cpu())
-            t0 = time.time()
-            with torch.no_grad():
-                out = cpu_copy(*args)
-            res["cpu_copy"] = {"load_s": cpu_load_s, "s": time.time() - t0,
-                               "device": str(out.device)}
-            outs.append(out)
+                                "launches": launches, "routes": routes})
+    if cpu_out is not None:
+        outs.append(cpu_out)
     res["port_modules"] = sorted(m for m in sys.modules
                                  if m.split(".")[0].startswith(
                                      "fastdiffsr_tpu"))
@@ -2828,7 +2847,11 @@ def serving_worker(role, spec_path, name) -> int:
         spec = json.load(f)
     case = next((c for c in spec["cases"] if c["name"] == name), None)
     if role == "export":
-        return serving_export_worker(spec, case)
+        try:
+            return serving_export_worker(spec, case)
+        finally:
+            # its loader waits for this, whether the export worked or not
+            open(_marker(spec, "exported", case["turn"]), "a").close()
     k = 0 if role == "reference" else case["turn"]
     try:
         if role == "reference":
@@ -2883,19 +2906,13 @@ def serving_alphas(config):
 def op_host_us(seed):
     """Host microseconds per K3 call at one bf16 block of a 128->512 eval
     (64x64, 256 -> 256 channels, batch 1), HOST_CALLS calls per reading:
-    the direct wrapper, its registered operator (``torch.library.define``
-    / ``impl``, the port's), and the same CUDA implementation registered
-    here as a ``torch.library.custom_op``, in turns direct, operator,
-    custom_op, custom_op, operator, direct."""
+    the direct wrapper and its registered operator (what an exported
+    program calls), in turns direct, operator, operator, direct."""
     import torch
 
     from fastdiffsr_tpu_torch.ops.fused_conv import fused_gn_swish_conv3x3
     from fastdiffsr_tpu_torch.ops.groupnorm import channel_stats
-    from fastdiffsr_tpu_torch.ops.library import K3_SCHEMA, _k3_cuda
 
-    k3_custom = torch.library.custom_op(
-        "fdsr_smoke::k3", mutates_args=(), device_types="cuda",
-        schema=K3_SCHEMA)(_k3_cuda)
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((1, 64, 64, 256), generator=g, device="cuda").to(
         torch.bfloat16)
@@ -2909,11 +2926,9 @@ def op_host_us(seed):
         "direct": lambda: fused_gn_swish_conv3x3(x, sc, bi, st, w, b,
                                                  shift=shift, groups=32),
         "op": lambda: torch.ops.fdsr.fused_gn_swish_conv3x3(
-            [x], sc, bi, [st], w, b, shift, None, 32, 1e-5, True, True),
-        "custom_op": lambda: k3_custom(
             [x], sc, bi, [st], w, b, shift, None, 32, 1e-5, True, True)}
     got = {k: [] for k in calls}
-    for name in ("direct", "op", "custom_op", "custom_op", "op", "direct"):
+    for name in ("direct", "op", "op", "direct"):
         fn = calls[name]
         fn()
         torch.cuda.synchronize()
@@ -2926,60 +2941,54 @@ def op_host_us(seed):
     return got
 
 
+def serving_want(case, evals):
+    """Launches per call of the case's sampler: 49 K3 and 4 K2 per eval on
+    the fused forward, K1_PER_FORWARD of the variant on the plain one."""
+    if case["variant"] == "fastdiffsr":
+        return {"fused_gn_swish_conv3x3": 49 * evals,
+                "channel_stats": 4 * evals, "gn_swish": 0}
+    return {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
+            "gn_swish": K1_PER_FORWARD[case["variant"]] * evals}
+
+
 def phase_serving(card, seed):
     """Phase 19: the serving export at full width (module docstring).
     Returns (detail, kernel launches of the artifacts' and the in-process
-    runs by K3 route and K2, ok)."""
+    runs: K3 by the route each launch took, K2, K1; ok)."""
     import torch
 
     t_phase = time.time()
     spec = serving_spec(seed)
-    for p in os.listdir(spec["work"]):
-        if p.startswith(("ready_", "done_", "inputs_")):
-            os.remove(os.path.join(spec["work"], p))
     spec_path = os.path.join(spec["work"], "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     names = [c["name"] for c in spec["cases"]]
     gc.collect()
     torch.cuda.empty_cache()
-    # stage 1: the exports, one process each, at once
-    t0 = time.time()
-    st1 = run_workers(spec_path, [("export", n) for n in names],
-                      spec["work"])
-    stage1_s = time.time() - t0
+    # every worker at once: the exports; the reference preparing; each
+    # loader waiting for its export, then loading; then the card in turns
+    st = run_workers(spec_path, [("export", n) for n in names]
+                     + [("reference", "-")]
+                     + [("load", n) for n in names], spec["work"])
     ok = True
-    exports = {}
-    for n in names:
-        rc, _, tail = st1[("export", n)]
-        if rc != 0:
-            print(f"[serve export] {card} | {n}: export FAIL (exit {rc}):"
-                  f"\n{tail}", flush=True)
-            ok = False
-            continue
-        with open(spec["cases"][names.index(n)]["export_out"]) as f:
-            exports[n] = json.load(f)
-    if not ok:
-        return {"stage1": {str(k): v[:2] for k, v in st1.items()}}, {}, False
-    # stage 2: the in-process reference and one loader per artifact
-    t0 = time.time()
-    st2 = run_workers(spec_path, [("reference", "-")]
-                      + [("load", n) for n in names], spec["work"])
-    stage2_s = time.time() - t0
-    for key, (rc, _, tail) in st2.items():
+    for key, (rc, _, tail) in st.items():
         if rc != 0:
             print(f"[serve export] {card} | {key[0]} {key[1]}: FAIL (exit "
                   f"{rc}):\n{tail}", flush=True)
             ok = False
     if not ok:
-        return {"stage2": {str(k): v[:2] for k, v in st2.items()}}, {}, False
+        return {"workers": {str(k): v[:2] for k, v in st.items()}}, {}, False
     with open(spec["ref_json"]) as f:
         ref = json.load(f)
-    detail = {"stage1_s": stage1_s, "stage2_s": stage2_s, "cases": {}}
-    launches = {"wgmma": 0, "cuda_cores": 0, "channel_stats": 0}
+    detail = {"workers_s": {f"{k[0]} {k[1]}": v[1] for k, v in st.items()},
+              "cases": {}}
+    launches = {"wgmma": 0, "cuda_cores": 0, "channel_stats": 0,
+                "gn_swish": 0}
     for case in spec["cases"]:
         n = case["name"]
-        ex, rows = exports[n], ref[n]
+        with open(case["export_out"]) as f:
+            ex = json.load(f)
+        rows = ref[n]
         want = torch.load(case["ref_out"])
         got = torch.load(case["load_out"])
         lres = got["res"]
@@ -2998,15 +3007,15 @@ def phase_serving(card, seed):
                 for a, b in zip(got["outs"], want)]
         fin = all(bool(torch.isfinite(a).all()) for a in got["outs"])
         same_launch = all(a["launches"] == b["launches"]
+                          and a["routes"] == b["routes"]
                           for a, b in zip(lres["rows"], rows))
         evals = ex["meta"]["evals"]
-        k3 = [r["launches"]["fused_gn_swish_conv3x3"] / r["batch"]
-              for r in lres["rows"]]
-        # per image: 49 K3 and 4 K2 per eval, whatever the batch (K3 and
-        # K2 take the batch in one launch; the count is per call)
-        calls_ok = all(r["launches"] == {"fused_gn_swish_conv3x3": 49 * evals,
-                                         "channel_stats": 4 * evals,
-                                         "gn_swish": 0}
+        # K3 and K2 take the batch in one launch, K1 too: the count is per
+        # call, whatever the batch; every K3 launch took one route
+        want_l = serving_want(case, evals)
+        calls_ok = all(r["launches"] == want_l
+                       and sum(r["routes"].values())
+                       == r["launches"]["fused_gn_swish_conv3x3"]
                        for r in lres["rows"] + rows)
         mods_ok = (not lres["jax"] and all(
             m in ("fastdiffsr_tpu_torch", "fastdiffsr_tpu_torch.ops")
@@ -3018,10 +3027,11 @@ def phase_serving(card, seed):
                      or ex["selftest_err"] <= EXPORT_TOL)
                 and (cpu is None or cpu["ok"]))
         ok &= c_ok
-        route = "wgmma" if case["dtype"] == "bf16" else "cuda_cores"
         for r in lres["rows"] + rows:
-            launches[route] += r["launches"]["fused_gn_swish_conv3x3"]
-            launches["channel_stats"] += r["launches"]["channel_stats"]
+            for route, k in r["routes"].items():
+                launches[route] += k
+            for k in ("channel_stats", "gn_swish"):
+                launches[k] += r["launches"][k]
 
         def rate(rs):
             """img/s over the runs after the first of the largest batch
@@ -3033,25 +3043,34 @@ def phase_serving(card, seed):
 
         ip, ip_s, big, n_t = rate(rows)
         xp, xp_s, _, _ = rate(lres["rows"])
+        first = lres["rows"][0]
+        per_eval = "/".join(f"{first['launches'][k] / evals:g}" for k in
+                            ("fused_gn_swish_conv3x3", "channel_stats",
+                             "gn_swish"))
         print(f"[serve export] {card} | {n}: {os.path.basename(case['config'])}"
-              f" {case['sampler']} {evals} evals, fused {case['dtype']}, "
-              f"symbolic batch | export+save {ex['export_s']:.1f} s "
-              f"(concurrent with the other exports), {ex['mb'][0]:.2f} MB, "
+              f" {case['sampler']} {evals} evals, "
+              + (f"fused {case['dtype']}" if ex["meta"]["fused"] else
+                 f"plain {case['variant']} {case['dtype']}")
+              + f" forward, symbolic batch | export+save {ex['export_s']:.1f}"
+              f" s (beside the other workers), {ex['mb'][0]:.2f} MB, "
               f"export peak {ex['peak_gib'] or math.nan:.2f} GiB, load "
               f"{lres['load_s']:.1f} s in a process importing "
               f"{len(lres['port_modules'])} port modules (ops only: "
               f"{mods_ok}) | batches {case['runs']}: max|d| artifact vs "
-              f"in-process {max(errs):.3g} (tol {EXPORT_TOL}), K3 per image "
-              f"{k3[0]:.1f} (want {49 * evals / case['runs'][0]:.1f} at "
-              f"B={case['runs'][0]}), launches equal {same_launch} | B={big} "
-              f"over {n_t} timed run(s): in-process {ip:.3f} img/s "
-              f"({ip_s:.4f} s/img), exported {xp:.3f} img/s ({xp_s:.4f} "
-              f"s/img)"
+              f"in-process {max(errs):.3g} (tol {EXPORT_TOL}), launches per "
+              f"eval K3/K2/K1 {per_eval} (want "
+              + "/".join(f"{want_l[k] // evals}" for k in
+                         ("fused_gn_swish_conv3x3", "channel_stats",
+                          "gn_swish"))
+              + f"), K3 routes {first['routes']}, launches and routes equal "
+              f"{same_launch} | B={big} over {n_t} timed run(s): in-process "
+              f"{ip:.3f} img/s ({ip_s:.4f} s/img), exported {xp:.3f} img/s "
+              f"({xp_s:.4f} s/img)"
               + (f" | --selftest max|d| {ex['selftest_err']:.3g}"
                  if ex["selftest_err"] is not None else "")
               + (f" | CPU copy ({ex['mb'][1]:.2f} MB, move_to_device_pass):"
                  f" load {cpu['load_s']:.1f} s, image 0 on {cpu['device']} "
-                 f"in {cpu['s']:.1f} s, max|d| vs the card "
+                 f"in {cpu['s']:.1f} s before the turns, max|d| vs the card "
                  f"{cpu['max_abs_err']:.3g} (tol {cpu['tol']:.3g})"
                  if cpu is not None else "")
               + f" {'ok' if c_ok else 'FAIL'}", flush=True)
@@ -3070,23 +3089,22 @@ def phase_serving(card, seed):
     rng = {k: f"{min(v):.1f}-{max(v):.1f}" for k, v in host.items()}
     print(f"[serve host] {card} | K3 host time per call, bf16 64x64 "
           f"256->256 B=1 ({HOST_CALLS} calls a reading, in turns "
-          f"direct/op/custom_op/custom_op/op/direct): direct wrapper "
-          f"{rng['direct']} us, the registered operator (define/impl, what "
-          f"an exported program calls) {rng['op']} us, the same as a "
-          f"torch.library.custom_op {rng['custom_op']} us; eager calls take "
-          f"the direct route", flush=True)
+          f"direct/op/op/direct): direct wrapper {rng['direct']} us, the "
+          f"registered operator (what an exported program calls) "
+          f"{rng['op']} us; eager calls take the direct route", flush=True)
     detail["seconds"] = time.time() - t_phase
+    slowest = max(st.items(), key=lambda kv: kv[1][1])
     print(f"[serve export] {card} | phase 19 took {detail['seconds']:.1f} s "
-          f"(stage 1, the exports at once: {stage1_s:.1f} s; stage 2, loads "
-          f"at once then the card in turns: {stage2_s:.1f} s) "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"(workers {max(v[1] for v in st.values()):.1f} s, the last "
+          f"{slowest[0][0]} {slowest[0][1]}) {'ok' if ok else 'FAIL'}",
+          flush=True)
     return detail, launches, ok
 
 
 def phase_ddpm(card, seed):
     """Phase 20: ``model_api.DDPM`` at full width (module docstring).
-    Returns (detail, K1 launches of its training, K3 and K2 launches of
-    its sampling, ok)."""
+    Returns (detail, K1 launches of its training, K3 launches by route and
+    K2 launches of its sampling, ok)."""
     import copy
 
     import torch
@@ -3122,7 +3140,7 @@ def phase_ddpm(card, seed):
         # make_train_step with the step's generator
         twin.state.net.load_state_dict(m.state.net.state_dict())
         k = m.state.step
-        _, launches_m = timed_run(m.optimize_parameters)[1:]
+        launches_m = timed_run(m.optimize_parameters)[2]
         _, met = direct(twin.state, batch, step_generator(seed, k, dev))
         l_direct = float(met["l_pix"])
         steps.append({"l_pix": m.log_dict["l_pix"], "l_pix_direct": l_direct,
@@ -3132,14 +3150,15 @@ def phase_ddpm(card, seed):
     del twin
     m.set_new_noise_schedule(schedule_phase="val")
     T = m.engine.buffers.num_timesteps
-    traj, t_traj, l_traj = timed_run(lambda: m.test(continous=True))
-    final, t_final, l_final = timed_run(m.test)
+    traj, t_traj, l_traj, r_traj = timed_run(lambda: m.test(continous=True))
+    final, t_final, l_final, r_final = timed_run(m.test)
     want_l = {"fused_gn_swish_conv3x3": 49 * T, "channel_stats": 4 * T,
               "gn_swish": 0}
     test_ok = (tuple(traj.shape) == (T, B_TRAIN, r, r, 3)
                and torch.equal(traj[-1], final)
                and bool(torch.isfinite(traj).all())
-               and l_traj == want_l and l_final == want_l)
+               and l_traj == want_l and l_final == want_l
+               and sum(r_traj.values()) == sum(r_final.values()) == 49 * T)
     path = m.save_network(epoch=1, iter_step=DDPM_STEPS)
     cfg2 = copy.deepcopy(cfg)
     cfg2["path"]["resume_state"] = path
@@ -3166,7 +3185,8 @@ def phase_ddpm(card, seed):
           f"trajectory {tuple(traj.shape)} in {t_traj:.2f} s, last frame "
           f"equal to test() {torch.equal(traj[-1], final)}, launches per "
           f"test K3 {l_final['fused_gn_swish_conv3x3']} K2 "
-          f"{l_final['channel_stats']} (want {49 * T}, {4 * T}) | "
+          f"{l_final['channel_stats']} (want {49 * T}, {4 * T}), K3 routes "
+          f"{r_final} | "
           f"save_network/load_network {os.path.basename(path)} bit-equal "
           f"{reload_ok} | count_parameters {n_par:,} = param_count "
           f"{count_ok} | {time.time() - t_phase:.1f} s "
@@ -3177,7 +3197,10 @@ def phase_ddpm(card, seed):
     detail = {"steps": steps, "test_s": t_final, "trajectory_s": t_traj,
               "n_params": n_par, "checkpoint": path,
               "seconds": time.time() - t_phase, "ok": ok}
-    return detail, k1, {"cuda_cores": 2 * 49 * T, "channel_stats": 2 * 4 * T}, ok
+    sampled = {r: r_traj[r] + r_final[r] for r in r_traj}
+    sampled["channel_stats"] = (l_traj["channel_stats"]
+                                + l_final["channel_stats"])
+    return detail, k1, sampled, ok
 
 
 def gdp_reference(card, seed):
@@ -3497,7 +3520,7 @@ def main(argv=None) -> int:
     wgmma_launches = detail["serve"]["routes"]["wgmma"] + sum(
         detail["samplers"][s]["routes"]["wgmma"] for s in ("ddim", "dpm")) \
         + detail["infer_512"]["bf16"]["routes"]["wgmma"] \
-        + serve_launches.get("wgmma", 0)
+        + serve_launches.get("wgmma", 0) + ddpm_launches.get("wgmma", 0)
     k2_launches = (detail["serve"]["launches"]["channel_stats"]
                    + detail["serve_f32"]["launches"]["channel_stats"]
                    + detail["train"]["val_launches"]["channel_stats"]
@@ -3556,7 +3579,8 @@ def main(argv=None) -> int:
          "source": "fastdiffsr_tpu_torch/csrc/gn_swish.cu",
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:54",
          "launches": k1_launches + k1_variant_launches
-         + dist_launches.get("gn_swish", 0) + ddpm_k1,
+         + dist_launches.get("gn_swish", 0) + ddpm_k1
+         + serve_launches.get("gn_swish", 0),
          "max_abs_err": max(r["max_abs_err"] for r in k1_all_rows
                             if r["dtype"] == "f32"),
          "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],
@@ -3592,7 +3616,7 @@ def main(argv=None) -> int:
          + detail["infer_512"]["f32"]["routes"]["cuda_cores"]
          + dist_launches.get("cuda_cores", 0)
          + serve_launches.get("cuda_cores", 0)
-         + ddpm_launches["cuda_cores"],
+         + ddpm_launches.get("cuda_cores", 0),
          "kernel_route": k3_route_of("f32"),
          "max_abs_err": max(r["max_abs_err_y"] for r in k3_rows
                             if r["dtype"] == "f32"),

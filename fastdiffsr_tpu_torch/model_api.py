@@ -68,7 +68,8 @@ class DDPM:
         self.opt = opt
         self.device = resolve_device(device)
         self.seed = int(opt.get("seed") or 0)
-        self.sample_seed = int(opt.get("val_seed") or self.seed)
+        self.sample_seed = (self.seed if opt.get("val_seed") is None
+                            else int(opt["val_seed"]))
         self.variant = opt["model"]["which_model_G"]
         self.spec, self.net = define_G(opt, device=self.device,
                                        seed=self.seed)

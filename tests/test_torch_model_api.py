@@ -195,3 +195,12 @@ def test_define_G_and_device(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_model(_opt(tmp_path))
+
+
+@pytest.mark.parametrize("val_seed,want", [(None, 5), (0, 0), (7, 7)])
+def test_val_seed_keys_the_sampling_noise(tmp_path, val_seed, want):
+    """opt['val_seed'] seeds test()/sample()'s generators, 0 included (as
+    cli/sr_mfe.py reads it); unset, the train seed does."""
+    opt = _opt(tmp_path)
+    opt["seed"], opt["val_seed"] = 5, val_seed
+    assert create_model(opt, device="cpu").sample_seed == want

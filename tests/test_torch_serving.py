@@ -173,10 +173,11 @@ def test_artifact_matches_jax_sampler(tiny, artifacts, sampler, steps, den):
 
 
 def test_static_batch_rejects_another(tiny, tmp_path):
-    _, _, _, eng, net = tiny
+    """--batch 3 (MixNet: the batch is the program's, not the net's)."""
+    eng = tiny[3]
+    net = MixNet()
     ep, meta = serving.build_sample_export(eng, net, SIZE, batch=3,
-                                           sampler="dpm", steps=1,
-                                           fused=True)
+                                           sampler="dpm", steps=1)
     path = str(tmp_path / "sampler_b3.pt2")
     serving.save_exported(ep, meta, path)
     loaded = serving.load_exported(path)
