@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--gdp-reference | --ediffsr-only |
                                       --msi-only | --dist-only |
-                                      --serving-only]
+                                      --serving-only | --demo-only]
 
 Run from the repository root. It needs one CUDA device and the CUDA
 toolkit (nvcc); without a device it exits non-zero and prints no result.
@@ -153,7 +153,23 @@ limit:
    generator), ``set_new_noise_schedule`` to val and ``test(continous=
    True)`` (a (T,B,256,256,3) trajectory whose last frame is ``test()``,
    49 K3 and 4 K2 per eval), ``save_network`` / ``load_network``
-   bit-equal, ``count_parameters`` equal to ``param_count``.
+   bit-equal, ``count_parameters`` equal to ``param_count``;
+21. the demo path: DEMO_SOURCES seeded 64x64 source PNGs tiled by
+   ``fastdiffsr_tpu_torch.data.prepare`` (a pool of spawn workers) at
+   8->64 and 16->64 into folders, npy packs and LMDB, which must decode
+   to equal uint8 arrays (seconds to write and read each); one train step
+   of configs/demo_ucm_native_8_64_s8hg.json (full width, batch 16,
+   64x64, its SSIM term on) on K1 against gn_swish_reference, with the
+   term printed beside the L1 term; ``cli.sr_mfe -p train`` of that config
+   and of ``_s8h.json`` (no term) for DEMO_STEPS steps on the folder
+   corpus (device cache on, as the configs have it; 45 K1 launches per
+   step; steps/s of both: the term's cost), then of s8hg on the folder and
+   on the LMDB corpus with cuDNN on its deterministic algorithms (l_pix
+   equal bit for bit); ``-p val`` of the s8hg checkpoint on DEMO_VAL
+   tiles (x8, fused f32, batch 1, T=20: 49 K3 on the CUDA cores and 4 K2
+   per eval, seconds per image); then K3 f32 and K2 at batch 1 and K1 at
+   batch 16 against their plain versions at every shape of the 64x64
+   UNet, down to its 8x8 maps.
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -169,7 +185,7 @@ evaluation at its reference shape (ancestral T=1000 at 256x256 through
 ``--msi-only`` only phase 17, ``--dist-only`` only phase 18
 (``--dist-worker <spec>`` is phase 18's rank, which torchrun starts) and
 ``--serving-only`` only phases 19-20 (``--serving-worker`` is a process
-of phase 19).
+of phase 19) and ``--demo-only`` only phase 21.
 
 Kernel times: ``ms`` is device time per call, the CUDA-event time of one
 replay of a CUDA graph that holds REPS calls (no host time between the
@@ -180,11 +196,13 @@ run, kernel launches in the same process cost more host time.)
 
 The line before the last is one JSON object of per-kernel numbers (K3
 has two entries, one per hand-written kernel; ``kernel_route`` names the
-kernel), every number of it measured in this run or, for ``bound_ms``,
-computed from this run's shapes; the last line is {"ok": true, "device":
+kernel; ``*_512`` keys are per 128->512 eval, ``*_64`` keys per 64x64
+eval at batch 1, K1's per 64x64 training forward at batch 16), every
+number of it measured in this run or, for ``bound_ms``, computed from
+this run's shapes; the last line is {"ok": true, "device":
 {...}}. Per-shape details go to build/chip_smoke.json. Any failed check
 exits non-zero. The ``[time]`` line says how long the run took, the
-kernel build included: about ten minutes on an H100.
+kernel build included: about sixteen minutes on an H100.
 """
 
 from __future__ import annotations
@@ -323,6 +341,17 @@ EXPORT_TOL = 1e-5
 HOST_CALLS = 200
 SERVING_TIMEOUT = 600
 DDPM_STEPS = 3      # phase 20: optimize_parameters calls
+# phase 21, the demo path: seeded 64x64 source images prepared at both
+# demo sizes in the three formats (by a pool of DEMO_WORKERS processes),
+# DEMO_STEPS train steps per run at the config's batch, -p val of DEMO_VAL
+# tiles
+DEMO_SOURCES = 96
+DEMO_SIDE = 64
+DEMO_SIZES = ((8, 64), (16, 64))
+DEMO_FORMATS = {"folder": "img", "pack": "npy", "lmdb": "lmdb"}
+DEMO_WORKERS = 4
+DEMO_STEPS = 12
+DEMO_VAL = 4
 
 
 def card_line() -> str:
@@ -875,11 +904,14 @@ def randomize_params(net, seed: int):
     return net
 
 
-def phase_train_parity(cfg, B, card, seed):
+def phase_train_parity(cfg, B, card, seed, tag=None):
     """One full-width train step with the K1 norms on K1 and on
     gn_swish_reference, from the same weights (randomized for the SR3
     and guided UNets), batch and injected draws, dropout off, Adam with
-    eps STEP_ADAM_EPS."""
+    eps STEP_ADAM_EPS. The loss has the config's SSIM term where it sets
+    one (``model.diffusion.aux_ssim_weight``); then the term is printed
+    beside the L1 term of the same draws and weights. ``tag`` names the
+    run in the printed lines (default: the variant)."""
     import torch
 
     from fastdiffsr_tpu_torch.cli.infer import build_unet
@@ -894,8 +926,12 @@ def phase_train_parity(cfg, B, card, seed):
                                              dropout=0.0))
     lr = float(cfg["train"]["optimizer"]["lr"])
     spec = DiffusionSpec.for_variant(variant)
+    diff = cfg["model"].get("diffusion") or {}
+    aux_w = float(diff.get("aux_ssim_weight") or 0.0)
     eng = DiffusionEngine(spec, ScheduleBuffers.create(
-        cfg["model"]["beta_schedule"]["train"], device=dev))
+        cfg["model"]["beta_schedule"]["train"], device=dev),
+        aux_ssim_weight=aux_w,
+        aux_ssim_gamma_pow=float(diff.get("aux_ssim_gamma_pow") or 0.0))
     g = torch.Generator(device=dev).manual_seed(seed + 5)
     r = int(cfg["datasets"]["train"]["r_resolution"])
     batch = {k: torch.rand((B, r, r, 3), generator=g, device=dev) * 2 - 1
@@ -913,6 +949,16 @@ def phase_train_parity(cfg, B, card, seed):
     if variant != "fastdiffsr":
         randomize_params(net, seed + 6)
     start = {k: v.clone() for k, v in net.state_dict().items()}
+    terms = None
+    if aux_w:
+        # the loss with the term and the L1 term alone, on the same draws
+        l1_eng = DiffusionEngine(spec, eng.buffers)
+        with torch.no_grad():
+            total_l, l1 = (e.training_loss(net.train(), batch, None,
+                                           noise=noise, **draws).item()
+                           for e in (eng, l1_eng))
+        terms = {"l_pix": total_l, "l1": l1, "aux": (total_l - l1) / aux_w,
+                 "aux_weight": aux_w}
     for arm in ("reference", "k1"):
         net.load_state_dict(start)
         state = create_train_state(net, torch.optim.Adam(
@@ -949,7 +995,8 @@ def phase_train_parity(cfg, B, card, seed):
     ok = (d_loss <= STEP_TOL["loss"] and d_gn <= STEP_TOL["grad_norm"]
           and d_grad <= STEP_TOL["grad"] and d_par <= STEP_TOL["param"] * lr
           and a["k1"] == 0 and b["k1"] == want_k1)
-    label = "" if variant == "fastdiffsr" else f" {variant}"
+    label = (f" {tag}" if tag else
+             "" if variant == "fastdiffsr" else f" {variant}")
     weights = "" if variant == "fastdiffsr" else ", randomized weights"
     print(f"[train step{label}] {card} | full width B={B} {r}x{r} f32, "
           f"dropout off{weights}, injected {'+'.join(draws)}+noise, K1 "
@@ -963,12 +1010,18 @@ def phase_train_parity(cfg, B, card, seed):
           f"{moved:.3g} of elements moved by more than the tol) | K1 "
           f"launches {a['k1']} / {b['k1']} (want 0 / {want_k1}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
+    if terms:
+        print(f"[train step{label} terms] {card} | the K1 step's loss "
+              f"{terms['l_pix']:.6f} = L1 {terms['l1']:.6f} + "
+              f"{aux_w} x SSIM term {terms['aux']:.6f} (mean of "
+              f"gamma^{eng.aux_ssim_gamma_pow:g} (1 - SSIM) of the decoded "
+              f"x0_hat)", flush=True)
     del out, a, b
     torch.cuda.empty_cache()
     return {"variant": variant, "rel_loss": d_loss, "rel_grad_norm": d_gn,
             "rel_grad": d_grad, "max_abs_grad_gap": dg_abs,
             "adam_eps": STEP_ADAM_EPS, "param_max_over_lr": d_par / lr,
-            "share_moved_over_tol": moved, "ok": ok}, ok
+            "share_moved_over_tol": moved, "terms": terms, "ok": ok}, ok
 
 
 def evals_per_image(cfg) -> int:
@@ -3203,6 +3256,290 @@ def phase_ddpm(card, seed):
     return detail, k1, sampled, ok
 
 
+def write_demo_sources(root, n, seed):
+    """``n`` seeded DEMO_SIDE^2 RGB PNGs with spatial structure: bicubic
+    upsampled 8x8 noise, a bright or dark rectangle and a one-pixel line
+    (edges at random places), written without an image library."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fastdiffsr_tpu_torch.metrics import save_img
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    small = torch.from_numpy(rng.uniform(40, 215, (n, 3, 8, 8))
+                             .astype(np.float32))
+    base = F.interpolate(small, size=DEMO_SIDE, mode="bicubic",
+                         align_corners=False).permute(0, 2, 3, 1).numpy()
+    for i, img in enumerate(base):
+        y0, x0 = rng.integers(0, DEMO_SIDE - 16, 2)
+        h, w = rng.integers(8, 32, 2)
+        img[y0:y0 + h, x0:x0 + w] += rng.choice([-60.0, 60.0])
+        k = rng.integers(0, DEMO_SIDE)
+        if i % 2:
+            img[k, :] = 255.0
+        else:
+            img[:, k] = 0.0
+        save_img(np.clip(img, 0, 255).round().astype(np.uint8),
+                 os.path.join(root, f"{i:05d}.png"))
+    return root
+
+
+def demo_prepare(work, src, card):
+    """data/prepare.py on the sources at both demo sizes in the three
+    formats: the seconds each takes to write and to read back (the
+    device cache's raw_uint8, and LR through __getitem__); the three must
+    decode to the same uint8 arrays. Returns ({(l, r): {format: root}},
+    rows, ok)."""
+    import numpy as np
+
+    from fastdiffsr_tpu_torch.data import LRHRDataset
+    from fastdiffsr_tpu_torch.data.prepare import prepare
+    roots, rows, ok = {}, [], True
+    for l_res, r_res in DEMO_SIZES:
+        got = {}
+        for fmt, datatype in DEMO_FORMATS.items():
+            out = os.path.join(work, f"{fmt}_{l_res}_{r_res}")
+            shutil.rmtree(out, ignore_errors=True)
+            t0 = time.time()
+            n = prepare(src, out, n_worker=DEMO_WORKERS, sizes=(l_res, r_res),
+                        pack=fmt == "pack", lmdb=fmt == "lmdb", verbose=False)
+            write_s = time.time() - t0
+            t0 = time.time()
+            ds = LRHRDataset(out, datatype=datatype, l_resolution=l_res,
+                             r_resolution=r_res, split="val", need_LR=True)
+            raw = ds.raw_uint8()
+            read_s = time.time() - t0
+            lr = np.stack([ds[i]["LR"] for i in range(len(ds))])
+            got[fmt] = (raw, lr)
+            roots.setdefault((l_res, r_res), {})[fmt] = out
+            rows.append({"sizes": [l_res, r_res], "format": fmt, "images": n,
+                         "write_s": write_s, "read_s": read_s})
+        ref_raw, ref_lr = got["folder"]
+        same = all(np.array_equal(raw[k], ref_raw[k])
+                   and raw[k].shape == (DEMO_SOURCES, r_res, r_res, 3)
+                   for raw, _ in got.values() for k in ("HR", "SR")) \
+            and all(np.array_equal(lr, ref_lr) for _, lr in got.values())
+        ok &= same
+        times = ", ".join(f"{r['format']} write {r['write_s']:.3f} s read "
+                          f"{r['read_s']:.3f} s" for r in rows
+                          if r["sizes"] == [l_res, r_res])
+        print(f"[demo prepare] {card} | data.prepare of {DEMO_SOURCES} "
+              f"{DEMO_SIDE}x{DEMO_SIDE} PNGs at {l_res}->{r_res}, "
+              f"{DEMO_WORKERS} spawn workers (host seconds): {times} | the "
+              f"three decode to equal uint8 HR/SR/LR: {same} "
+              f"{'ok' if same else 'FAIL'}", flush=True)
+    return roots, rows, ok
+
+
+def phase_demo(card, seed):
+    """Phase 21, the demo path: prepare a corpus, train the x8 demo
+    config with its SSIM term on it (folder and lmdb), validate, and hold
+    each kernel against its plain version at the 64x64 UNet's maps.
+    Returns (detail, launches of the path's runs, ok)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.cli import sr_mfe
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr_fused import (
+        prepare_fused_params)
+    from fastdiffsr_tpu_torch.ops import fused_conv, kernels
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    work = os.path.join(ROOT, "build", "smoke", "demo")
+    src = write_demo_sources(os.path.join(work, "src"), DEMO_SOURCES, seed)
+    roots, prep_rows, ok = demo_prepare(work, src, card)
+
+    def config(name):
+        return load_json_config(os.path.join(
+            ROOT, "fastdiffsr_tpu_torch", "configs", f"{name}.json"))
+
+    cfg = config("demo_ucm_native_8_64_s8hg")
+    l_res = int(cfg["datasets"]["train"]["l_resolution"])
+    r_res = int(cfg["datasets"]["train"]["r_resolution"])
+    batch = int(cfg["datasets"]["train"]["batch_size"])
+    T = int(cfg["model"]["beta_schedule"]["val"]["n_timestep"])
+    k1_fwd = K1_PER_FORWARD["fastdiffsr"]
+    detail = {"prepare": prep_rows}
+
+    # one train step on K1 against gn_swish_reference, the SSIM term on
+    detail["train_step"], step_ok = phase_train_parity(
+        cfg, batch, card, seed, tag="demo s8hg")
+    ok &= step_ok
+
+    def train(cfg, name, fmt, deterministic):
+        """cli.sr_mfe -p train on the prepared corpus in ``fmt``, the
+        device cache on (as the config has it); ``deterministic``: cuDNN
+        restricted to its deterministic algorithms."""
+        c = json.loads(json.dumps(cfg))
+        c["name"] = f"chip_smoke_demo_{name}"
+        c["path"]["resume_state"] = None
+        for ds in c["datasets"].values():
+            ds.update(dataroot=roots[l_res, r_res][fmt],
+                      datatype=DEMO_FORMATS[fmt])
+        c["datasets"]["val"]["data_len"] = DEMO_VAL
+        c["train"].update(n_iter=DEMO_STEPS, val_freq=10 ** 9,
+                          save_checkpoint_freq=10 ** 9, print_freq=4)
+        path = os.path.join(work, f"{c['name']}.json")
+        with open(path, "w") as f:
+            json.dump(c, f)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.backends.cudnn.deterministic = deterministic
+        t0 = time.time()
+        try:
+            out = sr_mfe.main(["-p", "train", "-c", path, "--device", "cuda",
+                               "--seed", str(seed)])
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        out["wall_s"] = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        run_ok = (c["datasets"]["train"]["device_cache"]
+                  and out["steps"] == DEMO_STEPS
+                  and all(map(math.isfinite, out["l_pix"]))
+                  and launches == {"gn_swish": k1_fwd * DEMO_STEPS,
+                                   "fused_gn_swish_conv3x3": 0,
+                                   "channel_stats": 0}
+                  and out["steady_steps_per_s"] is not None)
+        return c, out, launches, run_ok
+
+    # the rates in the CLI's own regime (cuDNN's timed algorithms, some
+    # of which are not deterministic: two such runs drift apart after the
+    # first step); the folder and lmdb corpora compared bit for bit on
+    # cuDNN's deterministic algorithms
+    runs = {}
+    for name, cfg_name, fmt, det in (
+            ("s8hg", "demo_ucm_native_8_64_s8hg", "folder", False),
+            ("s8h", "demo_ucm_native_8_64_s8h", "folder", False),
+            ("s8hg_det", "demo_ucm_native_8_64_s8hg", "folder", True),
+            ("s8hg_lmdb_det", "demo_ucm_native_8_64_s8hg", "lmdb", True)):
+        c, out, launches, run_ok = train(config(cfg_name), name, fmt, det)
+        runs[name] = {"config": cfg_name, "format": fmt,
+                      "cudnn_deterministic": det, "l_pix": out["l_pix"],
+                      "steady_steps_per_s": out["steady_steps_per_s"],
+                      "wall_s": out["wall_s"], "launches": launches,
+                      "checkpoint": out["checkpoint"], "ok": run_ok, "cfg": c}
+        ok &= run_ok
+    same = runs["s8hg_lmdb_det"]["l_pix"] == runs["s8hg_det"]["l_pix"]
+    ok &= same
+    rate_g = runs["s8hg"]["steady_steps_per_s"]
+    rate_h = runs["s8h"]["steady_steps_per_s"]
+    k1_train = sum(r["launches"]["gn_swish"] for r in runs.values())
+    for name, r in runs.items():
+        print(f"[demo train {name}] {card} | cli.sr_mfe -p train "
+              f"{r['config']}.json on the {r['format']} corpus (datatype "
+              f"{DEMO_FORMATS[r['format']]}), full width, B={batch} "
+              f"{l_res}->{r_res}, device cache, {DEMO_STEPS} steps: l_pix "
+              f"first {r['l_pix'][0]:.6f} last {r['l_pix'][-1]:.6f} | K1 "
+              f"launches {r['launches']['gn_swish']} (want "
+              f"{k1_fwd * DEMO_STEPS}), K3 "
+              f"{r['launches']['fused_gn_swish_conv3x3']}, K2 "
+              f"{r['launches']['channel_stats']} | cuDNN "
+              f"{'deterministic' if r['cudnn_deterministic'] else 'timed'}"
+              f", steady {r['steady_steps_per_s']:.3f} steps/s excluding "
+              f"the first step; the run's wall {r['wall_s']:.1f} s (set-up "
+              f"and checkpoint included) {'ok' if r['ok'] else 'FAIL'}",
+              flush=True)
+    print(f"[demo train] {card} | on cuDNN's deterministic algorithms, "
+          f"l_pix of the lmdb run bit-equal to the folder run's over "
+          f"{DEMO_STEPS} steps: {same}; on the timed ones the folder run's "
+          f"last l_pix {runs['s8hg']['l_pix'][-1]:.6f} against "
+          f"{runs['s8hg_det']['l_pix'][-1]:.6f} | the SSIM term's cost: "
+          f"s8hg {rate_g:.3f} against s8h {rate_h:.3f} steps/s, ratio "
+          f"{rate_g / rate_h:.3f} {'ok' if same else 'FAIL'}", flush=True)
+
+    # -p val of the s8hg checkpoint: x8, fused f32, batch 1
+    c = runs["s8hg"]["cfg"]
+    c["path"]["resume_state"] = runs["s8hg"]["checkpoint"]
+    path = os.path.join(work, "chip_smoke_demo_val.json")
+    with open(path, "w") as f:
+        json.dump(c, f)
+    kernels.reset_launch_counts()
+    routes0 = dict(fused_conv.ROUTE_TAKEN)
+    t0 = time.time()
+    res = sr_mfe.main(["-p", "val", "-c", path, "--device", "cuda",
+                       "--seed", str(seed)])
+    torch.cuda.synchronize()
+    own_phases_regime()
+    vwall = time.time() - t0
+    val_launches = dict(kernels.LAUNCHES)
+    routes = {k: n - routes0[k] for k, n in fused_conv.ROUTE_TAKEN.items()}
+    n_eval = T * DEMO_VAL
+    val_ok = (val_launches == {"fused_gn_swish_conv3x3": 49 * n_eval,
+                               "channel_stats": 4 * n_eval, "gn_swish": 0}
+              and routes == {"wgmma": 0, "cuda_cores": 49 * n_eval}
+              and math.isfinite(res.get("psnr", math.nan))
+              and math.isfinite(res.get("ssim", math.nan)))
+    ok &= val_ok
+    s_img = res.get("avg_time", math.nan)
+    print(f"[demo val] {card} | cli.sr_mfe -p val of the s8hg checkpoint, "
+          f"x{r_res // l_res} {l_res}->{r_res}, fused f32, batch 1, T={T}, "
+          f"{DEMO_VAL} tiles: psnr {res.get('psnr', math.nan):.4f} ssim "
+          f"{res.get('ssim', math.nan):.4f} | K3 launches "
+          f"{val_launches['fused_gn_swish_conv3x3']} (want {49 * n_eval}; "
+          f"{routes['cuda_cores']} on the CUDA cores), K2 "
+          f"{val_launches['channel_stats']} (want {4 * n_eval}), K1 "
+          f"{val_launches['gn_swish']} | {s_img:.4f} s per image after the "
+          f"first, wall {vwall:.1f} s {'ok' if val_ok else 'FAIL'}",
+          flush=True)
+    detail["runs"] = {k: {kk: vv for kk, vv in v.items() if kk != "cfg"}
+                      for k, v in runs.items()}
+    detail["val"] = {"result": res, "launches": val_launches,
+                     "routes": routes, "s_per_image": s_img, "wall_s": vwall}
+
+    # the kernels at the 64x64 UNet's maps: K3 f32 and K2 at batch 1 (the
+    # -p val shapes), K1 at the training batch
+    unet_opt = cfg["model"]["unet"]
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    net = unet_from_config(unet_opt, dtype=torch.float32, device=dev,
+                           seed=seed)
+    x = torch.randn((1, r_res, r_res, 6), generator=g, device=dev)
+    level = torch.rand((1,), generator=g, device=dev)
+    k3_sigs, k2_sigs = record_calls(prepare_fused_params(net, torch.float32),
+                                    x, level)
+    x = torch.randn((batch, r_res, r_res, 6), generator=g, device=dev)
+    level = torch.rand((batch,), generator=g, device=dev)
+    k1_sigs, strided = record_k1(net, x, level)
+    del net, x
+    shapes_ok = (sum(k3_sigs.values()) == 49 and sum(k2_sigs.values()) == 4
+                 and sum(k1_sigs.values()) == k1_fwd and strided == 0)
+    ok &= shapes_ok
+    maps = sorted({sg[1] for sg in k3_sigs} | {sg[0] for sg in k1_sigs})
+    print(f"[demo shapes] {card} | one {r_res}x{r_res} eval: "
+          f"{sum(k3_sigs.values())} K3 calls in {len(k3_sigs)} shapes, "
+          f"{sum(k2_sigs.values())} K2 calls in {len(k2_sigs)}; one "
+          f"training forward: {sum(k1_sigs.values())} K1 calls in "
+          f"{len(k1_sigs)} shapes; maps {maps} "
+          f"{'ok' if shapes_ok else 'FAIL'}", flush=True)
+    k3_rows, k3_ok = phase_k3(k3_sigs, 1, REPS, card, seed, dtypes=("f32",))
+    k2_rows, k2_ok = phase_k2(k2_sigs, 1, REPS, card, seed, dtypes=("f32",))
+    k1_rows, k1_ok = phase_k1(k1_sigs, batch, REPS, card, seed,
+                              dtypes=("f32",))
+    print_k3_totals(k3_rows, card, f" {r_res}x{r_res}")
+    print_k2_totals(k2_rows, card, f" {r_res}x{r_res}")
+    k1_tot = {k: total(k1_rows, k, "f32", "calls_per_forward")
+              for k in ("ms", "plain_ms", "bound_ms", "two_call_library_ms")}
+    print(f"[K1 total f32 B={batch} {r_res}x{r_res}] {card} | per training "
+          f"forward, device: kernel {k1_tot['ms']:.4f} ms, plain "
+          f"{k1_tot['plain_ms']:.4f} ms, F.group_norm+F.silu "
+          f"{k1_tot['two_call_library_ms']:.4f} ms | bound "
+          f"{k1_tot['bound_ms']:.4f} ms", flush=True)
+    ok &= k3_ok and k2_ok and k1_ok
+    detail.update(k3=k3_rows, k2=k2_rows, k1=k1_rows, k1_total=k1_tot,
+                  seconds=time.time() - t_phase, ok=ok)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"gn_swish": k1_train,
+                "cuda_cores": routes["cuda_cores"],
+                "channel_stats": val_launches["channel_stats"]}
+    print(f"[demo] {card} | phase 21 took {detail['seconds']:.1f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return detail, launches, ok
+
+
 def gdp_reference(card, seed):
     """``--gdp-reference``: cli.infer of configs/sr_gdp_test_64_256.json
     (the guided UNet at full width, ancestral sampling over T=1000 at
@@ -3254,6 +3591,10 @@ def main(argv=None) -> int:
     ap.add_argument("--serving-only", action="store_true",
                     help="in place of phases 2-18: only phases 19-20 (the "
                          "serving export and the DDPM wrapper)")
+    ap.add_argument("--demo-only", action="store_true",
+                    help="in place of phases 2-20: only phase 21 (the demo "
+                         "path: data.prepare, the x8 demo config with its "
+                         "SSIM term, the kernels at 64x64)")
     ap.add_argument("--serving-worker", nargs=3,
                     metavar=("ROLE", "SPEC", "CASE"),
                     help="a worker process of phase 19")
@@ -3328,6 +3669,11 @@ def main(argv=None) -> int:
         with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
             json.dump(detail, f, indent=1, default=str)
         return 0 if s_ok and d_ok else 1
+    if args.demo_only:
+        detail["demo"], _, demo_ok = phase_demo(card, args.seed)
+        with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        return 0 if demo_ok else 1
     laps, t_lap = {}, [time.time()]
 
     def lap(name):
@@ -3511,9 +3857,17 @@ def main(argv=None) -> int:
                                                                  args.seed)
     lap("20 DDPM wrapper")
     ok &= export_ok and ddpm_ok
+
+    # 21. the demo path: data.prepare, the x8 demo config, 64x64 kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    detail["demo"], demo_launches, demo_ok = phase_demo(card, args.seed)
+    lap("21 demo")
+    ok &= demo_ok
+    demo = detail["demo"]
     k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]
-    k1_all_rows = k1_rows + [r for v in detail["k1_variants"].values()
-                             for r in v["rows"]]
+    k1_all_rows = k1_rows + demo["k1"] + [
+        r for v in detail["k1_variants"].values() for r in v["rows"]]
     # per SR3 forward (the shapes of phase 6) at batch 1, the batch of
     # the variants' -p val runs
     k1_b1 = detail["k1_variants"]["ddpm"]["total"]["f32_b1"]
@@ -3530,7 +3884,8 @@ def main(argv=None) -> int:
                          for dt in ("f32", "bf16"))
                    + dist_launches.get("channel_stats", 0)
                    + serve_launches.get("channel_stats", 0)
-                   + ddpm_launches["channel_stats"])
+                   + ddpm_launches["channel_stats"]
+                   + demo_launches["channel_stats"])
 
     def k3_route_of(dt):
         """The kernel every K3 row of that type ran on (or "mixed")."""
@@ -3556,6 +3911,17 @@ def main(argv=None) -> int:
                 "max_abs_err_512": max(r[err] for r in rows
                                        if r["dtype"] == dt)}
 
+    def at_64(rows, err="max_abs_err_y"):
+        """Per 64x64 eval at batch 1 in f32 (phase 21): the ``*_64`` keys
+        of an entry."""
+        return {"ms_64": total(rows, "ms", "f32"),
+                "plain_ms_64": total(rows, "plain_ms", "f32"),
+                "bound_ms_64": total(rows, "bound_ms", "f32"),
+                "library_ms_64": (total(rows, "library_ms", "f32")
+                                  if rows[0]["library_ms"] is not None
+                                  else None),
+                "max_abs_err_64": max(r[err] for r in rows)}
+
     print_k3_totals(k3_rows, card)
     print_k3_totals(k3_b1_rows, card)
     k1_tot = {k: total(k1_rows, k, "f32", "calls_per_forward")
@@ -3580,7 +3946,7 @@ def main(argv=None) -> int:
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:54",
          "launches": k1_launches + k1_variant_launches
          + dist_launches.get("gn_swish", 0) + ddpm_k1
-         + serve_launches.get("gn_swish", 0),
+         + serve_launches.get("gn_swish", 0) + demo_launches["gn_swish"],
          "max_abs_err": max(r["max_abs_err"] for r in k1_all_rows
                             if r["dtype"] == "f32"),
          "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],
@@ -3594,7 +3960,9 @@ def main(argv=None) -> int:
          "two_call_library_ms_b1": k1_b1["two_call_library_ms"],
          "launches_per_call": max(r["launches_per_call"]
                                   for r in k1_all_rows),
-         "floor_ms": detail["floor_ms"]},
+         "floor_ms": detail["floor_ms"],
+         # per training forward of the demo configs' 64x64 UNet, B=16
+         **{f"{k}_64": v for k, v in demo["k1_total"].items()}},
         # K3 has two hand-written kernels: bf16 maps (serving) run on the
         # tensor cores, f32 maps (validation) on the CUDA cores
         {"name": "fused_gn_swish_conv3x3", "route": "cuda",
@@ -3616,9 +3984,10 @@ def main(argv=None) -> int:
          + detail["infer_512"]["f32"]["routes"]["cuda_cores"]
          + dist_launches.get("cuda_cores", 0)
          + serve_launches.get("cuda_cores", 0)
-         + ddpm_launches.get("cuda_cores", 0),
+         + ddpm_launches.get("cuda_cores", 0)
+         + demo_launches["cuda_cores"],
          "kernel_route": k3_route_of("f32"),
-         "max_abs_err": max(r["max_abs_err_y"] for r in k3_rows
+         "max_abs_err": max(r["max_abs_err_y"] for r in k3_rows + demo["k3"]
                             if r["dtype"] == "f32"),
          "ms": total(k3_rows, "ms", "f32"),
          "plain_ms": total(k3_rows, "plain_ms", "f32"),
@@ -3629,12 +3998,12 @@ def main(argv=None) -> int:
          # per eval at batch 1, the validation batch
          "ms_b1": total(k3_b1_rows, "ms", "f32"),
          "library_ms_b1": total(k3_b1_rows, "library_ms", "f32"),
-         **at_512(k3_512, "f32")},
+         **at_512(k3_512, "f32"), **at_64(demo["k3"])},
         {"name": "channel_stats", "route": "cuda",
          "source": "fastdiffsr_tpu_torch/csrc/channel_stats.cu",
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:143",
          "launches": k2_launches,
-         "max_abs_err": max(r["max_abs_err"] for r in k2_rows
+         "max_abs_err": max(r["max_abs_err"] for r in k2_rows + demo["k2"]
                             if r["dtype"] == "f32"),
          "ms": total(k2_rows, "ms"), "plain_ms": total(k2_rows, "plain_ms"),
          "bound_ms": total(k2_rows, "bound_ms"), "bound_by": by(k2_rows),
@@ -3650,7 +4019,8 @@ def main(argv=None) -> int:
          "floor_ms": detail["floor_ms"],
          **at_512(k2_512, "bf16", "max_abs_err"),
          **{f"{k}_f32": v for k, v in
-            at_512(k2_512, "f32", "max_abs_err").items()}},
+            at_512(k2_512, "f32", "max_abs_err").items()},
+         **at_64(demo["k2"], "max_abs_err")},
     ]
     detail["kernels"] = kern
     detail["seconds"] = time.time() - t_start

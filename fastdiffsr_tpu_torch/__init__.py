@@ -22,7 +22,10 @@ for every trainer and evaluation CLI on ``torch.distributed``
 (``parallel/``, launched by ``torchrun``); and the serving surface: the
 sampler as a ``torch.export`` artifact (``serving.py``, the kernels as
 the registered operators of ``ops/library.py``), the reference's
-``DDPM`` wrapper (``model_api.py``) and ``utils/profiling.py``.
+``DDPM`` wrapper (``model_api.py``) and ``utils/profiling.py``; and the
+data-prep path (``data/prepare.py``, ``data/lmdb_lite.py``: folder, npy
+and LMDB corpora) with the training loss's optional SSIM term
+(``ops/dssim.py``) that the ``demo_ucm_native_*`` configs use.
 """
 
 __version__ = "0.1.0"

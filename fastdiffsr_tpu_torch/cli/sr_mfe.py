@@ -105,12 +105,15 @@ def build_all(opt, device, seed: int = 0):
     eng_val, net = build_val(opt, device=device, dtype=torch.float32,
                              seed=seed)
     model_opt = opt["model"]
+    # model.diffusion.aux_ssim_weight (0: the reference's loss) and
+    # aux_ssim_gamma_pow: the image-space SSIM term of the engine
+    diff = model_opt.get("diffusion") or {}
     eng_train = DiffusionEngine(
         DiffusionSpec.for_variant(model_opt["which_model_G"]),
         ScheduleBuffers.create(model_opt["beta_schedule"]["train"],
                                device=device),
-        aux_ssim_weight=float((model_opt.get("diffusion") or {})
-                              .get("aux_ssim_weight") or 0.0))
+        aux_ssim_weight=float(diff.get("aux_ssim_weight") or 0.0),
+        aux_ssim_gamma_pow=float(diff.get("aux_ssim_gamma_pow") or 0.0))
     return eng_train, eng_val, net
 
 

@@ -1,10 +1,10 @@
 """LRHR paired dataset + host input pipeline.
 
-Counterpart of ``fastdiffsr_tpu/data/dataset.py``, copied with three
-changes: PIL is imported only to decode image folders (the JAX package's
-native C++ decoder is not ported), process sharding reads the rank and
-world of the ``torch.distributed`` group (``parallel.multihost``), and
-``datatype: lmdb`` raises.
+Counterpart of ``fastdiffsr_tpu/data/dataset.py``, copied with two
+changes: PIL is imported only to decode image folders and LMDB tiles (the
+JAX package's native C++ decoder is not ported), and process sharding
+reads the rank and world of the ``torch.distributed`` group
+(``parallel.multihost``).
 
 Parity target: data/LRHR_dataset.py + data/util.py of the reference —
 - folder tree ``{dataroot}/sr_{l}_{r}``, ``{dataroot}/hr_{r}``, optional
@@ -23,7 +23,11 @@ Batching is NHWC numpy with epoch-seeded shuffling (each process reads
 its ``process_index``-strided shard) and a background thread prefetcher.
 
 Packed storage: datatype 'npy'/'pack' memory-maps one contiguous uint8
-array per split (fastest host reads, no image decoder needed).
+array per split (fastest host reads, no image decoder needed); datatype
+'lmdb' reads the reference's LMDB layout (keys ``length`` +
+``{hr,sr,lr}_..._{idx:05d}`` holding TIFF-encoded bytes,
+LRHR_dataset.py:18-27,61-96, as ``data/prepare.py --lmdb`` writes it)
+through ``lmdb_lite.LmdbReader``; the ``lmdb`` package is not needed.
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ class LRHRDataset:
         self.r_res = r_resolution
         self.split = split
         self.need_LR = need_LR
+        self._lmdb = None
 
         if datatype == "img":
             self.sr_path = get_paths_from_images(
@@ -105,9 +110,17 @@ class LRHRDataset:
             self.hr_mask_path = None
             self.dataset_len = int(self._pack["HR"].shape[0])
         elif datatype == "lmdb":
-            raise NotImplementedError(
-                "datatype 'lmdb' is not ported yet (ROADMAP.md queue 1, "
-                "lmdb_lite); use 'img' or an 'npy' pack")
+            from .lmdb_lite import LmdbReader
+            self._lmdb = LmdbReader(dataroot)
+            length = self._lmdb.get(b"length")
+            # the reference stores the running count under 'length'
+            # (prepare_data_mfe_dm.py:91-93); files written by other tools
+            # are counted by their hr_* keys
+            self.dataset_len = (int(length) if length is not None else
+                                sum(1 for k in self._lmdb.keys()
+                                    if k.startswith(b"hr_")))
+            self.hr_mask_path = None
+            self._pack = None
         else:
             raise NotImplementedError(f"data_type [{datatype}] unknown")
 
@@ -125,6 +138,12 @@ class LRHRDataset:
         With ``materialize=False`` a pack dataset returns the mmap-backed
         slices instead of host copies, so a chunked device upload never
         holds the full corpus in host RAM (folder datasets still stack)."""
+        if self._lmdb is not None:
+            n = range(self.data_len)
+            return {"SR": np.stack([self._lmdb_image(
+                        f"sr_{self.l_res}_{self.r_res}_{i:05d}") for i in n]),
+                    "HR": np.stack([self._lmdb_image(
+                        f"hr_{self.r_res}_{i:05d}") for i in n])}
         if self._pack is not None:
             view = {"SR": self._pack["SR"][:self.data_len],
                     "HR": self._pack["HR"][:self.data_len]}
@@ -137,8 +156,27 @@ class LRHRDataset:
                        for p in self.hr_path[:self.data_len]])
         return {"SR": sr, "HR": hr}
 
+    def _lmdb_image(self, key: str) -> np.ndarray:
+        buf = self._lmdb.get(key)
+        if buf is None:
+            # the reference silently redraws a random index on a missing
+            # key (LRHR_dataset.py:76-90), which hides corruption
+            raise KeyError(f"lmdb key {key!r} missing from the dataset")
+        import io
+
+        from PIL import Image
+        with Image.open(io.BytesIO(buf)) as im:
+            return np.asarray(im.convert("RGB"), dtype=np.uint8)
+
     def __getitem__(self, index: int) -> dict:
-        if self._pack is not None:
+        if self._lmdb is not None:
+            img_hr = self._lmdb_image(f"hr_{self.r_res}_{index:05d}")
+            img_sr = self._lmdb_image(
+                f"sr_{self.l_res}_{self.r_res}_{index:05d}")
+            img_lr = (self._lmdb_image(f"lr_{self.l_res}_{index:05d}")
+                      if self.need_LR else None)
+            img_mask = None
+        elif self._pack is not None:
             img_sr = np.asarray(self._pack["SR"][index])
             img_hr = np.asarray(self._pack["HR"][index])
             img_lr = (np.asarray(self._pack["LR"][index])

@@ -14,13 +14,15 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 
 def write_pack(droot: str, n: int, seed: int, l_res: int = 64,
                r_res: int = 256) -> str:
     """Write ``n`` pairs at l_res -> r_res under ``droot``; returns it."""
+    # imported here: the data package imports without torch, so the
+    # process pool of data/prepare.py starts its workers quickly
+    import torch
+    import torch.nn.functional as F
     os.makedirs(droot, exist_ok=True)
     g = torch.Generator().manual_seed(int(seed))
     small = torch.rand((n, 3, 16, 16), generator=g)

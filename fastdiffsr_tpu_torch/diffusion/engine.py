@@ -12,9 +12,10 @@ tesr         noise       continuous_gamma hr            charb.   2000
 gdp          x0          discrete_t       hr            l2       1000
 ===========  ==========  ===============  ============  =======  ====
 
-the training loss (:meth:`DiffusionEngine.training_loss`) and the
-ancestral sampler. PyTorch runs eagerly, so the T steps are a Python loop
-around the denoiser instead of one ``lax.scan`` program.
+the training loss (:meth:`DiffusionEngine.training_loss`, with the
+optional image-space SSIM term) and the ancestral sampler. PyTorch runs
+eagerly, so the T steps are a Python loop around the denoiser instead of
+one ``lax.scan`` program.
 
 Noise: JAX keys become ``torch.Generator``s. The sampler takes one
 generator per image and draws that image's initial noise and then one
@@ -33,7 +34,7 @@ the float32 schedule and cast to float32 once. DDIM draws its per-step
 noise (``eta > 0`` only) and DPM-Solver++ nothing after the initial noise,
 both from the per-image generators, in loop order.
 
-The auxiliary SSIM loss is not ported yet. Layout is NHWC throughout.
+Layout is NHWC throughout.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.dssim import ssim
 from .schedules import ScheduleBuffers
 
 # denoise_fn(x_in: (B,H,W,Cin), level: (B,)) -> (B,H,W,Cout)
@@ -107,13 +109,23 @@ class DiffusionEngine:
     """Training and sampling math for one (spec, schedule)."""
 
     def __init__(self, spec: DiffusionSpec, buffers: ScheduleBuffers,
-                 aux_ssim_weight: float = 0.0):
-        if aux_ssim_weight:
-            raise NotImplementedError(
-                "model.diffusion.aux_ssim_weight needs ops/dssim.py, which "
-                "is not ported yet (ROADMAP.md queue 1 item 3)")
+                 aux_ssim_weight: float = 0.0,
+                 aux_ssim_gamma_pow: float = 0.0):
         self.spec = spec
         self.buffers = buffers
+        # the optional image-space training term
+        # w * mean_i(gamma_i^p * (1 - SSIM_i(decode(x0_hat), HR)))
+        # (model.diffusion.aux_ssim_weight / aux_ssim_gamma_pow); only the
+        # noise-prediction, continuous-gamma variants decode x0_hat in
+        # closed form from the training draw. p > 0 puts the SSIM signal
+        # on low-noise draws, where x0_hat carries image structure.
+        self.aux_ssim_weight = float(aux_ssim_weight)
+        self.aux_ssim_gamma_pow = float(aux_ssim_gamma_pow)
+        if self.aux_ssim_weight and (spec.prediction != "noise" or
+                                     spec.conditioning != "continuous_gamma"):
+            raise NotImplementedError(
+                "aux_ssim_weight needs noise-pred + continuous-gamma "
+                f"(got {spec.prediction}/{spec.conditioning})")
         # the fast samplers' host-side constants start from this copy (a
         # traced sampler cannot read a tensor back to the host)
         self._alphas_cumprod_host = (buffers.alphas_cumprod.cpu().numpy()
@@ -194,7 +206,32 @@ class DiffusionEngine:
             level = t.float()
         pred = denoise_fn(self._pack(x_noisy, img_lr_up), level)
         target = x_start if spec.prediction == "x0" else noise
-        return self._loss(target, pred)
+        loss = self._loss(target, pred)
+        if self.aux_ssim_weight:
+            # Under -dist a rank holds an equal block of the global batch's
+            # rows: the mean over its rows, averaged over the ranks by DDP's
+            # gradient all-reduce, is the global batch's mean, as the L1
+            # term's is.
+            loss = loss + self.aux_ssim_weight * self._aux_ssim(
+                x_noisy, pred, gamma, x_hr, img_lr_up)
+        return loss
+
+    def _aux_ssim(self, x_noisy, pred, gamma, x_hr, img_lr_up):
+        """mean_i(w_i * (1 - SSIM_i)) of the closed-form x0_hat at the drawn
+        gamma, clamped as the sampler clamps it and decoded to image
+        space; w_i = gamma_i^p (ones where p is 0)."""
+        g = gamma.reshape((-1,) + (1,) * (x_noisy.dim() - 1)).float()
+        # divide, then clamp: no epsilon, as in JAX
+        x0_hat = torch.clamp((x_noisy.float()
+                              - torch.sqrt(1.0 - g ** 2) * pred.float()) / g,
+                             -1.0, 1.0)
+        sr_hat = (res2img(x0_hat, img_lr_up, clip=False)
+                  if self.spec.target_space == "residual" else x0_hat)
+        s_i = ssim((sr_hat + 1.0) * 127.5, (x_hr.float() + 1.0) * 127.5,
+                   per_image=True)
+        w_i = (gamma.float() ** self.aux_ssim_gamma_pow
+               if self.aux_ssim_gamma_pow else torch.ones_like(s_i))
+        return (w_i * (1.0 - s_i)).mean()
 
     def _loss(self, target: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
         diff = target.float() - pred.float()

@@ -23,8 +23,11 @@ float image (the triangle filter, widened by the scale on downsampling,
 weights renormalised per output pixel, horizontal pass first, each pass
 accumulated in float64 and stored in float32), written out in numpy.
 
-Against the JAX package: dataroots ending in ``lmdb`` raise
-(``data/lmdb_lite.py`` is ROADMAP.md queue 1 item 8).
+LQGT/GT/LQ roots ending in ``lmdb`` are read as BasicSR-style LMDB
+environments (raw uint8 bytes + ``meta_info.pkl``, reference
+data/util.py:29-63) through ``data.lmdb_lite``; the ``lmdb`` package is
+not needed. The stereo/bokeh variants are folder-only (the reference
+ships no lmdb configs for them).
 
 Crops/augments draw from a per-dataset ``np.random.Generator`` behind a
 lock: fresh randomness per access, thread-safe under the prefetching
@@ -45,10 +48,6 @@ from ..data.dataset import DataLoader, get_paths_from_images
 from ..metrics import load_img
 from .imgproc import augment, channel_convert, imresize, modcrop
 
-LMDB_UNPORTED = ("lmdb dataroots are not ported yet (ROADMAP.md queue 1 "
-                 "item 8, data/lmdb_lite.py); use an image folder")
-
-
 def _read01(path: str) -> np.ndarray:
     """RGB HWC float32 in [0,1] (reference util.read_img semantics minus
     the BGR detour)."""
@@ -56,10 +55,41 @@ def _read01(path: str) -> np.ndarray:
 
 
 def _open_source(root: str):
-    """-> (paths, read01_fn) of an image folder tree."""
-    if str(root).endswith("lmdb"):
-        raise NotImplementedError(f"{root!r}: {LMDB_UNPORTED}")
-    return get_paths_from_images(root), _read01
+    """-> (paths, read01_fn) for a folder tree or a BasicSR-style LMDB env
+    (root ends in 'lmdb': raw uint8 image bytes per key, shapes in
+    ``meta_info.pkl`` as 'C_H_W' strings, reference data/util.py:29-63).
+    BasicSR lmdb stores cv2-order (BGR) pixels, so channels are reversed
+    here to match _read01's RGB (the reference flips BGR->RGB at tensor
+    time, LQGT_dataset.py:180-184)."""
+    if not str(root).endswith("lmdb"):
+        return get_paths_from_images(root), _read01
+
+    import pickle
+    # meta_info.pkl is written by the dataset's own preparation tool
+    # (BasicSR's create_lmdb), beside the data it describes
+    with open(os.path.join(root, "meta_info.pkl"), "rb") as f:
+        meta = pickle.load(f)
+    keys = [str(k) for k in meta["keys"]]
+    sizes = list(meta["resolution"])
+    if len(sizes) == 1:
+        sizes = sizes * len(keys)
+    shapes = dict(zip(keys, sizes))
+    from ..data.lmdb_lite import LmdbReader
+    env = LmdbReader(root)
+
+    def read01(key: str) -> np.ndarray:
+        c, h, w = (int(v) for v in shapes[key].split("_"))
+        buf = env.get(key.encode("ascii"))
+        if buf is None:
+            raise KeyError(f"lmdb key {key!r} missing under {root}")
+        img = np.frombuffer(buf, np.uint8).reshape(h, w, c)
+        if c == 3:
+            img = img[..., ::-1]           # BGR (cv2 order) -> RGB
+        elif c == 1:
+            img = np.repeat(img, 3, axis=2)
+        return img.astype(np.float32) / 255.0
+
+    return keys, read01
 
 
 def _pil_bilinear_weights(in_size: int, out_size: int) -> np.ndarray:

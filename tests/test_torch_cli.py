@@ -184,12 +184,6 @@ def test_config_parse_matches_jax_package(tmp_path):
     assert ours["distributed"] is False
 
 
-def test_lmdb_datatype_raises(tmp_path):
-    from fastdiffsr_tpu_torch.data import LRHRDataset
-    with pytest.raises(NotImplementedError, match="lmdb"):
-        LRHRDataset(str(tmp_path), datatype="lmdb")
-
-
 def test_port_imports_without_jax_or_jax_package():
     """Every module of the port imports with jax, flax, optax and
     fastdiffsr_tpu blocked."""

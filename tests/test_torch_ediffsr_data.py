@@ -194,14 +194,6 @@ def test_loaders_match_jax(tree):
                     np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_lmdb_root_raises(tmp_path):
-    opt = {"mode": "LQGT", "phase": "train", "scale": 4, "GT_size": 16,
-           "dataroot_GT": str(tmp_path / "train_HR.lmdb"),
-           "dataroot_LQ": str(tmp_path / "train_LR.lmdb")}
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tdata.create_ediffsr_dataset(opt)
-
-
 def test_mask_to_and_add_noise_match_jax(tmp_path):
     """mask_to (nearest-resized keep masks, holes 1.0; a fixed id and one
     random id per image from the same numpy generator): equal to JAX's;

@@ -48,10 +48,15 @@ K1_GUIDED = [(32, 32, 512), (32, 32, 1024), (64, 64, 256), (64, 64, 512),
              (128, 128, 256), (128, 128, 384), (128, 128, 512),
              (128, 128, 768), (256, 256, 128), (256, 256, 256),
              (256, 256, 384)]
+# the demo configs' 64x64 UNet (8->64, 16->64): K2 at batch 1 (-p val)
+# and K1 at the training batch 16, on maps a quarter of the side
+K2_64 = [(h // 4, w // 4, c) for h, w, c in K2_256]
+K1_64 = [(h // 4, w // 4, c) for h, w, c in K1_SR3]
 MAIN_PATH = sorted(
     {(B, hwc) for B in (16, 1) for hwc in K2_256}
     | {(1, hwc) for hwc in K2_512}
-    | {(B, hwc) for B in (4, 1) for hwc in K1_SR3 + K1_GUIDED})
+    | {(B, hwc) for B in (4, 1) for hwc in K1_SR3 + K1_GUIDED}
+    | {(1, hwc) for hwc in K2_64} | {(16, hwc) for hwc in K1_64})
 
 
 def check_plan(plan, B, HW, C, itemsize, aligned=True):

@@ -88,6 +88,24 @@ def test_f32_tile_choice_at_batch_1():
     assert blocks(SMALL, 1, 32, 32, 256) == 64    # fewer than the SMs
 
 
+# the K3 shapes of one 64x64 eval (the demo configs, 8->64 and 16->64):
+# the full-width shapes with a quarter of the side, down to 8x8 maps
+DEMO_64 = [(Cs, hw // 4, Co) for Cs, hw, Co in FULL_WIDTH]
+
+
+@pytest.mark.parametrize("Cs,hw,Co", DEMO_64)
+def test_f32_tile_choice_at_the_64_maps(Cs, hw, Co):
+    """At the validation batch every 64x64-eval shape leaves SMs idle with
+    the wide tiles and takes the small one (Co <= 8: the narrow one); an
+    8x8 map is one tile, and every map a whole number of them."""
+    tile = f32_tile(1, hw, hw, Co)
+    assert tile == (NARROW if Co <= 8 else SMALL)
+    assert all(blocks(t, 1, hw, hw, Co) < SMS for t in (WIDE, WIDE64))
+    if tile == SMALL:
+        assert hw % SMALL[0] == 0 and hw % SMALL[1] == 0
+        assert blocks(SMALL, 1, hw, hw, Co) == (hw // 8) ** 2 * cdiv(Co, 64)
+
+
 def f32_decomposition_model(xs, gn_scale, gn_bias, stats_in, w, b, shift,
                             res, groups, apply_norm, tile):
     """K3 computed the way csrc/fused_conv.cu walks it with ``tile``, in
@@ -171,6 +189,9 @@ MODEL_CASES = {
     # a second, ragged Co tile for every tile shape, several pixel tiles
     "co_136_shift_res": ((20,), 4, 10, 18, 136, True, True, True),
     "two_sources_24_16": ((24, 16), 8, 17, 9, 72, True, False, True),
+    # the deepest map of a 64x64 UNet (the demo configs): one small tile
+    # covers it, the 16-row tiles overhang it
+    "map_8x8_two_sources": ((32, 16), 8, 8, 8, 64, True, True, True),
 }
 TILES = {"wide": WIDE, "wide64": WIDE64, "small": SMALL, "narrow": NARROW}
 

@@ -365,13 +365,6 @@ def test_sample_gammas_and_q_sample_match_jax():
         rtol=0, atol=1e-6)
 
 
-def test_aux_ssim_weight_is_not_ported():
-    with pytest.raises(NotImplementedError, match="dssim"):
-        DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
-                        ScheduleBuffers.create(SCHED, device="cpu"),
-                        aux_ssim_weight=0.1)
-
-
 # ---------------------------------------------------------- optimizer --
 
 @pytest.mark.parametrize("kind", ["adam", "adamw", "lion"])
