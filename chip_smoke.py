@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--gdp-reference | --ediffsr-only |
                                       --msi-only | --dist-only |
-                                      --serving-only | --demo-only]
+                                      --serving-only | --demo-only |
+                                      --quant-only]
 
 Run from the repository root. It needs one CUDA device and the CUDA
 toolkit (nvcc); without a device it exits non-zero and prints no result.
@@ -169,7 +170,26 @@ limit:
    tiles (x8, fused f32, batch 1, T=20: 49 K3 on the CUDA cores and 4 K2
    per eval, seconds per image); then K3 f32 and K2 at batch 1 and K1 at
    batch 16 against their plain versions at every shape of the 64x64
-   UNet, down to its 8x8 maps.
+   UNet, down to its 8x8 maps;
+22. the W8A8 path (``FASTDIFFSR_TPU_QUANT``): the quantized convs of a
+   full-width 64->256 and 128->512 forward counted (21 and 31); Q1
+   (``csrc/quant_conv.cu``) against its plain version at the 9 shapes of
+   a 64->256 eval at batch 16 and the 4 further 128-row shapes of a
+   128->512 eval at batch 1, f32 and bf16 maps, both scale modes (int32
+   accumulators and outputs bit-equal, one launch per call), with the
+   times of Q1, its plain version, the bound (int8 operations at 1979
+   TOP/s or bytes), and two yardsticks the port never calls
+   (``torch._int_mm`` of the quantized im2col, cuDNN's bf16 conv); serving
+   64->256 at T=20, batch 16, on the plain forward without quant, with
+   w8a8 and with w8a8s, in bf16 and f32 (img/s, 21 Q1 and 45 K1 launches
+   per eval, each quantized output's relative RMS against the
+   unquantized one); ``cli.infer`` with w8a8 on 2 images and its refusal
+   of ``--fused``; a w8a8 train step against one on Q1's plain version,
+   then 3 steps with and without quant (steps/s); a w8a8 DPM-Solver++
+   export of 2 steps, loaded and run bit-equal to the in-process sampler
+   with its fdsr::quant_conv3 node count; gn_swish_stats and gn_swish_dot
+   against gn_swish_reference at the quantized Blocks' GroupNorm inputs,
+   timed beside K1.
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -185,7 +205,8 @@ evaluation at its reference shape (ancestral T=1000 at 256x256 through
 ``--msi-only`` only phase 17, ``--dist-only`` only phase 18
 (``--dist-worker <spec>`` is phase 18's rank, which torchrun starts) and
 ``--serving-only`` only phases 19-20 (``--serving-worker`` is a process
-of phase 19) and ``--demo-only`` only phase 21.
+of phase 19), ``--demo-only`` only phase 21 and ``--quant-only`` only
+phase 22.
 
 Kernel times: ``ms`` is device time per call, the CUDA-event time of one
 replay of a CUDA graph that holds REPS calls (no host time between the
@@ -220,7 +241,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # H100 SXM, dense
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12,   # H100 SXM, dense
+              "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 # K3 |dy|: f32 atol (summation order); bf16 two bf16 steps of |y| + 2e-3
 # (a sum that differs in its last float32 bits rounds to the neighbouring
@@ -375,9 +397,12 @@ def kernel_of(mangled):
                 rest = mangled[m.end() + n:]      # template args, params
                 ends = [k for k in (rest.find("Ev"), rest.find("EP")) if k >= 0]
                 rest = rest[:min(ends)] if ends else rest
-                args = re.findall(r"Li(\d+)E|I(f|13__nv_bfloat16)", rest)
-                return name + "<" + ",".join(
-                    a or ("f32" if t == "f" else "bf16") for a, t in args) + ">"
+                args, i = [], 1 if rest.startswith("I") else len(rest)
+                while t := re.match(r"Li(\d+)E|f|13__nv_bfloat16", rest[i:]):
+                    args.append(t.group(1) or ("f32" if t.group(0) == "f"
+                                               else "bf16"))
+                    i += t.end()
+                return name + "<" + ",".join(args) + ">"
     return "?"
 
 
@@ -1169,11 +1194,11 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
     n_eval = evals_per_image(cfg) * val_images
     if variant == "fastdiffsr":
         want = {"fused_gn_swish_conv3x3": 49 * n_eval,
-                "channel_stats": 4 * n_eval, "gn_swish": 0}
+                "channel_stats": 4 * n_eval, "gn_swish": 0, "quant_conv3": 0}
         want_routes = {"wgmma": 0, "cuda_cores": 49 * n_eval}
     else:
         want = {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
-                "gn_swish": K1_PER_FORWARD[variant] * n_eval}
+                "gn_swish": K1_PER_FORWARD[variant] * n_eval, "quant_conv3": 0}
         want_routes = {"wgmma": 0, "cuda_cores": 0}
     val_ok = (math.isfinite(res.get("psnr", math.nan))
               and math.isfinite(res.get("ssim", math.nan))
@@ -1344,7 +1369,7 @@ def phase_samplers(cfg, card, seed):
             c, c["name"], card, ["--dtype", "bf16", "--seed", str(seed)],
             f"serve {sampler} {SAMPLER_STEPS} steps",
             {"fused_gn_swish_conv3x3": 49 * n_eval,
-             "channel_stats": 4 * n_eval, "gn_swish": 0},
+             "channel_stats": 4 * n_eval, "gn_swish": 0, "quant_conv3": 0},
             {"wgmma": 49 * n_eval, "cuda_cores": 0})
         ok &= s_ok
 
@@ -1499,7 +1524,7 @@ def phase_variants(card, seed, pack):
         ["--dtype", "bf16", "--plain", "--seed", str(seed)],
         "infer ddpm bf16 plain dpm 20 steps",
         {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
-         "gn_swish": K1_PER_FORWARD["ddpm"] * 20})
+         "gn_swish": K1_PER_FORWARD["ddpm"] * 20, "quant_conv3": 0})
     ok &= i_ok
     k1 += detail["ddpm_infer_bf16"]["launches"]["gn_swish"]
     return detail, k1, ok
@@ -1561,7 +1586,7 @@ def phase_512_infer(card, seed):
             cfg, cfg["name"], card, [*flags, "--seed", str(seed)],
             f"infer {l_res}->{r_res} {dt}",
             {"fused_gn_swish_conv3x3": 49 * n_eval,
-             "channel_stats": 4 * n_eval, "gn_swish": 0},
+             "channel_stats": 4 * n_eval, "gn_swish": 0, "quant_conv3": 0},
             {"wgmma": 0, "cuda_cores": 0, route: 49 * n_eval})
         ok &= i_ok
     return detail, ok
@@ -2510,7 +2535,8 @@ def phase_dist(card, seed):
     # config.parse cuts -p train's val set to 13 images, as the reference
     n_val = evals_per_image(tcfg) * min(13, TRAIN_IMAGES)
     want = {"gn_swish": K1_PER_FORWARD["fastdiffsr"] * steps,
-            "fused_gn_swish_conv3x3": 49 * n_val, "channel_stats": 4 * n_val}
+            "fused_gn_swish_conv3x3": 49 * n_val, "channel_stats": 4 * n_val,
+            "quant_conv3": 0}
     l_err = rel(d["result"]["l_pix"], r["result"]["l_pix"])
     ckpt = d["result"]["checkpoint"]
     s_ok = (d["launches"] == want and d["routes"]["cuda_cores"] == 49 * n_val
@@ -2999,9 +3025,10 @@ def serving_want(case, evals):
     the fused forward, K1_PER_FORWARD of the variant on the plain one."""
     if case["variant"] == "fastdiffsr":
         return {"fused_gn_swish_conv3x3": 49 * evals,
-                "channel_stats": 4 * evals, "gn_swish": 0}
+                "channel_stats": 4 * evals, "gn_swish": 0, "quant_conv3": 0}
     return {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
-            "gn_swish": K1_PER_FORWARD[case["variant"]] * evals}
+            "gn_swish": K1_PER_FORWARD[case["variant"]] * evals,
+            "quant_conv3": 0}
 
 
 def phase_serving(card, seed):
@@ -3206,7 +3233,7 @@ def phase_ddpm(card, seed):
     traj, t_traj, l_traj, r_traj = timed_run(lambda: m.test(continous=True))
     final, t_final, l_final, r_final = timed_run(m.test)
     want_l = {"fused_gn_swish_conv3x3": 49 * T, "channel_stats": 4 * T,
-              "gn_swish": 0}
+              "gn_swish": 0, "quant_conv3": 0}
     test_ok = (tuple(traj.shape) == (T, B_TRAIN, r, r, 3)
                and torch.equal(traj[-1], final)
                and bool(torch.isfinite(traj).all())
@@ -3402,7 +3429,7 @@ def phase_demo(card, seed):
                   and all(map(math.isfinite, out["l_pix"]))
                   and launches == {"gn_swish": k1_fwd * DEMO_STEPS,
                                    "fused_gn_swish_conv3x3": 0,
-                                   "channel_stats": 0}
+                                   "channel_stats": 0, "quant_conv3": 0}
                   and out["steady_steps_per_s"] is not None)
         return c, out, launches, run_ok
 
@@ -3469,7 +3496,8 @@ def phase_demo(card, seed):
     routes = {k: n - routes0[k] for k, n in fused_conv.ROUTE_TAKEN.items()}
     n_eval = T * DEMO_VAL
     val_ok = (val_launches == {"fused_gn_swish_conv3x3": 49 * n_eval,
-                               "channel_stats": 4 * n_eval, "gn_swish": 0}
+                               "channel_stats": 4 * n_eval, "gn_swish": 0,
+                               "quant_conv3": 0}
               and routes == {"wgmma": 0, "cuda_cores": 49 * n_eval}
               and math.isfinite(res.get("psnr", math.nan))
               and math.isfinite(res.get("ssim", math.nan)))
@@ -3540,6 +3568,616 @@ def phase_demo(card, seed):
     return detail, launches, ok
 
 
+# phase 22: the W8A8 path (FASTDIFFSR_TPU_QUANT)
+Q1_PER_FORWARD = {"64_256": 21, "128_512": 31}
+QUANT_MODES = ("w8a8", "w8a8s")
+QUANT_SERVE_BATCH = 16
+QUANT_INFER_IMAGES = 2
+QUANT_TRAIN_STEPS = 3
+QUANT_EXPORT_STEPS = 2
+QUANT_EXPORT_BATCH = 2
+
+
+@contextlib.contextmanager
+def quant_mode(mode):
+    """FASTDIFFSR_TPU_QUANT set to ``mode`` within the block."""
+    prev = os.environ.get("FASTDIFFSR_TPU_QUANT")
+    os.environ["FASTDIFFSR_TPU_QUANT"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("FASTDIFFSR_TPU_QUANT")
+        else:
+            os.environ["FASTDIFFSR_TPU_QUANT"] = prev
+
+
+@contextlib.contextmanager
+def plain_q1():
+    """Within the block, Q1's wrapper runs Q1's plain version on CUDA
+    tensors too: the oracle of the W8A8 train-step check."""
+    from fastdiffsr_tpu_torch.ops import quant
+    orig = quant.quant_conv3_apply
+    quant.quant_conv3_apply = quant.quant_conv3_apply_plain
+    try:
+        yield
+    finally:
+        quant.quant_conv3_apply = orig
+
+
+def record_q1(net, x, level):
+    """The distinct (H, W, Ci, Co) of the quantized convs of one forward
+    of ``net`` (its ``quant`` set), with their counts."""
+    import torch
+
+    from fastdiffsr_tpu_torch.models import unet_fastdiffsr as tu
+    sigs, orig = {}, tu.quant_conv3
+
+    def rec(h, weight, bias, dtype, static_scale=False, cache=None):
+        sig = (*h.shape[1:], weight.shape[0])
+        sigs[sig] = sigs.get(sig, 0) + 1
+        return orig(h, weight, bias, dtype, static_scale, cache=cache)
+
+    tu.quant_conv3 = rec
+    try:
+        with torch.no_grad():
+            net(x, level)
+    finally:
+        tu.quant_conv3 = orig
+    return sigs
+
+
+def im2col_s8(q_h):
+    """(B*H*W, 9*Ci) int8 rows of the 3x3 SAME neighbourhoods of an int8
+    NHWC map, tap-major: the A operand of the ``torch._int_mm`` yardstick."""
+    import torch
+    import torch.nn.functional as F
+    B, H, W, ci = q_h.shape
+    p = F.pad(q_h, (0, 0, 1, 1, 1, 1))
+    return torch.cat([p[:, dy:dy + H, dx:dx + W] for dy in range(3)
+                      for dx in range(3)], dim=-1).reshape(B * H * W, 9 * ci)
+
+
+def phase_q1(sigs, B, card, seed):
+    """Q1 against its plain version at every (H, W, Ci, Co) of ``sigs`` at
+    batch ``B``, f32 and bf16 maps, both scale modes: the int32
+    accumulators and the outputs bit-equal, one launch per call. Then, in
+    the dynamic mode, the device and wall times of Q1 per type, of the
+    plain version (f32 map), and of two yardsticks the port never calls:
+    ``torch._int_mm`` of the im2col of the quantized map and the packed
+    weight (the GEMM alone; Co padded to 8 where it is 3, which _int_mm
+    refuses), and cuDNN's bf16 conv of the same float shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastdiffsr_tpu_torch.ops import kernels, quant
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 22)
+    rows, ok = [], True
+    for (H, W, ci, co), count in sorted(sigs.items(), reverse=True):
+        w = torch.randn((co, ci, 3, 3), generator=g, device=dev) / (
+            3.0 * math.sqrt(ci))
+        b = torch.randn(co, generator=g, device=dev) * 0.1
+        q_w, s_w = quant.quantize_weights(w)
+        packed = quant.pack_weights(q_w)
+        # post-swish-like activations: a long positive tail, a short
+        # negative one, so the static scale clips a few of them
+        x32 = F.silu(torch.randn((B, H, W, ci), generator=g, device=dev)
+                     * 2.5)
+        row = {"H": H, "W": W, "Ci": ci, "Co": co, "B": B,
+               "calls_per_eval": count, "checks": {}}
+        for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            h = x32.to(dt)
+            for mode in QUANT_MODES:
+                s_a = quant.activation_scale(h, mode == "w8a8s")
+                y, acc = quant.quant_conv3_launch(h, packed, s_w, s_a, b, dt,
+                                                  want_acc=True)
+                y_p, acc_p = quant.quant_conv3_apply_plain(
+                    h, packed, s_w, s_a, b, dt, want_acc=True)
+                torch.cuda.synchronize()
+                err = (y.float() - y_p.float()).abs().max().item()
+                err_acc = (acc - acc_p).abs().max().item()
+                same = (torch.equal(acc, acc_p) and torch.equal(y, y_p)
+                        and bool(torch.isfinite(y).all()))
+                row["checks"][f"{dt_name}/{mode}"] = {
+                    "bit_equal": same, "max_abs_err": err,
+                    "max_abs_err_acc": err_acc}
+                ok &= same
+                del y, acc, y_p, acc_p
+            s_a = quant.activation_scale(h, False)
+            per_call = kernels.kernels_per_call(
+                lambda: quant.quant_conv3_launch(h, packed, s_w, s_a, b, dt))
+            ok &= per_call == 1
+            ms, wall_ms = timed(lambda: quant.quant_conv3_launch(
+                h, packed, s_w, s_a, b, dt), REPS)
+            es = 2 if dt_name == "bf16" else 4
+            n_in, n_out = B * H * W * ci, B * H * W * co
+            b_ms, b_by = bound(2.0 * n_out * 9 * ci,
+                               (n_in + n_out) * es + packed.numel() + 8 * co,
+                               "int8")
+            row.update({f"{k}_{dt_name}": v for k, v in (
+                ("ms", ms), ("wall_ms", wall_ms), ("bound_ms", b_ms),
+                ("bound_by", b_by), ("launches_per_call", per_call))})
+        h = x32
+        s_a = quant.activation_scale(h, False)
+        row["plain_ms"], row["plain_wall_ms"] = timed(
+            lambda: quant.quant_conv3_apply_plain(h, packed, s_w, s_a, b,
+                                                  torch.float32), REPS)
+        a_mat = im2col_s8(quant.quantize_activations(h, s_a))
+        co8 = max(co, 8)
+        b_mat = F.pad(q_w.permute(0, 2, 3, 1).reshape(co, 9 * ci),
+                      (0, 0, 0, co8 - co)).contiguous().t()
+        row["int_mm_ms"], row["int_mm_wall_ms"] = timed(
+            lambda: torch._int_mm(a_mat, b_mat), REPS)
+        row["int_mm_co"] = co8
+        del a_mat
+        x_nchw = x32.to(torch.bfloat16).permute(0, 3, 1, 2)
+        w16, b16 = w.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last), b.to(torch.bfloat16)
+        row["cudnn_bf16_ms"], row["cudnn_bf16_wall_ms"] = timed(
+            lambda: F.conv2d(x_nchw, w16, b16, padding=1), REPS)
+        del x_nchw, x32, h
+        rows.append(row)
+        r_ok = all(c["bit_equal"] for c in row["checks"].values())
+        print(f"[Q1] {card} | B={B} {H}x{W} {ci}->{co} x{count}/eval | "
+              f"acc and y bit-equal to the plain version in f32/bf16 x "
+              f"w8a8/w8a8s: {r_ok}, launches/call "
+              f"{row['launches_per_call_f32']}/{row['launches_per_call_bf16']}"
+              f" | device: Q1 f32 {row['ms_f32']:.4f} ms bf16 "
+              f"{row['ms_bf16']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"_int_mm (GEMM of the im2col, Co {co8}) {row['int_mm_ms']:.4f}"
+              f" ms, cuDNN bf16 conv {row['cudnn_bf16_ms']:.4f} ms | wall: "
+              f"Q1 f32 {row['wall_ms_f32']:.4f} ms bf16 "
+              f"{row['wall_ms_bf16']:.4f} ms | bound f32 "
+              f"{row['bound_ms_f32']:.4f} ms ({row['bound_by_f32']}) bf16 "
+              f"{row['bound_ms_bf16']:.4f} ms ({row['bound_by_bf16']}) "
+              f"{'ok' if r_ok else 'FAIL'}", flush=True)
+        torch.cuda.empty_cache()
+    return rows, ok
+
+
+def q1_total(rows, key):
+    """Per eval: the sum over the shapes of ``key`` times the calls."""
+    return sum(r[key] * r["calls_per_eval"] for r in rows)
+
+
+def quant_serve(cfg, card, seed):
+    """Sampling 64->256 at T=20, batch QUANT_SERVE_BATCH, on the plain
+    forward with each quant mode and without, from the same weights, cond
+    and per-image generators, in bf16 and f32, on cuDNN's heuristics as
+    cli.infer has it: img/s, launches (Q1 21 and K1 45 per eval), and each
+    quantized output's relative RMS against the unquantized one."""
+    import numpy as np
+    import torch
+
+    from fastdiffsr_tpu_torch.cli.infer import make_denoiser
+    from fastdiffsr_tpu_torch.device import set_cudnn_autotuning
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers)
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.train import make_sample_fn, pad_batch_with_keys
+    dev = torch.device("cuda")
+    T = int(cfg["model"]["beta_schedule"]["val"]["n_timestep"])
+    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                          ScheduleBuffers.create(
+                              cfg["model"]["beta_schedule"]["val"],
+                              device=dev))
+    B = QUANT_SERVE_BATCH
+    cond = np.random.default_rng(seed + 23).uniform(
+        -1, 1, (B, 256, 256, 3)).astype(np.float32)
+    out, ok, launches = {}, True, {"quant_conv3": 0, "gn_swish": 0}
+    set_cudnn_autotuning(False)
+    for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        ys = {}
+        for mode in ("",) + QUANT_MODES:
+            with quant_mode(mode):
+                net = unet_from_config(cfg["model"]["unet"], dtype=dt,
+                                       device=dev, seed=seed)
+            fn = make_sample_fn(eng, make_denoiser(net, False, dt))
+            x, _ = pad_batch_with_keys(cond, B, seed, 0, device=dev)
+            with torch.no_grad():          # one eval: plans, the packing
+                net(torch.cat([x, x], -1), torch.ones(B, device=dev))
+            _, gens = pad_batch_with_keys(cond, B, seed, 0, device=dev)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            y = fn(x, gens)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            got = dict(kernels.LAUNCHES)
+            want = {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
+                    "gn_swish": 45 * T,
+                    "quant_conv3": Q1_PER_FORWARD["64_256"] * T if mode
+                    else 0}
+            fin = bool(torch.isfinite(y).all())
+            r_ok = got == want and fin
+            ok &= r_ok
+            for k in launches:
+                launches[k] += got[k]
+            ys[mode] = y.float()
+            rel = (None if not mode else
+                   ((y.float() - ys[""]).pow(2).mean().sqrt()
+                    / ys[""].pow(2).mean().sqrt()).item())
+            out[f"{dt_name}/{mode or 'none'}"] = {
+                "img_per_s": B / sec, "seconds": sec, "launches": got,
+                "rel_rms_vs_unquantized": rel, "ok": r_ok}
+            print(f"[quant serve] {card} | 64->256 plain forward {dt_name}, "
+                  f"quant {mode or 'none'}, T={T}, batch {B}: "
+                  f"{B / sec:.3f} img/s ({sec:.3f} s), finite {fin} | "
+                  f"launches Q1 {got['quant_conv3']} (want "
+                  f"{want['quant_conv3']}), K1 {got['gn_swish']} (want "
+                  f"{want['gn_swish']}), K3 {got['fused_gn_swish_conv3x3']}"
+                  f", K2 {got['channel_stats']} | rel RMS vs unquantized "
+                  f"{'-' if rel is None else f'{rel:.4g}'} "
+                  f"{'ok' if r_ok else 'FAIL'}", flush=True)
+            del net, fn, y
+        del ys
+        torch.cuda.empty_cache()
+    own_phases_regime()
+    return out, launches, ok
+
+
+def quant_infer(cfg, card, seed):
+    """cli.infer of the 64->256 test config with FASTDIFFSR_TPU_QUANT=w8a8
+    on QUANT_INFER_IMAGES images in one batch (the plain forward: Q1 21
+    and K1 45 per eval, no K3/K2), and its refusal of --fused."""
+    from fastdiffsr_tpu_torch.cli import infer
+    from fastdiffsr_tpu_torch.data import write_pack
+    n = QUANT_INFER_IMAGES
+    T = int(cfg["model"]["beta_schedule"]["val"]["n_timestep"])
+    droot = os.path.join(ROOT, "build", "smoke", "quant", f"pack_{seed}")
+    write_pack(droot, n, seed)
+    cfg = json.loads(json.dumps(cfg))
+    cfg["name"] = "chip_smoke_infer_w8a8"
+    cfg["datasets"]["val"].update(dataroot=droot, datatype="npy",
+                                  batch_size=n, data_len=n)
+    with quant_mode("w8a8"):
+        row, ok = run_infer(
+            cfg, cfg["name"], card, ["--seed", str(seed)], "quant infer",
+            {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
+             "gn_swish": 45 * T, "quant_conv3": Q1_PER_FORWARD["64_256"]
+             * T})
+        run_cfg = os.path.join(ROOT, "build", "smoke", f"{cfg['name']}.json")
+        try:
+            infer.main(["-c", run_cfg, "--device", "cuda", "--fused"])
+            refused = ""
+        except ValueError as e:        # the refusal is the check
+            refused = str(e)
+    r_ok = "--fused" in refused and "FASTDIFFSR_TPU_QUANT" in refused
+    print(f"[quant infer --fused] {card} | cli.infer --fused with "
+          f"FASTDIFFSR_TPU_QUANT=w8a8 refused: {refused!r} "
+          f"{'ok' if r_ok else 'FAIL'}", flush=True)
+    row["fused_refusal"] = refused
+    return row, ok and r_ok
+
+
+def quant_train(cfg, card, seed):
+    """The 64->256 train config at batch 4 with w8a8: one step with Q1 and
+    one with Q1's plain version from the same weights, batch and draws
+    (dropout off, Adam eps STEP_ADAM_EPS): loss and gradient norm within
+    phase 8's tolerances, Q1 launched 21 times (0 on the plain arm); then
+    QUANT_TRAIN_STEPS steps with the config's dropout, with and without
+    quant: losses finite, steps/s after the first."""
+    import torch
+
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers)
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.train import (create_train_state,
+                                            make_optimizer, make_train_step,
+                                            step_generator)
+    dev = torch.device("cuda")
+    B = B_TRAIN
+    r = int(cfg["datasets"]["train"]["r_resolution"])
+    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                          ScheduleBuffers.create(
+                              cfg["model"]["beta_schedule"]["train"],
+                              device=dev))
+    g = torch.Generator(device=dev).manual_seed(seed + 24)
+    batch = {k: torch.rand((B, r, r, 3), generator=g, device=dev) * 2 - 1
+             for k in ("HR", "SR")}
+    gamma = eng.sample_gammas(g, B)[0]
+    noise = torch.randn((B, r, r, 3), generator=g, device=dev)
+    step = make_train_step(eng, ema_start=0)
+    arms = {}
+    with quant_mode("w8a8"):
+        net = unet_from_config(dict(cfg["model"]["unet"], dropout=0.0),
+                               device=dev, seed=seed)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    for arm in ("plain", "q1"):
+        net.load_state_dict(start)
+        state = create_train_state(net, torch.optim.Adam(
+            net.parameters(), lr=1e-4, eps=STEP_ADAM_EPS))
+        kernels.reset_launch_counts()
+        with plain_q1() if arm == "plain" else contextlib.nullcontext():
+            _, m = step(state, batch, None, noise=noise, gamma=gamma)
+        torch.cuda.synchronize()
+        arms[arm] = {"loss": m["l_pix"].item(),
+                     "grad_norm": m["grad_norm"].item(),
+                     "q1": kernels.LAUNCHES["quant_conv3"]}
+        del state
+    del net, start
+    a, q = arms["plain"], arms["q1"]
+    d_loss = abs(a["loss"] - q["loss"]) / abs(a["loss"])
+    d_gn = abs(a["grad_norm"] - q["grad_norm"]) / a["grad_norm"]
+    ok = (d_loss <= STEP_TOL["loss"] and d_gn <= STEP_TOL["grad_norm"]
+          and a["q1"] == 0 and q["q1"] == Q1_PER_FORWARD["64_256"])
+    print(f"[quant train step] {card} | full width B={B} {r}x{r} f32 w8a8, "
+          f"dropout off, injected gamma+noise, Q1's plain version vs Q1: "
+          f"loss {a['loss']:.6f} vs {q['loss']:.6f} (rel {d_loss:.3g}), "
+          f"grad_norm {a['grad_norm']:.6g} vs {q['grad_norm']:.6g} (rel "
+          f"{d_gn:.3g}) | Q1 launches {a['q1']} / {q['q1']} (want 0 / "
+          f"{Q1_PER_FORWARD['64_256']}) {'ok' if ok else 'FAIL'}", flush=True)
+    out = {"parity": dict(arms, rel_loss=d_loss, rel_grad_norm=d_gn,
+                          ok=ok)}
+    launches = 0
+    for mode in ("w8a8", ""):
+        with quant_mode(mode):
+            net = unet_from_config(cfg["model"]["unet"], device=dev,
+                                   seed=seed)
+        state = create_train_state(net, make_optimizer(
+            net.parameters(), cfg["train"]["optimizer"]))
+        fn = make_train_step(eng)
+        losses, t_first = [], None
+        kernels.reset_launch_counts()
+        for i in range(QUANT_TRAIN_STEPS):
+            state, m = fn(state, batch, step_generator(seed, i, dev))
+            losses.append(m["l_pix"])
+            if i == 0:
+                torch.cuda.synchronize()
+                t_first = time.perf_counter()
+        torch.cuda.synchronize()
+        rate = (QUANT_TRAIN_STEPS - 1) / (time.perf_counter() - t_first)
+        losses = torch.stack(losses).tolist()
+        got = dict(kernels.LAUNCHES)
+        want_q1 = Q1_PER_FORWARD["64_256"] * QUANT_TRAIN_STEPS if mode else 0
+        r_ok = (all(map(math.isfinite, losses))
+                and got["quant_conv3"] == want_q1
+                and got["gn_swish"] == 45 * QUANT_TRAIN_STEPS)
+        ok &= r_ok
+        launches += got["quant_conv3"]
+        out[mode or "none"] = {"l_pix": losses, "steps_per_s": rate,
+                               "launches": got, "ok": r_ok}
+        print(f"[quant train] {card} | {QUANT_TRAIN_STEPS} steps of the "
+              f"train config, B={B} {r}x{r} f32, dropout "
+              f"{cfg['model']['unet'].get('dropout')}, quant "
+              f"{mode or 'none'}: l_pix {[round(v, 5) for v in losses]}, "
+              f"{rate:.3f} steps/s after the first | launches Q1 "
+              f"{got['quant_conv3']} (want {want_q1}), K1 {got['gn_swish']} "
+              f"{'ok' if r_ok else 'FAIL'}", flush=True)
+        del net, state
+    torch.cuda.empty_cache()
+    return out, launches, ok
+
+
+def quant_export(cfg, card, seed):
+    """A w8a8 DPM-Solver++ sampler of QUANT_EXPORT_STEPS steps at batch
+    QUANT_EXPORT_BATCH, f32, exported (serving.build_sample_export), its
+    fdsr::quant_conv3 nodes counted (21 per eval), saved, loaded in this
+    process and run against the in-process sampler with the same
+    per-image generators: bit-equal, with the same Q1 launches."""
+    import numpy as np
+    import torch
+
+    from fastdiffsr_tpu_torch import serving
+    from fastdiffsr_tpu_torch.cli.infer import make_denoiser
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers)
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.train import make_sample_fn, pad_batch_with_keys
+    dev = torch.device("cuda")
+    S, B = QUANT_EXPORT_STEPS, QUANT_EXPORT_BATCH
+    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                          ScheduleBuffers.create(
+                              cfg["model"]["beta_schedule"]["val"],
+                              device=dev))
+    with quant_mode("w8a8"):
+        net = unet_from_config(cfg["model"]["unet"], device=dev, seed=seed)
+    t0 = time.time()
+    ep, meta = serving.build_sample_export(eng, net, 256, batch=B,
+                                           sampler="dpm", steps=S,
+                                           fused=False)
+    export_s = time.time() - t0
+    nodes = sum(1 for n in ep.graph.nodes if n.op == "call_function"
+                and str(n.target).startswith("fdsr.quant_conv3"))
+    path = os.path.join(ROOT, "build", "smoke", "quant", "w8a8_dpm.pt2")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    serving.save_exported(ep, meta, path)
+    del ep
+    t0 = time.time()
+    loaded = serving.load_exported(path)
+    load_s = time.time() - t0
+    cond = np.random.default_rng(seed + 25).uniform(
+        -1, 1, (B, 256, 256, 3)).astype(np.float32)
+    params = {k: v.detach() for k, v in net.state_dict().items()}
+    x, gens = pad_batch_with_keys(cond, B, seed, 0, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = loaded(params, x, gens)
+    torch.cuda.synchronize()
+    l_art = dict(kernels.LAUNCHES)
+    fn = make_sample_fn(eng, make_denoiser(net, False, torch.float32),
+                        sampler="dpm", ddim_steps=S)
+    _, gens = pad_batch_with_keys(cond, B, seed, 0, device=dev)
+    kernels.reset_launch_counts()
+    want = fn(x, gens)
+    torch.cuda.synchronize()
+    l_in = dict(kernels.LAUNCHES)
+    err = (got - want).abs().max().item()
+    q1 = Q1_PER_FORWARD["64_256"] * S
+    ok = (torch.equal(got, want) and nodes == q1
+          and l_art["quant_conv3"] == l_in["quant_conv3"] == q1)
+    print(f"[quant export] {card} | w8a8 DPM-Solver++ {S} steps, batch {B} "
+          f"f32, 256x256: export {export_s:.1f} s, load {load_s:.1f} s, "
+          f"{os.path.getsize(path) / 2 ** 20:.1f} MB, {nodes} "
+          f"fdsr::quant_conv3 nodes (want {q1}) | loaded vs in-process: "
+          f"bit-equal {torch.equal(got, want)} (max |d| {err:.3g}), Q1 "
+          f"launches {l_art['quant_conv3']} / {l_in['quant_conv3']} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    del net, loaded, got, want
+    torch.cuda.empty_cache()
+    return {"export_s": export_s, "load_s": load_s, "nodes": nodes,
+            "max_abs_err": err, "launches": l_art, "ok": ok}, \
+        l_art["quant_conv3"] + l_in["quant_conv3"], ok
+
+
+def quant_gn_variants(sigs, groups, card, seed):
+    """gn_swish_stats and gn_swish_dot (the JAX package's other forms of
+    GroupNorm -> Swish) at the GroupNorm inputs of the quantized Blocks of
+    a 64->256 eval, batch 16, f32 and bf16: each within K1's tolerance of
+    gn_swish_reference, with its device ms beside K1's."""
+    import torch
+
+    from fastdiffsr_tpu_torch.ops.groupnorm import (gn_swish, gn_swish_dot,
+                                                    gn_swish_reference,
+                                                    gn_swish_stats)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 26)
+    rows, ok = [], True
+    fns = {"k1": gn_swish, "stats": gn_swish_stats, "dot": gn_swish_dot}
+    for H, W, ci in sorted({s[:3] for s in sigs}, reverse=True):
+        for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = (torch.randn((B_KERNEL, H, W, ci), generator=g, device=dev)
+                 * 2 + 0.5).to(dt)
+            scale = torch.randn(ci, generator=g, device=dev) * 0.1 + 1
+            bias = torch.randn(ci, generator=g, device=dev) * 0.1
+            want = gn_swish_reference(x, scale, bias, groups).float()
+            row = {"H": H, "W": W, "C": ci, "B": B_KERNEL, "dtype": dt_name}
+            for name, fn in fns.items():
+                dy = (fn(x, scale, bias, groups).float() - want).abs()
+                if dt_name == "f32":
+                    f_ok = dy.max().item() <= K1_TOL["f32"]
+                else:
+                    rel, atol = K1_TOL["bf16"]
+                    f_ok = bool((dy <= want.abs() * rel + atol).all())
+                ok &= f_ok
+                row[f"{name}_max_abs_err"] = dy.max().item()
+                row[f"{name}_ok"] = f_ok
+                row[f"{name}_ms"] = device_ms(
+                    lambda: fn(x, scale, bias, groups), REPS)
+                del dy
+            rows.append(row)
+            r_ok = all(row[f"{k}_ok"] for k in fns)
+            print(f"[gn variants] {card} | {dt_name} B={B_KERNEL} {H}x{W} "
+                  f"C={ci} G={groups} vs gn_swish_reference: max|dy| K1 "
+                  f"{row['k1_max_abs_err']:.3g}, stats "
+                  f"{row['stats_max_abs_err']:.3g}, dot "
+                  f"{row['dot_max_abs_err']:.3g} (K1's tolerance) | device: "
+                  f"K1 {row['k1_ms']:.4f} ms, gn_swish_stats "
+                  f"{row['stats_ms']:.4f} ms, gn_swish_dot "
+                  f"{row['dot_ms']:.4f} ms {'ok' if r_ok else 'FAIL'}",
+                  flush=True)
+            del x, want
+    return rows, ok
+
+
+def phase_quant(card, seed):
+    """Phase 22, the W8A8 path: Q1 against its plain version at every
+    quantized shape of a 64->256 eval (batch 16) and the further ones of a
+    128->512 eval (batch 1), serving with and without quant, cli.infer
+    with w8a8, training with w8a8, a w8a8 export, and the GroupNorm
+    variants. Returns (detail, Q1 launches of the path's runs, ok)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    t_phase = time.time()
+    dev = torch.device("cuda")
+
+    def config(name):
+        return load_json_config(os.path.join(
+            ROOT, "fastdiffsr_tpu_torch", "configs", f"{name}.json"))
+
+    cfg = config("sr_fastdiffsr_test_64_256")
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    sigs = {}
+    for key, side in (("64_256", 256), ("128_512", 512)):
+        with quant_mode("w8a8"):
+            net = unet_from_config(cfg["model"]["unet"], device=dev,
+                                   seed=seed)
+        x = torch.randn((1, side, side, 6), generator=g, device=dev)
+        sigs[key] = record_q1(net, x, torch.rand((1,), generator=g,
+                                                 device=dev))
+        del net, x
+    n = {k: sum(v.values()) for k, v in sigs.items()}
+    extra = {s: c for s, c in sigs["128_512"].items() if s[0] == 128
+             and s not in sigs["64_256"]}
+    ok = (n["64_256"] == Q1_PER_FORWARD["64_256"]
+          and n["128_512"] == Q1_PER_FORWARD["128_512"])
+    print(f"[shapes] {card} | w8a8 forwards: {n['64_256']} quantized convs "
+          f"in {len(sigs['64_256'])} shapes per 64->256 eval, "
+          f"{n['128_512']} in {len(sigs['128_512'])} per 128->512 eval "
+          f"(want {Q1_PER_FORWARD['64_256']} and "
+          f"{Q1_PER_FORWARD['128_512']}); {len(extra)} 128-row shapes of "
+          f"the 128->512 eval beyond the 64->256 ones "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    detail = {"calls_per_eval": n}
+    rows, q_ok = phase_q1(sigs["64_256"], B_KERNEL, card, seed)
+    rows_512, q512_ok = phase_q1(extra, 1, card, seed)
+    ok &= q_ok and q512_ok
+    tot = {f"{k}_{dt}": q1_total(rows, f"{k}_{dt}") for dt in ("f32", "bf16")
+           for k in ("ms", "wall_ms", "bound_ms")}
+    tot.update({k: q1_total(rows, k) for k in ("plain_ms", "int_mm_ms",
+                                               "cudnn_bf16_ms")})
+    print(f"[Q1 total] {card} | per 64->256 eval (B={B_KERNEL}, "
+          f"{n['64_256']} calls), device: Q1 f32 {tot['ms_f32']:.3f} ms bf16 "
+          f"{tot['ms_bf16']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+          f"_int_mm GEMMs {tot['int_mm_ms']:.3f} ms, cuDNN bf16 convs "
+          f"{tot['cudnn_bf16_ms']:.3f} ms | wall: Q1 f32 "
+          f"{tot['wall_ms_f32']:.3f} ms bf16 {tot['wall_ms_bf16']:.3f} ms | "
+          f"bound f32 {tot['bound_ms_f32']:.3f} ms bf16 "
+          f"{tot['bound_ms_bf16']:.3f} ms", flush=True)
+    detail.update(q1=rows, q1_512=rows_512, q1_total=tot)
+    detail["serve"], serve_l, s_ok = quant_serve(cfg, card, seed)
+    detail["infer"], i_ok = quant_infer(cfg, card, seed)
+    detail["train"], train_l, t_ok = quant_train(
+        config("sr_fastdiffsr_train_64_256"), card, seed)
+    detail["export"], export_l, e_ok = quant_export(cfg, card, seed)
+    detail["gn_variants"], gn_ok = quant_gn_variants(
+        sigs["64_256"], cfg["model"]["unet"].get("norm_groups") or 32, card,
+        seed)
+    ok &= s_ok and i_ok and t_ok and e_ok and gn_ok
+    launches = (serve_l["quant_conv3"] + detail["infer"]["launches"][
+        "quant_conv3"] + train_l + export_l)
+    detail.update(seconds=time.time() - t_phase, ok=ok, launches=launches)
+    print(f"[quant] {card} | phase 22 took {detail['seconds']:.1f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return detail, launches, ok
+
+
+def q1_entry(quant):
+    """The ``kernels`` line's Q1 entry from phase 22's detail: per
+    64->256 eval at batch 16 (bf16 maps; ``*_f32`` keys for f32), every
+    number measured in this run."""
+    rows = quant["q1"] + quant["q1_512"]
+    tot = quant["q1_total"]
+    ops = sum(r["bound_ms_bf16"] * r["calls_per_eval"] for r in quant["q1"]
+              if r["bound_by_bf16"] == "operations")
+    return {"name": "quant_conv3", "route": "cuda",
+            "source": "fastdiffsr_tpu_torch/csrc/quant_conv.cu",
+            "replaces": "fastdiffsr_tpu/ops/quant.py:60",
+            "launches": quant["launches"],
+            "max_abs_err": max(c["max_abs_err"] for r in rows
+                               for c in r["checks"].values()),
+            "ms": tot["ms_bf16"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms_bf16"],
+            "bound_by": ("operations" if ops >= tot["bound_ms_bf16"] / 2
+                         else "bytes"),
+            "library_ms": None, "wall_ms": tot["wall_ms_bf16"],
+            "ms_f32": tot["ms_f32"], "bound_ms_f32": tot["bound_ms_f32"],
+            "int_mm_ms": tot["int_mm_ms"],
+            "cudnn_bf16_ms": tot["cudnn_bf16_ms"],
+            "launches_per_call": max(max(r["launches_per_call_f32"],
+                                         r["launches_per_call_bf16"])
+                                     for r in rows)}
+
+
 def gdp_reference(card, seed):
     """``--gdp-reference``: cli.infer of configs/sr_gdp_test_64_256.json
     (the guided UNet at full width, ancestral sampling over T=1000 at
@@ -3564,7 +4202,7 @@ def gdp_reference(card, seed):
             ["--dtype", dt, "--plain", "--seed", str(seed)],
             f"gdp reference {dt}",
             {"fused_gn_swish_conv3x3": 0, "channel_stats": 0,
-             "gn_swish": K1_PER_FORWARD["gdp"] * T})
+             "gn_swish": K1_PER_FORWARD["gdp"] * T, "quant_conv3": 0})
         rows.append(dict(row, dtype=dt, T=T, ok=r_ok))
         ok &= r_ok
     print(json.dumps({"card": card, "gdp_reference": rows}))
@@ -3595,6 +4233,10 @@ def main(argv=None) -> int:
                     help="in place of phases 2-20: only phase 21 (the demo "
                          "path: data.prepare, the x8 demo config with its "
                          "SSIM term, the kernels at 64x64)")
+    ap.add_argument("--quant-only", action="store_true",
+                    help="in place of phases 2-21: only phase 22 (the W8A8 "
+                         "path: Q1, serving, infer, training and export "
+                         "with FASTDIFFSR_TPU_QUANT)")
     ap.add_argument("--serving-worker", nargs=3,
                     metavar=("ROLE", "SPEC", "CASE"),
                     help="a worker process of phase 19")
@@ -3674,6 +4316,11 @@ def main(argv=None) -> int:
         with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
             json.dump(detail, f, indent=1, default=str)
         return 0 if demo_ok else 1
+    if args.quant_only:
+        detail["quant"], _, quant_ok = phase_quant(card, args.seed)
+        with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        return 0 if quant_ok else 1
     laps, t_lap = {}, [time.time()]
 
     def lap(name):
@@ -3760,14 +4407,16 @@ def main(argv=None) -> int:
     detail["serve"], serve_ok = run_infer(
         cfg, cfg["name"], card, ["--dtype", "bf16", "--seed", str(args.seed)],
         "serve", {"fused_gn_swish_conv3x3": 49 * n_eval,
-                  "channel_stats": 4 * n_eval, "gn_swish": 0},
+                  "channel_stats": 4 * n_eval, "gn_swish": 0,
+                  "quant_conv3": 0},
         {"wgmma": 49 * n_eval, "cuda_cores": 0})
     # the same in float32, infer's default (K3 on the CUDA cores)
     cfg["name"] = "chip_smoke_infer_f32"
     detail["serve_f32"], serve32_ok = run_infer(
         cfg, cfg["name"], card, ["--seed", str(args.seed)], "serve f32",
         {"fused_gn_swish_conv3x3": 49 * n_eval, "channel_stats": 4 * n_eval,
-         "gn_swish": 0}, {"wgmma": 0, "cuda_cores": 49 * n_eval})
+         "gn_swish": 0, "quant_conv3": 0},
+        {"wgmma": 0, "cuda_cores": 49 * n_eval})
     ok &= serve_ok and serve32_ok
     lap("5 serve")
     torch.cuda.empty_cache()
@@ -3864,6 +4513,13 @@ def main(argv=None) -> int:
     detail["demo"], demo_launches, demo_ok = phase_demo(card, args.seed)
     lap("21 demo")
     ok &= demo_ok
+
+    # 22. the W8A8 path: Q1, serving, infer, training, export
+    gc.collect()
+    torch.cuda.empty_cache()
+    detail["quant"], _, quant_ok = phase_quant(card, args.seed)
+    lap("22 W8A8")
+    ok &= quant_ok
     demo = detail["demo"]
     k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]
     k1_all_rows = k1_rows + demo["k1"] + [
@@ -4021,6 +4677,7 @@ def main(argv=None) -> int:
          **{f"{k}_f32": v for k, v in
             at_512(k2_512, "f32", "max_abs_err").items()},
          **at_64(demo["k2"], "max_abs_err")},
+        q1_entry(detail["quant"]),
     ]
     detail["kernels"] = kern
     detail["seconds"] = time.time() - t_start
@@ -4030,7 +4687,7 @@ def main(argv=None) -> int:
     print(f"[time] {card} | the run took {detail['seconds']:.1f} s, of which "
           f"{build_s:.1f} s built the kernels", flush=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
-        json.dump(detail, f, indent=1)
+        json.dump(detail, f, indent=1, default=str)
     if not ok:
         print("chip_smoke: a check failed (see the FAIL lines above)",
               file=sys.stderr)

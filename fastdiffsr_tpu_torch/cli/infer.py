@@ -24,6 +24,10 @@ and cuDNN picks its algorithms by its heuristics
 CUDA; their plain versions on the CPU) exists for FastDiffSR only and is
 its default; the other variants run their plain UNet forward (K1 under
 each GroupNorm -> Swish), and ``--fused`` with them raises. With
+``FASTDIFFSR_TPU_QUANT=w8a8|w8a8s`` FastDiffSR's UNet runs its wide
+stages' convs in int8 (kernel Q1, ``ops/quant.py``) on the plain forward,
+which becomes its default: the fused forward has no quantized form, and
+``--fused`` with a quant mode raises. With
 ``path.resume_state`` set it loads a checkpoint (a UNet state dict file,
 a reference ``*_gen.pth``, or a checkpoint directory of either package);
 otherwise it uses seeded initial parameters. ``-enable_wandb`` logs to
@@ -37,7 +41,10 @@ with ``--device cpu``), each val batch's images split over the ranks
 (``parallel.sample_rows``, the counterpart of JAX's ``auto_mesh`` over
 local devices: the largest divisor of the batch that fits the ranks),
 each rank sampling its images with their own generators and writing
-them under the one-process names. Rank 0 logs.
+them under the one-process names. Rank 0 logs. The dynamic int8
+activation scale (``w8a8``) is the maximum over the sampling ranks
+(``parallel.sample_group``), as over JAX's global batch, so the images
+are the one-process images.
 """
 
 from __future__ import annotations
@@ -97,12 +104,20 @@ def sampler_options(opt) -> dict:
 def resolve_fused(variant: str, fused) -> bool:
     """The forward to run: ``fused`` None picks the variant's default
     (fused for FastDiffSR, plain otherwise); the fused forward exists
-    for FastDiffSR only."""
+    for FastDiffSR only, and has no int8 form: with
+    ``FASTDIFFSR_TPU_QUANT`` set FastDiffSR's default is the plain
+    forward, and ``fused`` True raises."""
+    from ..ops.quant import default_quant
+    quant = default_quant() if variant == "fastdiffsr" else ""
     if fused is None:
-        return variant == "fastdiffsr"
+        return variant == "fastdiffsr" and not quant
     if fused and variant != "fastdiffsr":
         raise ValueError(f"--fused: the fused forward exists for "
                          f"'fastdiffsr' only, not {variant!r}; run --plain")
+    if fused and quant:
+        raise ValueError(f"--fused with FASTDIFFSR_TPU_QUANT={quant!r}: the "
+                         "fused forward (K3/K2) has no int8 form; run --plain "
+                         "or unset FASTDIFFSR_TPU_QUANT")
     return bool(fused)
 
 
@@ -171,8 +186,10 @@ def main(argv=None) -> dict:
     from ..config import parse
     from ..device import (resolve_device, set_cudnn_autotuning,
                           use_ieee_float32)
+    from ..ops.quant import shared_activation_scale
     from ..parallel import (broadcast_from_main, initialize_from_env,
-                            is_main, rank, sample_rows, world_size)
+                            is_main, rank, sample_group, sample_rows,
+                            world_size)
     from ..utils.logging import setup_logger
 
     device = (initialize_from_env(args.device) if args.dist
@@ -220,6 +237,7 @@ def main(argv=None) -> dict:
     full_b = val_loader.batch_size
     rows = (sample_rows(full_b, rank(), world_size()) if args.dist
             else slice(0, full_b))
+    group = sample_group(full_b) if args.dist else None
     first_batch = True
     t_start = time.time()
     for batch in val_loader:
@@ -227,8 +245,9 @@ def main(argv=None) -> dict:
         cond, gens = pad_batch_with_keys(batch["SR"], full_b, args.seed, n,
                                          device=device)
         t0 = time.time()
-        sr = (sample_fn(cond[rows], gens[rows]).cpu().numpy()   # waits
-              if rows.stop > rows.start else np.zeros((0,)))
+        with shared_activation_scale(group):
+            sr = (sample_fn(cond[rows], gens[rows]).cpu().numpy()   # waits
+                  if rows.stop > rows.start else np.zeros((0,)))
         dt_img = (time.time() - t0) / full_b
         if not np.isfinite(sr).all():
             raise FloatingPointError(f"non-finite SR output in images "

@@ -144,7 +144,9 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
     log are those of a one-process run."""
     from .. import metrics as M
     from ..data import create_dataloader, create_dataset
-    from ..parallel import all_reduce_sum, rank, sample_rows, world_size
+    from ..ops.quant import shared_activation_scale
+    from ..parallel import (all_reduce_sum, rank, sample_group, sample_rows,
+                            world_size)
     from ..train import make_sample_fn, pad_batch_with_keys, pass_seed
     from .infer import sampler_options
 
@@ -157,6 +159,8 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
     full_b = val_loader.batch_size
     rows = (sample_rows(full_b, rank(), world_size()) if shard
             else slice(0, full_b))
+    # the ranks that sample share the dynamic int8 activation scale
+    group = sample_group(full_b) if shard else None
     sample_fn = make_sample_fn(engine_val, denoise, **sampler_options(opt))
     if save_plots:
         try:
@@ -180,7 +184,8 @@ def run_validation(opt, engine_val, denoise, result_path, logger, *,
                 cond, gens = pad_batch_with_keys(batch["SR"], full_b,
                                                  pass_seed(seed, k), n,
                                                  device=device)
-                acc = acc + sample_fn(cond[rows], gens[rows])
+                with shared_activation_scale(group):
+                    acc = acc + sample_fn(cond[rows], gens[rows])
             sr = (acc / n_samp).cpu().numpy()      # .cpu() waits for it
         dt = time.time() - t0
         if not np.isfinite(sr).all():

@@ -28,10 +28,16 @@ plain PyTorch version.
 In train mode (``net.train()``) the dropout of each ResnetBlock's
 ``block2`` draws its mask from the ``torch.Generator`` passed to
 ``forward(..., generator=)``; its masks differ from Flax's by design.
-In eval mode dropout is the identity. The JAX package's opt-in rewrites
-(fold, skip_concat, quant, conv_split, stats_barrier, the tconv/d2s2
-Upsample) are not ported: the Upsample here is the literal nearest x2 +
-3x3 conv.
+In eval mode dropout is the identity.
+
+``quant`` ('w8a8' or 'w8a8s'; ``unet_from_config`` reads
+``FASTDIFFSR_TPU_QUANT``) runs the 3x3 conv of every ``Block`` whose map
+is at least QUANT_MIN_HEIGHT rows high as a W8A8 int8 conv
+(``ops.quant.quant_conv3``: kernel Q1 on CUDA), as the JAX Block does on
+its wide stages: 21 Blocks of a 64->256 forward, 31 of a 128->512 one.
+The parameters do not change. The JAX package's other opt-in rewrites
+(fold, skip_concat, conv_split, stats_barrier, the tconv/d2s2 Upsample)
+are not ported: the Upsample here is the literal nearest x2 + 3x3 conv.
 """
 
 from __future__ import annotations
@@ -44,6 +50,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.groupnorm import gn_swish_custom
+from ..ops.quant import MODES, default_quant, quant_conv3
+
+# the JAX Block quantizes where its NHWC map has h.shape[1] >= 128 (the
+# height; here x.shape[2] of the NCHW view)
+QUANT_MIN_HEIGHT = 128
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -88,15 +99,19 @@ class Block(nn.Module):
     """GroupNorm -> Swish -> Dropout -> 3x3 conv (reference unet.py:89-101).
 
     The GroupNorm -> Swish (K1) runs on the NHWC view of ``x``, which is
-    contiguous because the UNet keeps its maps channels-last."""
+    contiguous because the UNet keeps its maps channels-last. With
+    ``quant`` set, a map of at least QUANT_MIN_HEIGHT rows takes the W8A8
+    conv, its packed int8 weights kept while the weight is unchanged."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, quant: str = ""):
         super().__init__()
         self.block = nn.Sequential(
             nn.GroupNorm(groups, dim), Swish(),
             nn.Dropout(dropout) if dropout else nn.Identity(),
             nn.Conv2d(dim, dim_out, 3, padding=1))
+        self.quant = quant
+        self._q1_cache: dict = {}
 
     def forward(self, x: torch.Tensor, dtype,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -111,7 +126,13 @@ class Block(nn.Module):
             keep = torch.empty_like(h).bernoulli_(1.0 - drop.p,
                                                   generator=generator)
             h = h * keep / (1.0 - drop.p)
-        return _conv(h, self.block[3], dtype)
+        conv = self.block[3]
+        if self.quant and x.shape[2] >= QUANT_MIN_HEIGHT:
+            y = quant_conv3(h.permute(0, 2, 3, 1), conv.weight, conv.bias,
+                            dtype, static_scale=self.quant == "w8a8s",
+                            cache=self._q1_cache)
+            return y.permute(0, 3, 1, 2)
+        return _conv(h, conv, dtype)
 
 
 class FeatureWiseAffine(nn.Module):
@@ -131,12 +152,13 @@ class ResnetBlock(nn.Module):
     (reference unet.py:104-120)."""
 
     def __init__(self, dim: int, dim_out: int, noise_level_emb_dim: int,
-                 dropout: float = 0.0, norm_groups: int = 32):
+                 dropout: float = 0.0, norm_groups: int = 32,
+                 quant: str = ""):
         super().__init__()
         self.noise_func = FeatureWiseAffine(noise_level_emb_dim, dim_out)
-        self.block1 = Block(dim, dim_out, groups=norm_groups)
+        self.block1 = Block(dim, dim_out, groups=norm_groups, quant=quant)
         self.block2 = Block(dim_out, dim_out, groups=norm_groups,
-                            dropout=dropout)
+                            dropout=dropout, quant=quant)
         self.res_conv = (nn.Conv2d(dim, dim_out, 1) if dim != dim_out
                          else nn.Identity())
 
@@ -188,10 +210,11 @@ class ResnetBlocWithAttn(nn.Module):
     (reference unet.py:206-222)."""
 
     def __init__(self, dim, dim_out, *, noise_level_emb_dim, norm_groups,
-                 dropout=0.0, with_attn=False):
+                 dropout=0.0, with_attn=False, quant=""):
         super().__init__()
         self.res_block = ResnetBlock(dim, dim_out, noise_level_emb_dim,
-                                     dropout=dropout, norm_groups=norm_groups)
+                                     dropout=dropout, norm_groups=norm_groups,
+                                     quant=quant)
         self.with_attn = with_attn
         if with_attn:
             self.ca = CLAM(dim_out)
@@ -240,8 +263,10 @@ class FastDiffSRUNet(nn.Module):
                  inner_channel: int = 64, norm_groups: int = 32,
                  channel_mults: Sequence[int] = (1, 2, 4, 4),
                  res_blocks: int = 2, dropout: float = 0.2,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant: str = ""):
         super().__init__()
+        if quant not in MODES:
+            raise ValueError(f"quant={quant!r} (want one of {MODES})")
         self.in_channel = in_channel
         self.out_channel = out_channel
         self.inner_channel = inner_channel
@@ -249,9 +274,10 @@ class FastDiffSRUNet(nn.Module):
         self.channel_mults = tuple(channel_mults)
         self.res_blocks = res_blocks
         self.dtype = dtype
+        self.quant = quant
         noise_dim = inner_channel
         rb = dict(noise_level_emb_dim=noise_dim, norm_groups=norm_groups,
-                  dropout=dropout)
+                  dropout=dropout, quant=quant)
         self.noise_level_mlp = nn.Sequential(
             PositionalEncoding(inner_channel),
             nn.Linear(inner_channel, inner_channel * 4), Swish(),
@@ -284,7 +310,8 @@ class FastDiffSRUNet(nn.Module):
             if ind >= 1:
                 ups.append(Upsample(pre))
         self.ups = nn.ModuleList(ups)
-        self.final_conv = Block(pre, out_channel, groups=norm_groups)
+        self.final_conv = Block(pre, out_channel, groups=norm_groups,
+                                quant=quant)
 
     def noise_embedding(self, noise_level: torch.Tensor) -> torch.Tensor:
         mlp = self.noise_level_mlp
@@ -346,7 +373,8 @@ def init_params(net: nn.Module, seed: int = 0) -> nn.Module:
 def unet_from_config(unet_opt: dict, dtype=torch.float32, device="cuda",
                      seed: int = 0) -> FastDiffSRUNet:
     """Build from a reference-schema ``model.unet`` config dict, with
-    seeded initial parameters, in eval mode on ``device``."""
+    seeded initial parameters, in eval mode on ``device``; ``quant`` from
+    ``FASTDIFFSR_TPU_QUANT`` (``ops.quant.default_quant``), as JAX's."""
     from ..device import resolve_device
     dev = resolve_device(device)
     net = FastDiffSRUNet(
@@ -358,5 +386,6 @@ def unet_from_config(unet_opt: dict, dtype=torch.float32, device="cuda",
                                          (1, 2, 4, 4))),
         res_blocks=unet_opt.get("res_blocks", 2),
         dropout=unet_opt.get("dropout", 0.0),
-        dtype=dtype)
+        dtype=dtype,
+        quant=default_quant())
     return init_params(net, seed).to(dev).eval()

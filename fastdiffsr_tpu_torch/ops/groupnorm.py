@@ -14,11 +14,18 @@ Counterpart of ``fastdiffsr_tpu/ops/groupnorm.py``:
   in ``csrc/gn_swish.cu``: two launches. :func:`gn_swish_plain` is the
   same formulation in plain PyTorch, with the collapse as
   :func:`~.fused_conv.group_stats_to_norm`;
+- :func:`gn_swish_stats` and :func:`gn_swish_dot` are the JAX package's
+  other two forms of the same function: K2's channel sums (the kernel on
+  CUDA) or two float32 einsums (a ones-matmul and a Gram diagonal) for the
+  statistics, then a broadcast normalise, affine and swish in float32;
 - :func:`gn_swish_custom` makes K1 differentiable, as ``gn_swish_custom``
-  there: the forward is K1 and the backward is the VJP of
+  there: the forward is K1 (``impl="pallas"``) or :func:`gn_swish_stats`
+  (``impl="stats"``) and the backward is the VJP of
   :func:`gn_swish_reference`, recomputed from the saved x, scale and bias.
-  Every UNet ``Block`` runs it; :func:`gn_swish_reference` stands in for
-  it where a test or an on-card check needs the UNet without the kernel.
+  Every UNet ``Block`` runs it with K1 (the JAX package's
+  ``FASTDIFFSR_TPU_FUSED_NORM`` selector is not ported);
+  :func:`gn_swish_reference` stands in for it where a test or an on-card
+  check needs the UNet without the kernel.
 
 Groups are contiguous channel slices, as in ``torch.nn.GroupNorm``. A
 traced call of :func:`channel_stats` or :func:`gn_swish` goes through its
@@ -28,6 +35,7 @@ registered operator (``fdsr::channel_stats``, ``fdsr::gn_swish`` in
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import NamedTuple
 
@@ -234,14 +242,64 @@ def gn_swish_launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def gn_swish_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm -> Swish of a (B,H,W,C) map from K2's channel sums and a
+    broadcast float32 normalise (JAX ``gn_swish_stats``), output in
+    x.dtype."""
+    h, w = x.shape[1:3]
+    mean_c, inv_c = group_stats_to_norm(channel_stats(x), h * w, groups, eps)
+    y = ((x.float() - mean_c[:, None, None, :])
+         * (inv_c[:, None, None, :] * scale.float()) + bias.float())
+    return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _ieee_matmul():
+    """float32 products in full float32 (no TF32) within the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def gn_swish_dot(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm -> Swish with contraction statistics (JAX
+    ``gn_swish_dot``): sum(x) over H,W as a ones-matmul with 8 columns,
+    sum(x^2) as the diagonal of the Gram ``bhwc,bhwd->bcd``, both in
+    float32 (JAX's ``preferred_element_type``: the einsums run on
+    ``x.float()``, since PyTorch's einsum of bfloat16 returns bfloat16)
+    without TF32; then the same normalise, affine and swish."""
+    b, h, w, c = x.shape
+    xf = x.float()
+    with _ieee_matmul():
+        ones_k = torch.ones((h, w, 8), dtype=torch.float32, device=x.device)
+        s1 = torch.einsum("bhwc,hwk->bkc", xf, ones_k)[:, 0]
+        gram = torch.einsum("bhwc,bhwd->bcd", xf, xf)
+    s2 = torch.diagonal(gram, dim1=1, dim2=2)
+    mean_c, inv_c = group_stats_to_norm(torch.stack([s1, s2], dim=1), h * w,
+                                        groups, eps)
+    winv_c = inv_c[:, None, None, :] * scale.float()
+    y = (xf - mean_c[:, None, None, :]) * winv_c + bias.float()
+    return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+GN_SWISH_IMPLS = ("pallas", "stats")
+
+
 class _GNSwish(torch.autograd.Function):
-    """Forward K1; backward the VJP of :func:`gn_swish_reference`."""
+    """Forward K1 (or :func:`gn_swish_stats`); backward the VJP of
+    :func:`gn_swish_reference`."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, groups, eps):
+    def forward(ctx, x, scale, bias, groups, eps, impl):
         ctx.save_for_backward(x, scale, bias)
         ctx.groups, ctx.eps = groups, eps
-        return gn_swish(x, scale, bias, groups, eps)
+        fwd = gn_swish_stats if impl == "stats" else gn_swish
+        return fwd(x, scale, bias, groups, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -250,11 +308,16 @@ class _GNSwish(torch.autograd.Function):
             leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
             y = gn_swish_reference(*leaves, ctx.groups, ctx.eps)
             grads = torch.autograd.grad(y, leaves, g)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def gn_swish_custom(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    groups: int, eps: float = 1e-5) -> torch.Tensor:
-    """Differentiable K1 (see the module docstring)."""
-    return _GNSwish.apply(x, scale, bias, groups, eps)
+                    groups: int, eps: float = 1e-5,
+                    impl: str = "pallas") -> torch.Tensor:
+    """Differentiable K1 (``impl="pallas"``) or :func:`gn_swish_stats`
+    (``impl="stats"``); see the module docstring."""
+    if impl not in GN_SWISH_IMPLS:
+        raise ValueError(f"gn_swish_custom: impl={impl!r} (want 'pallas' or "
+                         "'stats')")
+    return _GNSwish.apply(x, scale, bias, groups, eps, impl)
 

@@ -37,11 +37,12 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parent.parent.parent
              / "build" / "kernels")
 SOURCES = ("fused_conv.cu", "fused_conv_wgmma.cu", "channel_stats.cu",
-           "reduce_partials.cu", "gn_swish.cu")
+           "reduce_partials.cu", "gn_swish.cu", "quant_conv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"fused_gn_swish_conv3x3": 0, "channel_stats": 0, "gn_swish": 0}
+LAUNCHES = {"fused_gn_swish_conv3x3": 0, "channel_stats": 0, "gn_swish": 0,
+            "quant_conv3": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -171,6 +172,13 @@ def load() -> ctypes.CDLL:
             lib.fdsr_gn_swish_apply.argtypes = [p, p, i, f, p, p, p, i, i, i,
                                                 i, p]
             lib.fdsr_gn_swish_apply.restype = i
+            # h wq s_w s_a bias y acc B H W Ci Ci_pad Co Co_pad in_bf16
+            # out_bf16 stream
+            lib.fdsr_quant_conv3.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                             i, i, i, i, i, p]
+            lib.fdsr_quant_conv3.restype = i
+            lib.fdsr_quant_conv3_co_tile.argtypes = [i]
+            lib.fdsr_quant_conv3_co_tile.restype = i
             lib.fdsr_error_string.argtypes = [i]
             lib.fdsr_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -11,14 +11,19 @@ each kernel is also an operator:
   when ``want_stats`` is set;
 - ``fdsr::channel_stats`` (K2): (B,H,W,C) -> (B,2,C) float32;
 - ``fdsr::gn_swish`` (K1's forward; its gradient stays with
-  ``ops.groupnorm._GNSwish`` around the public wrapper).
+  ``ops.groupnorm._GNSwish`` around the public wrapper);
+- ``fdsr::quant_conv3`` (Q1: the W8A8 3x3 conv of an NHWC map from the
+  packed int8 weights, ``ops.quant.pack_weights``, the (Co,) weight scale,
+  the 0-d activation scale and the bias, output in ``dtype``; its gradient
+  stays with ``ops.quant._QuantConv3``).
 
 Each operator has a CUDA implementation, the counted kernel launch of
 the wrapper (so an exported program's run counts its launches), and a
 CPU implementation, the plain version: on a CPU tensor, as the wrappers
 do, and on a CUDA tensor the kernel or an error. A fake implementation
-gives the output shapes to tracing, and K3 has a flop formula,
-2*B*H*W*9*C*Co, for ``torch.utils.flop_counter``.
+gives the output shapes to tracing, and K3 and Q1 have a flop formula,
+2*B*H*W*9*C*Co (Q1's are int8 operations), for
+``torch.utils.flop_counter``.
 
 The public wrappers call these operators only while
 ``kernels.traced()`` is true: an eager call launches directly and pays
@@ -42,6 +47,7 @@ from torch.utils.flop_counter import register_flop_formula
 from .fused_conv import _fused_cuda, fused_gn_swish_conv3x3_plain
 from .groupnorm import (channel_stats_launch, channel_stats_plain,
                         gn_swish_launch, gn_swish_plain)
+from .quant import quant_conv3_apply_plain, quant_conv3_launch
 
 def _stats_arg(stats_in: List[torch.Tensor]):
     """The wrappers' ``stats_in``: None, one tensor or a tuple."""
@@ -57,6 +63,7 @@ def _maps(x: List[torch.Tensor]):
 K3 = "fdsr::fused_gn_swish_conv3x3"
 K2 = "fdsr::channel_stats"
 K1 = "fdsr::gn_swish"
+Q1 = "fdsr::quant_conv3"
 
 K3_SCHEMA = ("(Tensor[] x, Tensor? gn_scale, Tensor? gn_bias, "
              "Tensor[] stats_in, Tensor w, Tensor b, Tensor? shift, "
@@ -67,6 +74,8 @@ torch.library.define(K3, K3_SCHEMA)
 torch.library.define(K2, "(Tensor x) -> Tensor")
 torch.library.define(K1, "(Tensor x, Tensor scale, Tensor bias, int groups, "
                          "float eps) -> Tensor")
+torch.library.define(Q1, "(Tensor h, Tensor packed, Tensor s_w, Tensor s_a, "
+                         "Tensor bias, ScalarType dtype) -> Tensor")
 
 
 def _k3_cpu(x, gn_scale, gn_bias, stats_in, w, b, shift, res, groups, eps,
@@ -137,6 +146,30 @@ def _k1_fake(x, scale, bias, groups, eps):
     return torch.empty_like(x)
 
 
+def _q1_cpu(h, packed, s_w, s_a, bias, dtype):
+    """Q1 (``ops.quant.quant_conv3_apply``) on the CPU: its plain
+    version."""
+    return quant_conv3_apply_plain(h, packed, s_w, s_a, bias, dtype)
+
+
+def _q1_cuda(h, packed, s_w, s_a, bias, dtype):
+    return quant_conv3_launch(h, packed, s_w, s_a, bias, dtype)
+
+
+@torch.library.register_fake(Q1)
+def _q1_fake(h, packed, s_w, s_a, bias, dtype):
+    return h.new_empty((*h.shape[:3], bias.shape[0]), dtype=dtype)
+
+
+@register_flop_formula(torch.ops.fdsr.quant_conv3)
+def _q1_flops(h_shape, packed_shape, s_w_shape, s_a_shape, bias_shape,
+              *args, **kwargs) -> int:
+    """The int8 3x3 convolution's multiply-adds, twice:
+    2*B*H*W*9*Ci*Co."""
+    B, H, W, ci = h_shape
+    return 2 * B * H * W * 9 * ci * bias_shape[0]
+
+
 # the implementations by device, registered once defined (impl used as a
 # decorator returns None, which would hide them from other modules)
 torch.library.impl(K3, "cpu", _k3_cpu)
@@ -145,3 +178,5 @@ torch.library.impl(K2, "cpu", _k2_cpu)
 torch.library.impl(K2, "cuda", _k2_cuda)
 torch.library.impl(K1, "cpu", _k1_cpu)
 torch.library.impl(K1, "cuda", _k1_cuda)
+torch.library.impl(Q1, "cpu", _q1_cpu)
+torch.library.impl(Q1, "cuda", _q1_cuda)

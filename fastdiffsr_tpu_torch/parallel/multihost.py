@@ -152,6 +152,23 @@ def all_reduce_sum(x) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def sample_group(batch_size: int):
+    """The process group of the ranks that sample a batch of
+    ``batch_size`` split over them (``mesh.sample_rows``: the first
+    ``auto_world`` ranks), for collectives among them alone; None without
+    a process group or where one rank samples the whole batch. Every rank
+    calls it, in the same order (``new_group`` is collective)."""
+    if not dist.is_initialized():
+        return None
+    from .mesh import auto_world
+    w = auto_world(batch_size, dist.get_world_size())
+    if w == 1:
+        return None
+    if w == dist.get_world_size():
+        return dist.group.WORLD
+    return dist.new_group(list(range(w)))
+
+
 def data_parallel(net: torch.nn.Module) -> torch.nn.Module:
     """``net`` in ``DistributedDataParallel`` under a process group (its
     parameters broadcast from rank 0 at the wrap; its gradients averaged

@@ -20,7 +20,10 @@ the gradients over the ranks before the update and the EMA, and the
 logged ``l_pix`` is the mean over the ranks. Dropout is the exception:
 with W > 1 a rank draws its masks at its own rows from a generator of
 (step, rank), so such a step is not the 1-rank step (JAX draws one
-global mask).
+global mask). With ``FASTDIFFSR_TPU_QUANT=w8a8`` the dynamic int8
+activation scale of each quantized conv is the maximum over the ranks,
+with its gradient summed over them (``ops.quant.shared_activation_scale``),
+as over JAX's global batch.
 
 :func:`pad_batch_with_keys` is the shared val/infer batching contract: a
 tail batch is padded to the full batch size and every image gets its own
@@ -36,8 +39,10 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..diffusion.engine import DiffusionEngine
+from ..ops.quant import shared_activation_scale
 from ..parallel import all_reduce_mean, rank, rank_rows, world_size
 from .state import TrainState
 
@@ -92,8 +97,10 @@ def make_train_step(engine: DiffusionEngine, ema_decay: float = 0.9999,
         def denoise(x_in, level):
             return state.train_net(x_in, level, generator=net_gen)
 
-        loss = engine.training_loss(denoise, batch, generator, noise=noise,
-                                    gamma=gamma, t=t)
+        with shared_activation_scale(dist.group.WORLD if world > 1
+                                     else None):
+            loss = engine.training_loss(denoise, batch, generator,
+                                        noise=noise, gamma=gamma, t=t)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         named = list(net.named_parameters())

@@ -260,6 +260,9 @@ def test_f32_decomposition_model_with_the_launchers_tile():
      "kernelI13__nv_bfloat16EEvPKT_Pfiii", "channel_stats_kernel<bf16>"),
     ("_ZN4fdsr46_GLOBAL__N__aa_channel_stats_cu_1a2b3c4d22reduce_partials_"
      "kernelEPKfPfii", "reduce_partials_kernel<>"),
+    ("_ZN4fdsr46_GLOBAL__N__aa_13_quant_conv_cu_1a2b3c4d18quant_conv3_"
+     "kernelI13__nv_bfloat16fLi8EEEvPKT_PKaPKfS8_S8_PT0_Piiiiiiii",
+     "quant_conv3_kernel<bf16,f32,8>"),
 ])
 def test_chip_smoke_names_the_kernels_of_the_build_log(mangled, want):
     """chip_smoke's build line names each kernel from nvcc's mangled name,

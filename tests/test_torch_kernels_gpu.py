@@ -480,3 +480,55 @@ def test_fused_unet_matches_plain_on_card(cuda):
     assert kernels.LAUNCHES["fused_gn_swish_conv3x3"] == (
         before["fused_gn_swish_conv3x3"] + 2 * 27)
     assert kernels.LAUNCHES["channel_stats"] == before["channel_stats"] + 2 * 2
+
+
+# Q1 (B, H, W, Ci, Co): a 128-row map of the UNet's first stage, the final
+# Block's Co = 3 (one 8-wide output tile) with ragged H and W, and the
+# odd Ci = 192 with two output tiles
+Q1_CASES = [(2, 128, 64, 64, 64), (1, 37, 21, 64, 3), (1, 20, 40, 192, 128)]
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", Q1_CASES)
+def test_quant_conv_kernel_matches_plain(cuda, case, dt, static):
+    """Q1 against its plain version on the same inputs: the int32
+    accumulators and the dequantized output bit-equal, one counted
+    launch, and the wrapper's output-channel tile the library's."""
+    from fastdiffsr_tpu_torch.ops import quant
+    B, H, W, ci, co = case
+    g = torch.Generator(device=cuda).manual_seed(ci + co)
+    h = (torch.randn(B, H, W, ci, generator=g, device=cuda) * 2).to(dt)
+    w = torch.randn(co, ci, 3, 3, generator=g, device=cuda) * 0.05
+    b = torch.randn(co, generator=g, device=cuda) * 0.1
+    q_w, s_w = quant.quantize_weights(w)
+    packed = quant.pack_weights(q_w)
+    s_a = quant.activation_scale(h, static)
+    before = kernels.LAUNCHES["quant_conv3"]
+    y, acc = quant.quant_conv3_launch(h, packed, s_w, s_a, b, dt,
+                                      want_acc=True)
+    assert kernels.LAUNCHES["quant_conv3"] == before + 1
+    y_want, acc_want = quant.quant_conv3_apply_plain(h, packed, s_w, s_a, b,
+                                                     dt, want_acc=True)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc_want)
+    assert torch.equal(y, y_want)
+    assert kernels.load().fdsr_quant_conv3_co_tile(co) == quant.co_tile(co)
+
+
+def test_quant_conv_refuses_what_the_kernel_does_not_take(cuda):
+    from fastdiffsr_tpu_torch.ops import quant
+    w = torch.randn(8, 6, 3, 3, device=cuda)
+    h = torch.randn(1, 8, 8, 6, device=cuda)
+    q_w, s_w = quant.quantize_weights(w)
+    s_a = quant.activation_scale(h, False)
+    b = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        quant.quant_conv3_launch(h, quant.pack_weights(q_w), s_w, s_a, b,
+                                 torch.float32)
+    h = torch.randn(1, 8, 8, 8, device=cuda, dtype=torch.float16)
+    w = torch.randn(8, 8, 3, 3, device=cuda)
+    q_w, s_w = quant.quantize_weights(w)
+    with pytest.raises(TypeError):
+        quant.quant_conv3_launch(h, quant.pack_weights(q_w), s_w, s_a, b,
+                                 torch.float32)

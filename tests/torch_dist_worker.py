@@ -84,11 +84,12 @@ def _join_cpu():
     return initialize_from_env("cpu")
 
 
-def train_step_case(steps: int = 3, batch: int = 4, cached: bool = False):
+def train_step_case(steps: int = 3, batch: int = 4, cached: bool = False,
+                    size=(16, 16)):
     """``steps`` Adam + EMA steps of the tiny FastDiffSR UNet on a global
-    batch made from seed 0 (this rank's rows of it; or, with ``cached``,
-    a device-resident set of 6 tiles): the logged losses and the
-    parameters and EMA parameters after the last step."""
+    batch of ``size`` maps made from seed 0 (this rank's rows of it; or,
+    with ``cached``, a device-resident set of 6 tiles): the logged losses
+    and the parameters and EMA parameters after the last step."""
     import torch
 
     from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
@@ -110,7 +111,7 @@ def train_step_case(steps: int = 3, batch: int = 4, cached: bool = False):
     rng = np.random.default_rng(0)
     losses = []
     if cached:
-        data = {k: torch.from_numpy(rng.integers(0, 256, (6, 16, 16, 3),
+        data = {k: torch.from_numpy(rng.integers(0, 256, (6, *size, 3),
                                                  dtype=np.uint8))
                 for k in ("HR", "SR")}
         step = make_cached_train_step(engine, batch, **ema)
@@ -120,7 +121,7 @@ def train_step_case(steps: int = 3, batch: int = 4, cached: bool = False):
     else:
         rows = rank_rows(batch, rank(), world_size())
         gbatch = {k: torch.from_numpy(rng.uniform(
-            -1, 1, (batch, 16, 16, 3)).astype(np.float32))
+            -1, 1, (batch, *size, 3)).astype(np.float32))
             for k in ("HR", "SR")}
         local = {k: v[rows] for k, v in gbatch.items()}
         step = make_train_step(engine, **ema)
@@ -134,12 +135,15 @@ def train_step_case(steps: int = 3, batch: int = 4, cached: bool = False):
     return {"l_pix": losses}, arrays
 
 
-def sample_case(batch: int = 4):
-    """The tiny UNet's samples of a batch of ``batch`` conditions from
-    seed 1 with the ancestral, DDIM (eta 0.5: a draw per step) and
-    DPM-Solver++ samplers, this rank's ``sample_rows`` of each, with
-    rank 0's weights: arrays ``<sampler>`` of those rows and ``rows``
-    (start, stop)."""
+def sample_case(batch: int = 4, height: int = 16, width: int = 16,
+                fused_too: bool = True):
+    """The tiny UNet's samples of a batch of ``batch`` conditions of
+    ``height`` x ``width`` from seed 1 with the ancestral, DDIM (eta 0.5:
+    a draw per step) and DPM-Solver++ samplers, this rank's
+    ``sample_rows`` of each, with rank 0's weights, on the plain forward
+    and (``fused_too``) the fused one: arrays ``<sampler>`` of those rows
+    and ``rows`` (start, stop). The ranks that sample share the int8
+    activation scale, as ``cli.infer -dist`` has them do."""
     import torch
 
     from fastdiffsr_tpu_torch.cli.infer import make_denoiser
@@ -147,8 +151,10 @@ def sample_case(batch: int = 4):
                                                 DiffusionSpec,
                                                 ScheduleBuffers)
     from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.ops.quant import shared_activation_scale
     from fastdiffsr_tpu_torch.parallel import (broadcast_from_main, rank,
-                                               sample_rows, world_size)
+                                               sample_group, sample_rows,
+                                               world_size)
     from fastdiffsr_tpu_torch.train import make_sample_fn, pad_batch_with_keys
 
     engine = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
@@ -158,20 +164,63 @@ def sample_case(batch: int = 4):
     net = broadcast_from_main(unet_from_config(TINY_UNET, device="cpu",
                                                seed=3 + rank()))
     cond = np.random.default_rng(1).uniform(
-        -1, 1, (batch, 16, 16, 3)).astype(np.float32)
+        -1, 1, (batch, height, width, 3)).astype(np.float32)
     rows = sample_rows(batch, rank(), world_size())
+    group = sample_group(batch)
     arrays = {"rows": np.array([rows.start, rows.stop])}
-    for fused in (False, True):
+    for fused in (False, True) if fused_too else (False,):
         denoise = make_denoiser(net, fused, torch.float32)
         for sampler, kw in (("ancestral", {}),
                             ("ddim", {"ddim_steps": 3, "ddim_eta": 0.5}),
                             ("dpm", {"ddim_steps": 3})):
             x, gens = pad_batch_with_keys(cond, batch, 5, 0, device="cpu")
             fn = make_sample_fn(engine, denoise, sampler=sampler, **kw)
-            out = (fn(x[rows], gens[rows]).numpy() if rows.stop > rows.start
-                   else np.zeros((0, 16, 16, 3), np.float32))
+            with shared_activation_scale(group):
+                out = (fn(x[rows], gens[rows]).numpy()
+                       if rows.stop > rows.start
+                       else np.zeros((0, height, width, 3), np.float32))
             arrays[f"{sampler}{'_fused' if fused else ''}"] = out
     return {}, arrays
+
+
+def quant_conv_case(batch: int = 4):
+    """One W8A8 conv (``ops.quant.quant_conv3``) of this rank's rows of a
+    seeded (batch, 10, 12, 32) map in each scale mode, the ranks sharing
+    the dynamic activation scale: per mode (``<mode>/``) the output rows
+    and the gradients of sum(y * G) with respect to the rows, the weight
+    and the bias (this rank's parts: the weight's and bias's sum over the
+    ranks is the whole batch's). The map's largest |h| sits twice in rank
+    1's rows and once in rank 0's, so the gradient splits over ranks."""
+    import torch
+
+    from fastdiffsr_tpu_torch.ops.quant import (quant_conv3,
+                                                shared_activation_scale)
+    from fastdiffsr_tpu_torch.parallel import (rank, rank_rows, sample_group,
+                                               world_size)
+
+    rng = np.random.default_rng(11)
+    h = rng.standard_normal((batch, 10, 12, 32)).astype(np.float32)
+    m = np.abs(h).max() + 1.0
+    h[0, 1, 2, 3], h[-1, 4, 5, 6], h[-1, 0, 0, 0] = -m, m, m
+    w = (rng.standard_normal((16, 32, 3, 3)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(16) * 0.1).astype(np.float32)
+    g = rng.standard_normal((batch, 10, 12, 16)).astype(np.float32)
+    rows = rank_rows(batch, rank(), world_size())
+    group = sample_group(batch)
+    out = {}
+    for mode in ("w8a8", "w8a8s"):
+        leaves = [torch.from_numpy(h[rows]).requires_grad_(),
+                  torch.from_numpy(w).requires_grad_(),
+                  torch.from_numpy(b).requires_grad_()]
+        with shared_activation_scale(group):
+            y = quant_conv3(*leaves, torch.float32,
+                            static_scale=mode == "w8a8s")
+        grads = torch.autograd.grad((y * torch.from_numpy(g[rows])).sum(),
+                                    leaves, materialize_grads=True)
+        out[f"{mode}/y"] = y.detach().numpy()
+        out.update({f"{mode}/{k}": t.numpy()
+                    for k, t in zip(("gh", "gw", "gb"), grads)})
+    return {}, out
 
 
 def _msi_args(crop: int, **kw):
@@ -240,6 +289,10 @@ CASES = {
     "train_step_cached": lambda a: (_join_cpu(),
                                     train_step_case(cached=True))[1],
     "sample": lambda a: (_join_cpu(), sample_case(*map(int, a)))[1],
+    "quant_conv": lambda a: (_join_cpu(), quant_conv_case())[1],
+    # the int8 UNet: FASTDIFFSR_TPU_QUANT is set in the ranks' environment
+    "quant_train_step": lambda a: (_join_cpu(), train_step_case(
+        steps=2, batch=4, size=tuple(map(int, a))))[1],
     "supervised": lambda a: (_join_cpu(), supervised_case(*a))[1],
     "gan": lambda a: (_join_cpu(), gan_case(*a))[1],
     "sr_mfe": lambda a: _cli("fastdiffsr_tpu_torch.cli.sr_mfe", a),
