@@ -177,11 +177,13 @@ limit:
    a 64->256 eval at batch 16 and the 4 further 128-row shapes of a
    128->512 eval at batch 1, f32 and bf16 maps, both scale modes (int32
    accumulators and outputs bit-equal, one launch per call), with the
-   times of Q1, its plain version, the bound (int8 operations at 1979
-   TOP/s or bytes), and two yardsticks the port never calls
-   (``torch._int_mm`` of the quantized im2col, cuDNN's bf16 conv); serving
-   64->256 at T=20, batch 16, on the plain forward without quant, with
-   w8a8 and with w8a8s, in bf16 and f32 (img/s, 21 Q1 and 45 K1 launches
+   times of Q1, its plain version, the dynamic scale's abs-max, the bound
+   (int8 operations at 1979 TOP/s or bytes), and two yardsticks the port
+   never calls
+   (``torch._int_mm`` of the quantized im2col, cuDNN's bf16 conv), per
+   eval beside the earlier mma.sync kernel that the wgmma kernel replaced;
+   serving 64->256 at T=20, batch 16, on the plain forward without quant,
+   with w8a8 and with w8a8s, in bf16 and f32 (img/s, 21 Q1 and 45 K1 launches
    per eval, each quantized output's relative RMS against the
    unquantized one); ``cli.infer`` with w8a8 on 2 images and its refusal
    of ``--fused``; a w8a8 train step against one on Q1's plain version,
@@ -3576,6 +3578,10 @@ QUANT_INFER_IMAGES = 2
 QUANT_TRAIN_STEPS = 3
 QUANT_EXPORT_STEPS = 2
 QUANT_EXPORT_BATCH = 2
+# Q1 per 64->256 eval at batch 16 with the earlier mma.sync kernel, the one
+# the wgmma kernel replaced (this script's phase 22 on an NVIDIA H100 80GB
+# HBM3 at 700 W)
+Q1_EARLIER_MS = {"bf16": 12.985, "f32": 13.089}
 
 
 @contextlib.contextmanager
@@ -3638,12 +3644,72 @@ def im2col_s8(q_h):
                       for dx in range(3)], dim=-1).reshape(B * H * W, 9 * ci)
 
 
+def q1_operands(B, H, W, ci, co, g):
+    """Q1's operands at one shape, drawn from the CUDA generator ``g``:
+    (OIHW float weight, bias, its int8 weight and scales, the packed
+    weight, a float32 NHWC map of post-swish-like activations: a long
+    positive tail and a short negative one, so the static scale clips a
+    few of them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastdiffsr_tpu_torch.ops import quant
+    w = torch.randn((co, ci, 3, 3), generator=g, device="cuda") / (
+        3.0 * math.sqrt(ci))
+    b = torch.randn(co, generator=g, device="cuda") * 0.1
+    q_w, s_w = quant.quantize_weights(w)
+    x32 = F.silu(torch.randn((B, H, W, ci), generator=g, device="cuda")
+                 * 2.5)
+    return w, b, q_w, s_w, quant.pack_weights(q_w), x32
+
+
+def q1_shapes(card, seed):
+    """The quantized convs of one w8a8 forward of the full-width 64->256
+    UNet and of its 128->512 eval, recorded by hooks: ({(H, W, Ci, Co):
+    calls} of the 64->256 eval, the 128-row shapes of the 128->512 eval
+    beyond those, the calls per eval of each, ok if both make the
+    expected number)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    dev = torch.device("cuda")
+    cfg = load_json_config(os.path.join(
+        ROOT, "fastdiffsr_tpu_torch", "configs",
+        "sr_fastdiffsr_test_64_256.json"))
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    sigs = {}
+    for key, side in (("64_256", 256), ("128_512", 512)):
+        with quant_mode("w8a8"):
+            net = unet_from_config(cfg["model"]["unet"], device=dev,
+                                   seed=seed)
+        x = torch.randn((1, side, side, 6), generator=g, device=dev)
+        sigs[key] = record_q1(net, x, torch.rand((1,), generator=g,
+                                                 device=dev))
+        del net, x
+    n = {k: sum(v.values()) for k, v in sigs.items()}
+    extra = {s: c for s, c in sigs["128_512"].items() if s[0] == 128
+             and s not in sigs["64_256"]}
+    ok = (n["64_256"] == Q1_PER_FORWARD["64_256"]
+          and n["128_512"] == Q1_PER_FORWARD["128_512"])
+    print(f"[shapes] {card} | w8a8 forwards: {n['64_256']} quantized convs "
+          f"in {len(sigs['64_256'])} shapes per 64->256 eval, "
+          f"{n['128_512']} in {len(sigs['128_512'])} per 128->512 eval "
+          f"(want {Q1_PER_FORWARD['64_256']} and "
+          f"{Q1_PER_FORWARD['128_512']}); {len(extra)} 128-row shapes of "
+          f"the 128->512 eval beyond the 64->256 ones "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return sigs["64_256"], extra, n, ok
+
+
 def phase_q1(sigs, B, card, seed):
     """Q1 against its plain version at every (H, W, Ci, Co) of ``sigs`` at
     batch ``B``, f32 and bf16 maps, both scale modes: the int32
     accumulators and the outputs bit-equal, one launch per call. Then, in
-    the dynamic mode, the device and wall times of Q1 per type, of the
-    plain version (f32 map), and of two yardsticks the port never calls:
+    the dynamic mode, the device and wall times of Q1 per type, the device
+    time of the dynamic scale (``activation_scale``: the abs-max the path
+    computes before each call), of the plain version (f32 map), and of two
+    yardsticks the port never calls:
     ``torch._int_mm`` of the im2col of the quantized map and the packed
     weight (the GEMM alone; Co padded to 8 where it is 3, which _int_mm
     refuses), and cuDNN's bf16 conv of the same float shape."""
@@ -3651,19 +3717,10 @@ def phase_q1(sigs, B, card, seed):
     import torch.nn.functional as F
 
     from fastdiffsr_tpu_torch.ops import kernels, quant
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed + 22)
+    g = torch.Generator(device="cuda").manual_seed(seed + 22)
     rows, ok = [], True
     for (H, W, ci, co), count in sorted(sigs.items(), reverse=True):
-        w = torch.randn((co, ci, 3, 3), generator=g, device=dev) / (
-            3.0 * math.sqrt(ci))
-        b = torch.randn(co, generator=g, device=dev) * 0.1
-        q_w, s_w = quant.quantize_weights(w)
-        packed = quant.pack_weights(q_w)
-        # post-swish-like activations: a long positive tail, a short
-        # negative one, so the static scale clips a few of them
-        x32 = F.silu(torch.randn((B, H, W, ci), generator=g, device=dev)
-                     * 2.5)
+        w, b, q_w, s_w, packed, x32 = q1_operands(B, H, W, ci, co, g)
         row = {"H": H, "W": W, "Ci": ci, "Co": co, "B": B,
                "calls_per_eval": count, "checks": {}}
         for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -3690,6 +3747,9 @@ def phase_q1(sigs, B, card, seed):
             ok &= per_call == 1
             ms, wall_ms = timed(lambda: quant.quant_conv3_launch(
                 h, packed, s_w, s_a, b, dt), REPS)
+            # the dynamic scale each quantized conv of the path computes
+            absmax_ms = device_ms(lambda: quant.activation_scale(h, False),
+                                  REPS)
             es = 2 if dt_name == "bf16" else 4
             n_in, n_out = B * H * W * ci, B * H * W * co
             b_ms, b_by = bound(2.0 * n_out * 9 * ci,
@@ -3697,6 +3757,7 @@ def phase_q1(sigs, B, card, seed):
                                "int8")
             row.update({f"{k}_{dt_name}": v for k, v in (
                 ("ms", ms), ("wall_ms", wall_ms), ("bound_ms", b_ms),
+                ("absmax_ms", absmax_ms),
                 ("bound_by", b_by), ("launches_per_call", per_call))})
         h = x32
         s_a = quant.activation_scale(h, False)
@@ -3726,7 +3787,9 @@ def phase_q1(sigs, B, card, seed):
               f" | device: Q1 f32 {row['ms_f32']:.4f} ms bf16 "
               f"{row['ms_bf16']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"_int_mm (GEMM of the im2col, Co {co8}) {row['int_mm_ms']:.4f}"
-              f" ms, cuDNN bf16 conv {row['cudnn_bf16_ms']:.4f} ms | wall: "
+              f" ms, cuDNN bf16 conv {row['cudnn_bf16_ms']:.4f} ms, abs-max "
+              f"scale f32 {row['absmax_ms_f32']:.4f} ms bf16 "
+              f"{row['absmax_ms_bf16']:.4f} ms | wall: "
               f"Q1 f32 {row['wall_ms_f32']:.4f} ms bf16 "
               f"{row['wall_ms_bf16']:.4f} ms | bound f32 "
               f"{row['bound_ms_f32']:.4f} ms ({row['bound_by_f32']}) bf16 "
@@ -3739,6 +3802,30 @@ def phase_q1(sigs, B, card, seed):
 def q1_total(rows, key):
     """Per eval: the sum over the shapes of ``key`` times the calls."""
     return sum(r[key] * r["calls_per_eval"] for r in rows)
+
+
+def q1_per_eval(rows, card):
+    """Phase 22's per-eval sums of phase_q1's 64->256 rows, printed beside
+    the earlier mma.sync kernel's times."""
+    tot = {f"{k}_{dt}": q1_total(rows, f"{k}_{dt}") for dt in ("f32", "bf16")
+           for k in ("ms", "wall_ms", "bound_ms", "absmax_ms")}
+    tot.update({k: q1_total(rows, k) for k in ("plain_ms", "int_mm_ms",
+                                               "cudnn_bf16_ms")})
+    calls = sum(r["calls_per_eval"] for r in rows)
+    print(f"[Q1 total] {card} | per 64->256 eval (B={rows[0]['B']}, "
+          f"{calls} calls), device: Q1 f32 {tot['ms_f32']:.3f} ms bf16 "
+          f"{tot['ms_bf16']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+          f"_int_mm GEMMs {tot['int_mm_ms']:.3f} ms, cuDNN bf16 convs "
+          f"{tot['cudnn_bf16_ms']:.3f} ms, abs-max scales f32 "
+          f"{tot['absmax_ms_f32']:.3f} ms bf16 {tot['absmax_ms_bf16']:.3f} "
+          f"ms | wall: Q1 f32 "
+          f"{tot['wall_ms_f32']:.3f} ms bf16 {tot['wall_ms_bf16']:.3f} ms | "
+          f"bound f32 {tot['bound_ms_f32']:.3f} ms bf16 "
+          f"{tot['bound_ms_bf16']:.3f} ms | the mma.sync kernel f32 "
+          f"{Q1_EARLIER_MS['f32']:.3f} ms bf16 {Q1_EARLIER_MS['bf16']:.3f} ms"
+          f" (x{Q1_EARLIER_MS['f32'] / tot['ms_f32']:.2f} / "
+          f"x{Q1_EARLIER_MS['bf16'] / tot['ms_bf16']:.2f})", flush=True)
+    return tot
 
 
 def quant_serve(cfg, card, seed):
@@ -4083,56 +4170,20 @@ def phase_quant(card, seed):
     128->512 eval (batch 1), serving with and without quant, cli.infer
     with w8a8, training with w8a8, a w8a8 export, and the GroupNorm
     variants. Returns (detail, Q1 launches of the path's runs, ok)."""
-    import torch
-
     from fastdiffsr_tpu_torch.config import load_json_config
-    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
     t_phase = time.time()
-    dev = torch.device("cuda")
 
     def config(name):
         return load_json_config(os.path.join(
             ROOT, "fastdiffsr_tpu_torch", "configs", f"{name}.json"))
 
     cfg = config("sr_fastdiffsr_test_64_256")
-    g = torch.Generator(device=dev).manual_seed(seed + 21)
-    sigs = {}
-    for key, side in (("64_256", 256), ("128_512", 512)):
-        with quant_mode("w8a8"):
-            net = unet_from_config(cfg["model"]["unet"], device=dev,
-                                   seed=seed)
-        x = torch.randn((1, side, side, 6), generator=g, device=dev)
-        sigs[key] = record_q1(net, x, torch.rand((1,), generator=g,
-                                                 device=dev))
-        del net, x
-    n = {k: sum(v.values()) for k, v in sigs.items()}
-    extra = {s: c for s, c in sigs["128_512"].items() if s[0] == 128
-             and s not in sigs["64_256"]}
-    ok = (n["64_256"] == Q1_PER_FORWARD["64_256"]
-          and n["128_512"] == Q1_PER_FORWARD["128_512"])
-    print(f"[shapes] {card} | w8a8 forwards: {n['64_256']} quantized convs "
-          f"in {len(sigs['64_256'])} shapes per 64->256 eval, "
-          f"{n['128_512']} in {len(sigs['128_512'])} per 128->512 eval "
-          f"(want {Q1_PER_FORWARD['64_256']} and "
-          f"{Q1_PER_FORWARD['128_512']}); {len(extra)} 128-row shapes of "
-          f"the 128->512 eval beyond the 64->256 ones "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+    sigs, extra, n, ok = q1_shapes(card, seed)
     detail = {"calls_per_eval": n}
-    rows, q_ok = phase_q1(sigs["64_256"], B_KERNEL, card, seed)
+    rows, q_ok = phase_q1(sigs, B_KERNEL, card, seed)
     rows_512, q512_ok = phase_q1(extra, 1, card, seed)
     ok &= q_ok and q512_ok
-    tot = {f"{k}_{dt}": q1_total(rows, f"{k}_{dt}") for dt in ("f32", "bf16")
-           for k in ("ms", "wall_ms", "bound_ms")}
-    tot.update({k: q1_total(rows, k) for k in ("plain_ms", "int_mm_ms",
-                                               "cudnn_bf16_ms")})
-    print(f"[Q1 total] {card} | per 64->256 eval (B={B_KERNEL}, "
-          f"{n['64_256']} calls), device: Q1 f32 {tot['ms_f32']:.3f} ms bf16 "
-          f"{tot['ms_bf16']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-          f"_int_mm GEMMs {tot['int_mm_ms']:.3f} ms, cuDNN bf16 convs "
-          f"{tot['cudnn_bf16_ms']:.3f} ms | wall: Q1 f32 "
-          f"{tot['wall_ms_f32']:.3f} ms bf16 {tot['wall_ms_bf16']:.3f} ms | "
-          f"bound f32 {tot['bound_ms_f32']:.3f} ms bf16 "
-          f"{tot['bound_ms_bf16']:.3f} ms", flush=True)
+    tot = q1_per_eval(rows, card)
     detail.update(q1=rows, q1_512=rows_512, q1_total=tot)
     detail["serve"], serve_l, s_ok = quant_serve(cfg, card, seed)
     detail["infer"], i_ok = quant_infer(cfg, card, seed)
@@ -4140,8 +4191,7 @@ def phase_quant(card, seed):
         config("sr_fastdiffsr_train_64_256"), card, seed)
     detail["export"], export_l, e_ok = quant_export(cfg, card, seed)
     detail["gn_variants"], gn_ok = quant_gn_variants(
-        sigs["64_256"], cfg["model"]["unet"].get("norm_groups") or 32, card,
-        seed)
+        sigs, cfg["model"]["unet"].get("norm_groups") or 32, card, seed)
     ok &= s_ok and i_ok and t_ok and e_ok and gn_ok
     launches = (serve_l["quant_conv3"] + detail["infer"]["launches"][
         "quant_conv3"] + train_l + export_l)

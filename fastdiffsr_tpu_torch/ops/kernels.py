@@ -172,17 +172,27 @@ def load() -> ctypes.CDLL:
             lib.fdsr_gn_swish_apply.argtypes = [p, p, i, f, p, p, p, i, i, i,
                                                 i, p]
             lib.fdsr_gn_swish_apply.restype = i
-            # h wq s_w s_a bias y acc B H W Ci Ci_pad Co Co_pad in_bf16
-            # out_bf16 stream
-            lib.fdsr_quant_conv3.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                             i, i, i, i, i, p]
-            lib.fdsr_quant_conv3.restype = i
-            lib.fdsr_quant_conv3_co_tile.argtypes = [i]
-            lib.fdsr_quant_conv3_co_tile.restype = i
+            bind_quant_conv3(lib)
             lib.fdsr_error_string.argtypes = [i]
             lib.fdsr_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+def bind_quant_conv3(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare Q1's C entry points (``csrc/quant_conv.cu``) on ``lib``: the
+    port's library, or a library built from that source alone."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # h wq s_w s_a bias y acc B H W Ci Ci_pad Co Co_pad in_bf16 out_bf16
+    # stream
+    lib.fdsr_quant_conv3.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                     i, i, i, p]
+    lib.fdsr_quant_conv3.restype = i
+    for fn in (lib.fdsr_quant_conv3_co_tile, lib.fdsr_quant_conv3_tile_rows,
+               lib.fdsr_quant_conv3_tile_cols):
+        fn.argtypes = [i]
+        fn.restype = i
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

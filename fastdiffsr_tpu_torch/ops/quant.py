@@ -19,13 +19,14 @@ public function.
   past float32's 2^24), :func:`quant_conv3_apply_plain` the whole plain
   forward from the packed weights.
 - On a CUDA tensor :func:`quant_conv3_apply` launches Q1
-  (``csrc/quant_conv.cu``: quantize-on-load, mma.sync s8 implicit GEMM,
-  the dequantizing epilogue; one launch, counted as ``quant_conv3``) or
-  raises; the plain version runs only for tensors on the CPU. A traced
-  call goes through the registered operator ``fdsr::quant_conv3``
-  (``ops/library.py``).
-- The weights are quantized and packed (:func:`pack_weights`: (9, Co_pad,
-  Ci_pad) int8, the kernel's layout) once per parameter update:
+  (``csrc/quant_conv.cu``: each map tile staged and quantized once for all
+  output channels, a wgmma s8 implicit GEMM, the dequantizing epilogue;
+  one launch, counted as ``quant_conv3``) or raises; the plain version
+  runs only for tensors on the CPU. A traced call goes through the
+  registered operator ``fdsr::quant_conv3`` (``ops/library.py``).
+- The weights are quantized and packed (:func:`pack_weights`: the
+  kernel's K-major layout, per block of :func:`co_tile` output channels
+  and chunk of ``K_STEP`` input channels) once per parameter update:
   :func:`quant_conv3` takes a ``cache`` dict that keeps them while the
   weight tensor's storage and version are unchanged (a sampler's T evals
   pack once; a train step's optimizer update repacks).
@@ -55,7 +56,7 @@ from . import kernels
 STATIC_ACT_MAX = 8.0
 QMAX = 127
 MODES = ("", "w8a8", "w8a8s")
-K_STEP = 32         # Q1's input channels per step: Ci is padded to it
+K_STEP = 32         # Q1's input channels per chunk (one k32): Ci is padded
 
 
 def default_quant() -> str:
@@ -73,9 +74,18 @@ def default_quant() -> str:
 
 
 def co_tile(co: int) -> int:
-    """Q1's output-channel tile for ``co`` channels (the twin of
-    ``co_tile`` in ``csrc/quant_conv.cu``)."""
-    return 8 if co <= 8 else 64
+    """Q1's output channels per block for ``co`` channels: all of them up
+    to 256 (the twin of ``co_tile`` in ``csrc/quant_conv.cu``)."""
+    return 8 if co <= 8 else 64 if co <= 64 else 128 if co <= 128 else 256
+
+
+def tile_shape(co: int) -> tuple:
+    """(rows, columns) of Q1's output tile for ``co`` channels: a block's
+    four (8x8 patch, 64 channels) units make four patches up to 64
+    channels, two at 128, one at 256 (the twin of ``tile_rows`` and
+    ``tile_cols`` in ``csrc/quant_conv.cu``)."""
+    bn = co_tile(co)
+    return (16 if bn <= 64 else 8), (16 if bn <= 128 else 8)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -116,19 +126,34 @@ def quantize_weights(weight: torch.Tensor):
     return q, s_w
 
 
+def packed_shape(co: int, ci: int) -> tuple:
+    """Shape of :func:`pack_weights`' output for a (co, ci, 3, 3) weight:
+    (output-channel blocks, input-channel chunks, 9 taps, 2 k-halves,
+    co_tile(co) channels, 16 input channels)."""
+    bn = co_tile(co)
+    return (_round_up(co, bn) // bn, _round_up(ci, K_STEP) // K_STEP, 9, 2,
+            bn, K_STEP // 2)
+
+
 def pack_weights(q_w: torch.Tensor) -> torch.Tensor:
-    """int8 OIHW (Co, Ci, 3, 3) -> Q1's (9, Co_pad, Ci_pad) int8: tap-major,
-    each output channel's input channels contiguous, zero-padded to the
-    kernel's tiles."""
+    """int8 OIHW (Co, Ci, 3, 3) -> Q1's :func:`packed_shape` int8,
+    zero-padded: the weights one block of output channels reads for one
+    chunk of input channels are contiguous, per tap as the K-major B
+    operand of its wgmma (two core-matrix columns of 16 input channels,
+    each a row of 16 bytes per output channel)."""
     co, ci = q_w.shape[:2]
-    packed = q_w.permute(2, 3, 0, 1).reshape(9, co, ci)
-    return F.pad(packed, (0, _round_up(ci, K_STEP) - ci,
-                          0, _round_up(co, co_tile(co)) - co)).contiguous()
+    g, nk, _, _, bn, _ = packed_shape(co, ci)
+    packed = F.pad(q_w.permute(2, 3, 0, 1).reshape(9, co, ci),
+                   (0, nk * K_STEP - ci, 0, g * bn - co))
+    return (packed.reshape(9, g, bn, nk, 2, K_STEP // 2)
+            .permute(1, 3, 0, 4, 2, 5).contiguous())
 
 
 def unpack_weights(packed: torch.Tensor, co: int, ci: int) -> torch.Tensor:
     """The int8 OIHW weight of :func:`pack_weights`."""
-    return packed[:, :co, :ci].reshape(3, 3, co, ci).permute(2, 3, 0, 1)
+    g, nk, _, _, bn, _ = packed.shape
+    w = packed.permute(2, 0, 4, 1, 3, 5).reshape(9, g * bn, nk * K_STEP)
+    return w[:, :co, :ci].reshape(3, 3, co, ci).permute(2, 3, 0, 1)
 
 
 def quantize_activations(h: torch.Tensor, s_a: torch.Tensor) -> torch.Tensor:
@@ -180,11 +205,12 @@ def _check(h, packed, s_w, s_a, bias, dtype):
     if ci % 4:
         raise ValueError(f"quant_conv3: {ci} input channels (the kernel "
                          "loads four at a time: want a multiple of 4)")
-    want = (9, _round_up(co, co_tile(co)), _round_up(ci, K_STEP))
+    want = packed_shape(co, ci)
     if (tuple(packed.shape) != want or packed.dtype != torch.int8
-            or not packed.is_contiguous()):
+            or not packed.is_contiguous() or packed.data_ptr() % 16):
         raise ValueError(f"quant_conv3: packed weights {tuple(packed.shape)} "
-                         f"{packed.dtype} (want contiguous int8 {want})")
+                         f"{packed.dtype} (want contiguous, 16-byte aligned "
+                         f"int8 {want})")
     for name, t, shape in (("s_w", s_w, (co,)), ("s_a", s_a, ()),
                            ("bias", bias, (co,))):
         if (tuple(t.shape) != shape or t.dtype != torch.float32
@@ -195,6 +221,19 @@ def _check(h, packed, s_w, s_a, bias, dtype):
         if t.device != h.device:
             raise ValueError("quant_conv3: all operands must be on one "
                              "device")
+
+
+def launch_args(h, packed, s_w, s_a, bias, y, acc) -> tuple:
+    """The arguments of ``fdsr_quant_conv3`` for checked operands, the
+    output ``y`` (its dtype the output type) and ``acc`` (or None), on the
+    current stream of h's device."""
+    p = kernels.ptr
+    B, H, W, ci = h.shape
+    g, nk, _, _, bn, _ = packed.shape
+    return (p(h), p(packed), p(s_w), p(s_a), p(bias), p(y), p(acc), B, H, W,
+            ci, nk * K_STEP, y.shape[-1], g * bn,
+            int(h.dtype == torch.bfloat16), int(y.dtype == torch.bfloat16),
+            kernels.stream_of(h.device))
 
 
 def quant_conv3_launch(h, packed, s_w, s_a, bias, dtype,
@@ -208,13 +247,9 @@ def quant_conv3_launch(h, packed, s_w, s_a, bias, dtype,
     acc = (torch.empty((B, H, W, co), dtype=torch.int32, device=h.device)
            if want_acc else None)
     lib = kernels.load()
-    p = kernels.ptr
     with torch.cuda.device(h.device):
-        code = lib.fdsr_quant_conv3(
-            p(h), p(packed), p(s_w), p(s_a), p(bias), p(y), p(acc), B, H, W,
-            ci, packed.shape[2], co, packed.shape[1],
-            int(h.dtype == torch.bfloat16), int(dtype == torch.bfloat16),
-            kernels.stream_of(h.device))
+        code = lib.fdsr_quant_conv3(*launch_args(h, packed, s_w, s_a, bias,
+                                                 y, acc))
     kernels.check(lib, code, "quant_conv3")
     kernels.count_launch("quant_conv3")
     return (y, acc) if want_acc else y

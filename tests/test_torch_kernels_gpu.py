@@ -483,9 +483,29 @@ def test_fused_unet_matches_plain_on_card(cuda):
 
 
 # Q1 (B, H, W, Ci, Co): a 128-row map of the UNet's first stage, the final
-# Block's Co = 3 (one 8-wide output tile) with ragged H and W, and the
-# odd Ci = 192 with two output tiles
-Q1_CASES = [(2, 128, 64, 64, 64), (1, 37, 21, 64, 3), (1, 20, 40, 192, 128)]
+# Block's Co = 3 (the 8-wide N) with ragged H and W, the odd Ci = 192 with
+# Co = 128 (two warpgroups a patch, 8x16 tiles, its weights streamed a
+# chunk at a time); then Ci = 4 (one chunk, 8-byte bfloat16 copies), Ci =
+# 36 and 100 (padded chunks), Co = 256 (four warpgroups a patch, 8x8
+# tiles), Co = 80 and 300 (a partial and a second block of output
+# channels), and more tiles than SMs (a block walks several tiles; Ci = 160
+# at Co = 128 streams an odd number of chunks)
+Q1_CASES = [(2, 128, 64, 64, 64), (1, 37, 21, 64, 3), (1, 20, 40, 192, 128),
+            (1, 19, 23, 4, 64), (2, 17, 33, 36, 128), (1, 25, 18, 100, 256),
+            (1, 9, 40, 64, 80), (1, 12, 12, 32, 300), (4, 97, 90, 64, 64),
+            (2, 130, 120, 160, 128)]
+
+
+def _q1_inputs(case, dt, static, device):
+    from fastdiffsr_tpu_torch.ops import quant
+    B, H, W, ci, co = case
+    g = torch.Generator(device=device).manual_seed(ci + co)
+    h = (torch.randn(B, H, W, ci, generator=g, device=device) * 2).to(dt)
+    w = torch.randn(co, ci, 3, 3, generator=g, device=device) * 0.05
+    b = torch.randn(co, generator=g, device=device) * 0.1
+    q_w, s_w = quant.quantize_weights(w)
+    return h, quant.pack_weights(q_w), s_w, quant.activation_scale(
+        h, static), b
 
 
 @pytest.mark.parametrize("static", [False, True])
@@ -493,27 +513,37 @@ Q1_CASES = [(2, 128, 64, 64, 64), (1, 37, 21, 64, 3), (1, 20, 40, 192, 128)]
 @pytest.mark.parametrize("case", Q1_CASES)
 def test_quant_conv_kernel_matches_plain(cuda, case, dt, static):
     """Q1 against its plain version on the same inputs: the int32
-    accumulators and the dequantized output bit-equal, one counted
-    launch, and the wrapper's output-channel tile the library's."""
+    accumulators and the dequantized output bit-equal, with and without
+    the accumulator output, one counted launch a call, and the wrapper's
+    output-channel tile and tile rows the library's."""
     from fastdiffsr_tpu_torch.ops import quant
-    B, H, W, ci, co = case
-    g = torch.Generator(device=cuda).manual_seed(ci + co)
-    h = (torch.randn(B, H, W, ci, generator=g, device=cuda) * 2).to(dt)
-    w = torch.randn(co, ci, 3, 3, generator=g, device=cuda) * 0.05
-    b = torch.randn(co, generator=g, device=cuda) * 0.1
-    q_w, s_w = quant.quantize_weights(w)
-    packed = quant.pack_weights(q_w)
-    s_a = quant.activation_scale(h, static)
+    co = case[-1]
+    h, packed, s_w, s_a, b = _q1_inputs(case, dt, static, cuda)
     before = kernels.LAUNCHES["quant_conv3"]
     y, acc = quant.quant_conv3_launch(h, packed, s_w, s_a, b, dt,
                                       want_acc=True)
-    assert kernels.LAUNCHES["quant_conv3"] == before + 1
+    y_only = quant.quant_conv3_launch(h, packed, s_w, s_a, b, dt)
+    assert kernels.LAUNCHES["quant_conv3"] == before + 2
     y_want, acc_want = quant.quant_conv3_apply_plain(h, packed, s_w, s_a, b,
                                                      dt, want_acc=True)
     torch.cuda.synchronize()
     assert torch.equal(acc, acc_want)
     assert torch.equal(y, y_want)
-    assert kernels.load().fdsr_quant_conv3_co_tile(co) == quant.co_tile(co)
+    assert torch.equal(y_only, y_want)
+    lib = kernels.load()
+    assert lib.fdsr_quant_conv3_co_tile(co) == quant.co_tile(co)
+    assert (lib.fdsr_quant_conv3_tile_rows(co),
+            lib.fdsr_quant_conv3_tile_cols(co)) == quant.tile_shape(co)
+
+
+@pytest.mark.parametrize("case", [Q1_CASES[0], Q1_CASES[5]])
+def test_quant_conv_is_one_kernel_per_call(cuda, case):
+    """A call is one kernel on the card (the kernel nodes of a CUDA graph
+    that captured it), the accumulator output included."""
+    from fastdiffsr_tpu_torch.ops import quant
+    h, packed, s_w, s_a, b = _q1_inputs(case, torch.bfloat16, False, cuda)
+    assert kernels.kernels_per_call(lambda: quant.quant_conv3_launch(
+        h, packed, s_w, s_a, b, torch.bfloat16, want_acc=True)) == 1
 
 
 def test_quant_conv_refuses_what_the_kernel_does_not_take(cuda):
@@ -532,3 +562,14 @@ def test_quant_conv_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         quant.quant_conv3_launch(h, quant.pack_weights(q_w), s_w, s_a, b,
                                  torch.float32)
+    # weights in another layout (the mma.sync kernel's (9, Co_pad, Ci_pad))
+    # or a view that is not 16-byte aligned
+    h = torch.randn(1, 8, 8, 8, device=cuda)
+    flat = torch.zeros(9, 8, 32, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="packed weights"):
+        quant.quant_conv3_launch(h, flat, s_w, s_a, b, torch.float32)
+    packed = quant.pack_weights(q_w)
+    shifted = torch.zeros(packed.numel() + 8, dtype=torch.int8,
+                          device=cuda)[8:].view(packed.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        quant.quant_conv3_launch(h, shifted, s_w, s_a, b, torch.float32)

@@ -99,7 +99,8 @@ def test_quantize_weights_match_jax(tie):
     np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
     # the packed layout holds the same integers
     packed = tq.pack_weights(q_t)
-    assert packed.shape == (9, 64, 64) and packed.is_contiguous()
+    # one block of 64 output channels, two chunks of 32 input channels
+    assert packed.shape == (1, 2, 9, 2, 64, 16) and packed.is_contiguous()
     assert torch.equal(tq.unpack_weights(packed, 24, 64), q_t)
 
 
