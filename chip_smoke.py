@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--gdp-reference | --ediffsr-only |
                                       --msi-only | --dist-only |
                                       --serving-only | --demo-only |
-                                      --quant-only]
+                                      --quant-only | --rewrites-only]
 
 Run from the repository root. It needs one CUDA device and the CUDA
 toolkit (nvcc); without a device it exits non-zero and prints no result.
@@ -57,8 +57,10 @@ limit:
    forward with DDIM and then DPM-Solver++ at 10 steps (49 K3 launches,
    all on wgmma, and 4 K2 per eval), then ``sample_ddim`` and
    ``sample_dpm`` on the fused f32 forward against the plain UNet (on
-   gn_swish_reference) from the same initial noise, with the bf16 fused
-   forward as a control that must fall outside the tolerance;
+   gn_swish_reference, built with the default tconv Upsample) from the
+   same initial noise, with the bf16 fused forward as a control that
+   must fall outside the tolerance, and the plain chain run twice
+   bit-equal;
 11. K1 against its plain version at every distinct K1 shape of one SR3
    (ddpm) and one guided (gdp) training forward at batch 4, 256x256, that
    phase 6 did not measure, with the same columns, then in f32 at batch
@@ -68,12 +70,11 @@ limit:
    against one on gn_swish_reference (randomized weights), then
    ``cli.sr_mfe -p train`` at full width (45 K1 launches per step for
    SR3, 29 for the guided UNet; steady steps/s; peak memory; a checkpoint
-   that reloads bit-equal; gdp also validates 13 images at its last step
-   inside the run, on cuDNN's heuristics) and ``-p val`` on one image
-   (ddpm: ancestral T=1000; tesr, gdp: DDIM 50 steps; K1 launches per
-   eval, seconds per image); then ``cli.infer`` of the ddpm config in
-   bf16 on the plain
-   forward with DPM-Solver++ at 20 steps;
+   that reloads bit-equal; gdp also validates VAL_PACK_IMAGES images at
+   its last step inside the run, on cuDNN's heuristics) and ``-p val`` on
+   one image (ddpm: ancestral T=1000; tesr, gdp: DDIM 50 steps; K1
+   launches per eval, seconds per image); then ``cli.infer`` of the ddpm
+   config in bf16 on the plain forward with DPM-Solver++ at 20 steps;
 13. K3 (f32 and bf16) and K2 against their plain versions at every
    signature of one 128->512 UNet eval at batch 1 (the maps of
    configs/sr_fastdiffsr_infer_x4.json: 512, 256, 128 and 64 pixels a
@@ -191,7 +192,23 @@ limit:
    export of 2 steps, loaded and run bit-equal to the in-process sampler
    with its fdsr::quant_conv3 node count; gn_swish_stats and gn_swish_dot
    against gn_swish_reference at the quantized Blocks' GroupNorm inputs,
-   timed beside K1.
+   timed beside K1;
+23. the exact rewrites (``FASTDIFFSR_TPU_UPSAMPLE``, ``_FOLD``,
+   ``_SKIP_CONCAT``, ``_CONV_SPLIT``): the three Upsample forms (dense,
+   tconv, d2s2) at the Upsample shapes of a 64->256 eval at batch 16 and
+   of a 128->512 eval at batch 1, f32 and bf16, tconv and d2s2 against
+   dense, each called twice bit-equal, device and wall ms; the plain
+   forward of sr_fastdiffsr_test_64_256.json at full width, batch 16, f32
+   and bf16, built by ``unet_from_config`` in each mode (literal, tconv,
+   d2s2, fold down and all, skip_concat split and swap, conv_split on
+   every ups_* block) from the same weights, each against the literal
+   forward and run twice bit-equal, with ms per eval and K1 launches per
+   forward; K1 against its plain version
+   at every K1 shape the modes add (fold's 2C maps at batch 8 in twice the
+   groups, the split parts); SR3, guided and ConditionalUNet with the
+   builders' default tconv Upsample against the literal one; 3 train steps
+   at batch 4 with tconv (the default) and with dense, from the same
+   weights and step generators (steps/s, first losses equal).
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -207,8 +224,16 @@ evaluation at its reference shape (ancestral T=1000 at 256x256 through
 ``--msi-only`` only phase 17, ``--dist-only`` only phase 18
 (``--dist-worker <spec>`` is phase 18's rank, which torchrun starts) and
 ``--serving-only`` only phases 19-20 (``--serving-worker`` is a process
-of phase 19), ``--demo-only`` only phase 21 and ``--quant-only`` only
-phase 22.
+of phase 19), ``--demo-only`` only phase 21, ``--quant-only`` only
+phase 22 and ``--rewrites-only`` only phase 23.
+
+The builders read the Upsample form from ``FASTDIFFSR_TPU_UPSAMPLE``
+with JAX's default, tconv: every plain forward that a phase builds
+through them (SR3, guided and ConditionalUNet too) runs the tconv
+Upsample, whose transposed conv runs on cuDNN's deterministic algorithms
+(``ops.tconv``), so the checks that hold two runs of one computation
+bit-equal (phases 10, 19, 20, 22 and 23) hold it too. The fused forward
+(K3) reads only the parameters.
 
 Kernel times: ``ms`` is device time per call, the CUDA-event time of one
 replay of a CUDA graph that holds REPS calls (no host time between the
@@ -276,6 +301,10 @@ B_TRAIN = 4         # phases 6-9: the train config's batch
 TRAIN_STEPS = 24    # phase 9
 TRAIN_IMAGES = 16
 VAL_IMAGES = 2
+# the val pack of phases 9 and 12: config.parse cuts the val set of
+# -p train to 13 images, and this pack holds 3, so gdp's in-run
+# validation takes 3 (PERF.md §4)
+VAL_PACK_IMAGES = 3
 # K1 calls per UNet forward: FastDiffSR and SR3, 44 ResnetBlock Blocks +
 # the final Block; guided, 28 ResBlock in-norms + the final out-norm
 K1_PER_FORWARD = {"fastdiffsr": 45, "ddpm": 45, "tesr": 45, "gdp": 29}
@@ -296,11 +325,12 @@ VARIANT_VAL = {"ddpm": None,
                "tesr": {"sampler": "ddim", "ddim_steps": 50},
                "gdp": {"sampler": "ddim", "ddim_steps": 50}}
 # phase 14: 128->512 images per type at batch 1; the first is set-up, and
-# the other 47 make a steady window of seconds in bf16
-INFER_512_IMAGES = 48
-# phase 15: images per cli.fid directory, the Potsdam test set's count
-# (SURVEY.md §3), more than pool3's 2048 features
-FID_IMAGES = 3272
+# the other 23 make a steady window of seconds in bf16
+INFER_512_IMAGES = 24
+# phase 15: images per cli.fid directory: more than pool3's 2048 features,
+# so both covariances have full rank (fewer than the Potsdam test set's
+# 3272, SURVEY.md §3, to leave time for phase 23; PERF.md §4)
+FID_IMAGES = 2100
 FID_CHECK_IMAGES = 8   # phase 15: pool3 on the card against the CPU's
 FID_FEAT_TOL = 1e-4    # |dpool3| <= tol * max|pool3| (the CPU tests')
 FID_RTOL = 1e-3        # FID against the eigenvalue evaluation (the tests')
@@ -376,6 +406,21 @@ DEMO_FORMATS = {"folder": "img", "pack": "npy", "lmdb": "lmdb"}
 DEMO_WORKERS = 4
 DEMO_STEPS = 12
 DEMO_VAL = 4
+# phase 23, the exact rewrites: the Upsample shapes (B, C, H) of a 64->256
+# eval at batch 16 and of a 128->512 eval at batch 1; tconv and d2s2
+# against the literal Upsample, |dy| <= tol * max(1, max|y|) (f32: the
+# summation order and the summed 4x4 / 2x2 taps; bf16: four bf16 steps,
+# as each form rounds its own summed taps to bf16); the plain forward's
+# batch, timed evals per mode and type, and the modes (one rewrite each
+# over the literal forms); timed train steps per Upsample form
+UPS_SHAPES = ((16, 256, 32), (16, 256, 64), (16, 128, 128),
+              (1, 256, 64), (1, 256, 128), (1, 128, 256))
+UPS_TOL = {"f32": 2e-5, "bf16": 2 ** -6}
+REWRITE_B = 16
+REWRITE_EVALS = 2
+REWRITE_MODES = ("literal", "tconv", "d2s2", "fold_down", "fold_all",
+                 "split", "swap", "conv_split")
+REWRITE_TRAIN_STEPS = 3
 
 
 def card_line() -> str:
@@ -779,24 +824,35 @@ def print_k2_totals(rows, card, label=""):
               f"{floor_line(launches)}", flush=True)
 
 
+def record_k1_batch(fn):
+    """Run ``fn`` and return its output, the distinct K1 call signatures
+    (B, H, W, C, groups) with their call counts, and how many K1 calls got
+    a map that is not a contiguous NHWC tensor."""
+    from fastdiffsr_tpu_torch.ops.groupnorm import gn_swish_custom
+    sigs, strided = {}, [0]
+
+    def rec(h, scale, bias, groups, eps=1e-5):
+        sig = (*h.shape, groups)
+        sigs[sig] = sigs.get(sig, 0) + 1
+        strided[0] += not h.is_contiguous()
+        return gn_swish_custom(h, scale, bias, groups, eps)
+
+    with patched_k1(rec):
+        out = fn()
+    return out, sigs, strided[0]
+
+
 def record_k1(net, x, level):
     """Run one forward of ``net`` and return the distinct K1 call
     signatures (H, W, C, groups) with their call counts, and how many
     K1 calls got a map that is not a contiguous NHWC tensor."""
     import torch
-
-    from fastdiffsr_tpu_torch.ops.groupnorm import gn_swish_custom
-    sigs, strided = {}, [0]
-
-    def rec(h, scale, bias, groups, eps=1e-5):
-        sig = (h.shape[1], h.shape[2], h.shape[3], groups)
-        sigs[sig] = sigs.get(sig, 0) + 1
-        strided[0] += not h.is_contiguous()
-        return gn_swish_custom(h, scale, bias, groups, eps)
-
-    with torch.no_grad(), patched_k1(rec):
-        net(x, level)
-    return sigs, strided[0]
+    with torch.no_grad():
+        _, by_batch, strided = record_k1_batch(lambda: net(x, level))
+    sigs = {}
+    for sig, n in by_batch.items():
+        sigs[sig[1:]] = sigs.get(sig[1:], 0) + n
+    return sigs, strided
 
 
 def phase_k1(sigs, B, reps, card, seed, dtypes=("f32", "bf16")):
@@ -1089,11 +1145,14 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
     droot = write_pack(os.path.join(work, f"train_pack_{seed}"),
                        TRAIN_IMAGES, seed + 7, int(ds["l_resolution"]),
                        int(ds["r_resolution"]))
+    vroot = write_pack(os.path.join(work, f"val_pack_{seed}"),
+                       VAL_PACK_IMAGES, seed + 8, int(ds["l_resolution"]),
+                       int(ds["r_resolution"]))
     cfg = json.loads(json.dumps(cfg))
     cfg["name"] = f"chip_smoke_train{label.replace(' ', '_')}"
     cfg["datasets"]["train"].update(dataroot=droot, datatype="npy",
                                     batch_size=B_TRAIN)
-    cfg["datasets"]["val"].update(dataroot=droot, datatype="npy",
+    cfg["datasets"]["val"].update(dataroot=vroot, datatype="npy",
                                   data_len=val_images)
     cfg["train"].update(n_iter=steps, val_freq=val_freq,
                         save_checkpoint_freq=10 ** 9, print_freq=8)
@@ -1116,7 +1175,7 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
     losses = summary["l_pix"]
     # launches of the validations inside the run, whose val set config.parse
     # cuts to 13 images for -p train, as the reference does
-    in_evals = (evals_per_image(cfg) * min(13, TRAIN_IMAGES)
+    in_evals = (evals_per_image(cfg) * min(13, VAL_PACK_IMAGES)
                 * (steps // val_freq))
     fused_val = variant == "fastdiffsr"
     want_k1 = K1_PER_FORWARD[variant] * (steps + (0 if fused_val
@@ -1165,7 +1224,7 @@ def phase_train(cfg, card, seed, steps=TRAIN_STEPS, val_images=VAL_IMAGES,
     in_val = summary["last_validation"]
     if in_evals:
         print(f"[train{label} in-run validation] {card} | every {val_freq} "
-              f"steps, {min(13, TRAIN_IMAGES)} images, "
+              f"steps, {min(13, VAL_PACK_IMAGES)} images, "
               f"{evals_per_image(cfg)} evals each, on cuDNN's heuristics: "
               f"{in_val['avg_time']:.3f} s per image after the first, psnr "
               f"{in_val['psnr']:.4f}", flush=True)
@@ -1392,8 +1451,9 @@ def phase_samplers(cfg, card, seed):
         got = fn(lambda x, lv: fused_apply(fp, x, lv), cond,
                  steps=SAMPLER_STEPS, init_noise=init)
         with reference_norm():
-            want = fn(lambda x, lv: net(x, lv), cond, steps=SAMPLER_STEPS,
-                      init_noise=init)
+            want, want_again = [fn(lambda x, lv: net(x, lv), cond,
+                                   steps=SAMPLER_STEPS, init_noise=init)
+                                for _ in range(2)]
         control = fn(lambda x, lv: fused_apply(fp_bf16, x, lv), cond,
                      steps=SAMPLER_STEPS, init_noise=init)
         torch.cuda.synchronize()
@@ -1402,7 +1462,8 @@ def phase_samplers(cfg, card, seed):
         gains = sampler_gains(eng.buffers.alphas_cumprod.cpu().numpy(),
                               SAMPLER_STEPS, name)
         tol = SAMPLER_EPS_GAP * float(gains.sum())
-        row_ok = (err <= tol < err_control
+        repeat = torch.equal(want, want_again)
+        row_ok = (err <= tol < err_control and repeat
                   and bool(torch.isfinite(got).all()))
         ok &= row_ok
         print(f"[sampler {name}] {card} | sample_{name} B={B_SAMPLER} "
@@ -1412,11 +1473,13 @@ def phase_samplers(cfg, card, seed):
               f"{SAMPLER_EPS_GAP} per eval x the steps' summed gain "
               f"{gains.sum():.4g}, largest {gains.max():.4g}); control, "
               f"fused bf16 vs the same plain run, max|d|={err_control:.3g} "
-              f"(must exceed the tol) {'ok' if row_ok else 'FAIL'}",
-              flush=True)
+              f"(must exceed the tol); the plain UNet ({net.upsample_mode} "
+              f"Upsample, the builder's default) run again bit-equal "
+              f"{repeat} {'ok' if row_ok else 'FAIL'}", flush=True)
         detail[f"{name}_fused_vs_plain"] = {
             "max_abs_err": err, "tol": tol,
-            "control_bf16_max_abs_err": err_control}
+            "control_bf16_max_abs_err": err_control,
+            "plain_upsample": net.upsample_mode, "plain_repeat_equal": repeat}
     del net, fp, fp_bf16
     torch.cuda.empty_cache()
     return detail, ok
@@ -3585,17 +3648,27 @@ Q1_EARLIER_MS = {"bf16": 12.985, "f32": 13.089}
 
 
 @contextlib.contextmanager
-def quant_mode(mode):
-    """FASTDIFFSR_TPU_QUANT set to ``mode`` within the block."""
-    prev = os.environ.get("FASTDIFFSR_TPU_QUANT")
-    os.environ["FASTDIFFSR_TPU_QUANT"] = mode
+def environ(values):
+    """Within the block, each environment variable of ``values`` set to
+    its value (None: unset)."""
+    def put(vals):
+        for k, v in vals.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    prev = {k: os.environ.get(k) for k in values}
+    put(values)
     try:
         yield
     finally:
-        if prev is None:
-            os.environ.pop("FASTDIFFSR_TPU_QUANT")
-        else:
-            os.environ["FASTDIFFSR_TPU_QUANT"] = prev
+        put(prev)
+
+
+def quant_mode(mode):
+    """FASTDIFFSR_TPU_QUANT set to ``mode`` within the block."""
+    return environ({"FASTDIFFSR_TPU_QUANT": mode})
 
 
 @contextlib.contextmanager
@@ -4228,6 +4301,393 @@ def q1_entry(quant):
                                      for r in rows)}
 
 
+def rewrite_env(mode):
+    """The builders' variables for phase 23's ``mode``: one rewrite over
+    the literal forms (the Upsample 'dense'), no quant."""
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import resblock_names
+    base = {"FASTDIFFSR_TPU_UPSAMPLE": "dense", "FASTDIFFSR_TPU_FOLD": "",
+            "FASTDIFFSR_TPU_SKIP_CONCAT": "", "FASTDIFFSR_TPU_CONV_SPLIT": "",
+            "FASTDIFFSR_TPU_QUANT": ""}
+    ups = ",".join(sorted((n for n in resblock_names(4, 2)
+                           if n.startswith("ups_")),
+                          key=lambda n: int(n[4:])))
+    return dict(base, **{
+        "literal": {}, "tconv": {"FASTDIFFSR_TPU_UPSAMPLE": "tconv"},
+        "d2s2": {"FASTDIFFSR_TPU_UPSAMPLE": "d2s2"},
+        "fold_down": {"FASTDIFFSR_TPU_FOLD": "down"},
+        "fold_all": {"FASTDIFFSR_TPU_FOLD": "all"},
+        "split": {"FASTDIFFSR_TPU_SKIP_CONCAT": "split"},
+        "swap": {"FASTDIFFSR_TPU_SKIP_CONCAT": "swap"},
+        "conv_split": {"FASTDIFFSR_TPU_CONV_SPLIT": ups}}[mode])
+
+
+def upsample_forms(card, seed):
+    """Phase 23a: the three Upsample forms at UPS_SHAPES, f32 and bf16:
+    tconv and d2s2 against the literal form, and the device and wall ms of
+    each (one call of ``apply_upsample2_conv3``)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import \
+        apply_upsample2_conv3
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    rows, ok = [], True
+    for B, C, H in UPS_SHAPES:
+        w = torch.randn((C, C, 3, 3), generator=g, device=dev) / math.sqrt(
+            9 * C)
+        b = torch.randn(C, generator=g, device=dev) * 0.1
+        xf = torch.randn((B, C, H, H), generator=g, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        for dt_name in ("f32", "bf16"):
+            dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt_name]
+            x = xf.to(dt)
+            want = apply_upsample2_conv3(x, w, b, "", dt).float()
+            scale = max(1.0, want.abs().max().item())
+            es = 2 if dt_name == "bf16" else 4
+            # the least work of the function: 4 taps per output pixel
+            b_ms, b_by = bound(2.0 * 16 * B * H * H * C * C,
+                               5.0 * B * H * H * C * es + 9 * C * C * es,
+                               dt_name)
+            row = {"B": B, "C": C, "H": H, "dtype": dt_name,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            for mode in ("", "tconv", "d2s2"):
+                name = mode or "dense"
+                got = apply_upsample2_conv3(x, w, b, mode, dt)
+                again = torch.equal(got, apply_upsample2_conv3(x, w, b,
+                                                               mode, dt))
+                err = (got.float() - want).abs().max().item()
+                tol = UPS_TOL[dt_name] * scale
+                r_ok = (err <= tol and again
+                        and bool(torch.isfinite(got).all())
+                        and got.is_contiguous(
+                            memory_format=torch.channels_last))
+                ok &= r_ok
+                ms, wall = timed(
+                    lambda: apply_upsample2_conv3(x, w, b, mode, dt), REPS)
+                row[name] = {"ms": ms, "wall_ms": wall, "max_abs_err": err,
+                             "tol": tol, "ok": r_ok, "repeat_equal": again}
+                del got
+            rows.append(row)
+            ok_row = all(row[m]["ok"] for m in ("dense", "tconv", "d2s2"))
+            print(f"[upsample] {card} | {dt_name} B={B} {H}x{H} C={C} -> "
+                  f"{2 * H}x{2 * H} | device ms: dense "
+                  f"{row['dense']['ms']:.4f} tconv {row['tconv']['ms']:.4f} "
+                  f"d2s2 {row['d2s2']['ms']:.4f} (wall "
+                  f"{row['dense']['wall_ms']:.4f} / "
+                  f"{row['tconv']['wall_ms']:.4f} / "
+                  f"{row['d2s2']['wall_ms']:.4f}) | bound {b_ms:.4f} ms "
+                  f"({b_by}) | vs dense max|dy| tconv "
+                  f"{row['tconv']['max_abs_err']:.3g} d2s2 "
+                  f"{row['d2s2']['max_abs_err']:.3g} (tol "
+                  f"{row['tconv']['tol']:.3g}) | a second call bit-equal: "
+                  + " ".join(f"{m} {row[m]['repeat_equal']}"
+                             for m in ("dense", "tconv", "d2s2"))
+                  + f" {'ok' if ok_row else 'FAIL'}",
+                  flush=True)
+            del x, want
+        del xf
+    per_eval = {}
+    for dt_name in ("f32", "bf16"):
+        for tag, Bs in (("64_256", REWRITE_B), ("128_512", 1)):
+            sel = [r for r in rows if r["dtype"] == dt_name and r["B"] == Bs]
+            per_eval[f"{dt_name}_{tag}"] = {
+                m: sum(r[m]["ms"] for r in sel)
+                for m in ("dense", "tconv", "d2s2")}
+            pe = per_eval[f"{dt_name}_{tag}"]
+            print(f"[upsample total] {card} | {dt_name} per {tag} eval "
+                  f"(3 Upsamples, B={Bs}), device ms: dense "
+                  f"{pe['dense']:.4f} tconv {pe['tconv']:.4f} d2s2 "
+                  f"{pe['d2s2']:.4f}", flush=True)
+    return {"rows": rows, "per_eval": per_eval}, ok
+
+
+def rewrite_forwards(card, seed):
+    """Phase 23b: the plain forward of sr_fastdiffsr_test_64_256.json at
+    full width, B=REWRITE_B, 256x256, built by ``unet_from_config`` in each
+    of REWRITE_MODES from the same randomized weights, in f32 and bf16:
+    each mode against the literal forward of its type, its K1 launches
+    per forward and ms per eval. Returns (detail, K1 signatures by mode
+    (f32), K1 launches, ok)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.ops import kernels
+    cfg = load_json_config(os.path.join(ROOT, "fastdiffsr_tpu_torch",
+                                        "configs",
+                                        "sr_fastdiffsr_test_64_256.json"))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 24)
+    x = torch.randn((REWRITE_B, 256, 256, 6), generator=g, device=dev)
+    level = torch.rand((REWRITE_B,), generator=g, device=dev)
+    weights, refs, detail, sigs, ok, k1 = None, {}, {}, {}, True, 0
+    for mode in REWRITE_MODES:
+        with environ(rewrite_env(mode)):
+            net = unet_from_config(cfg["model"]["unet"], device=dev,
+                                   seed=seed)
+        if weights is None:
+            weights = {k: v.clone() for k, v in randomize_params(
+                net, seed + 25).state_dict().items()}
+        net.load_state_dict(weights)
+
+        def fwd():
+            with torch.no_grad():
+                return net(x, level)
+
+        for dt_name in ("f32", "bf16"):
+            net.dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[
+                dt_name]
+            kernels.reset_launch_counts()
+            y, s, strided = record_k1_batch(fwd)
+            torch.cuda.synchronize()
+            n_k1 = kernels.LAUNCHES["gn_swish"]
+            ms = time_ms(fwd, REWRITE_EVALS, warmup=1)
+            again = torch.equal(y, fwd())
+            k1 += kernels.LAUNCHES["gn_swish"]
+            if dt_name == "f32":
+                sigs[mode] = s
+            ref = refs.setdefault(dt_name, y)
+            tol = UNET_TOL[dt_name] * max(1.0, ref.abs().max().item())
+            err = (y - ref).abs().max().item()
+            r_ok = (err <= tol and again and bool(torch.isfinite(y).all())
+                    and strided == 0
+                    and n_k1 == sum(s.values()) >= K1_PER_FORWARD[
+                        "fastdiffsr"])
+            ok &= r_ok
+            detail[f"{mode}_{dt_name}"] = {
+                "ms": ms, "k1_per_forward": n_k1, "max_abs_err": err,
+                "tol": tol, "k1_shapes": len(s), "repeat_equal": again,
+                "ok": r_ok}
+            print(f"[rewrite {mode}] {card} | plain forward {dt_name} "
+                  f"B={REWRITE_B} 256x256 full width via unet_from_config: "
+                  f"{ms:.3f} ms per eval (CUDA events over "
+                  f"{REWRITE_EVALS} evals) | K1 {n_k1} launches per "
+                  f"forward in {len(s)} shapes, {strided} not contiguous "
+                  f"NHWC | vs literal max|dy|={err:.3g} (tol {tol:.3g}); a "
+                  f"second forward bit-equal {again} "
+                  f"{'ok' if r_ok else 'FAIL'}", flush=True)
+            del y
+        del net
+    del refs
+    torch.cuda.empty_cache()
+    return detail, sigs, k1, ok
+
+
+def rewrite_k1(sigs, card, seed):
+    """Phase 23c: K1 against its plain version at every K1 shape the
+    rewrites add to the literal forward's (fold's 2C maps at half the
+    batch, the split parts); fold's three 256x256 maps must be among
+    them."""
+    lit = set(sigs["literal"])
+    new = {}
+    for mode, s in sigs.items():
+        for sg, n in s.items():
+            if sg not in lit:
+                new.setdefault(sg, {})[mode] = n
+    want = {(8, 256, 256, 128, 64), (8, 256, 256, 384, 64),
+            (8, 256, 256, 256, 64)}
+    ok = want <= set(new)
+    print(f"[rewrite K1 shapes] {card} | {len(new)} K1 shapes beyond the "
+          f"literal forward's: "
+          + ", ".join(f"{sg[:4]} G={sg[4]} ({'/'.join(sorted(m))})"
+                      for sg, m in sorted(new.items()))
+          + f" | fold's three present {ok} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    rows = []
+    for B in sorted({sg[0] for sg in new}):
+        by = {sg[1:]: max(new[sg].values()) for sg in new if sg[0] == B}
+        r, r_ok = phase_k1(by, B, REPS, card, seed)
+        rows += r
+        ok &= r_ok
+    return rows, ok
+
+
+def set_upsample_mode(net, mode):
+    """Every Upsample form of ``net`` (SR3's Upsample modules, the guided
+    up ResBlocks, the ConditionalUNet) set to ``mode``."""
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import Upsample
+    for m in net.modules():
+        if isinstance(m, Upsample):
+            m.mode = mode
+        elif hasattr(m, "upsample_mode"):
+            m.upsample_mode = mode
+
+
+def upsample_modes(net):
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import Upsample
+    return {m.mode if isinstance(m, Upsample) else m.upsample_mode
+            for m in net.modules()
+            if isinstance(m, Upsample) or hasattr(m, "upsample_mode")}
+
+
+def rewrite_nets(card, seed):
+    """Phase 23d: SR3 (ddpm), guided (gdp) and ConditionalUNet at their
+    shipped widths, built with the builders' default Upsample (tconv: the
+    variable unset), randomized weights, one forward with it and one with
+    the literal form, f32, B=2, 256x256, and the ms of each. Returns
+    (detail, K1 launches, ok)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.cli.infer import build_unet
+    from fastdiffsr_tpu_torch.models.cond_unet import cond_unet_from_config
+    from fastdiffsr_tpu_torch.ops import kernels
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 26)
+    B = 2
+    x = torch.randn((B, 256, 256, 6), generator=g, device=dev)
+    t = torch.randint(0, 1000, (B,), generator=g, device=dev).float()
+    detail, ok, k1 = {}, True, 0
+    for name in ("ddpm", "gdp", "cond_unet"):
+        with environ({"FASTDIFFSR_TPU_UPSAMPLE": None}):
+            net = (cond_unet_from_config({"nf": 64, "depth": 4}, device=dev,
+                                         seed=seed) if name == "cond_unet"
+                   else build_unet(variant_cfg(name)["model"], device=dev,
+                                   seed=seed))
+        built = upsample_modes(net)
+        randomize_params(net, seed + 27).eval()
+
+        def fwd():
+            with torch.no_grad():
+                if name == "cond_unet":
+                    return net(x[..., :3], x[..., 3:], t)
+                return net(x, t)
+
+        outs = {}
+        for mode in ("tconv", ""):
+            set_upsample_mode(net, mode)
+            kernels.reset_launch_counts()
+            outs[mode] = fwd()
+            detail[f"{name}_{mode or 'dense'}_ms"] = time_ms(fwd, 2,
+                                                             warmup=1)
+            k1 += kernels.LAUNCHES["gn_swish"]
+        err = (outs["tconv"] - outs[""]).abs().max().item()
+        tol = UNET_TOL["f32"] * max(1.0, outs[""].abs().max().item())
+        r_ok = (built == {"tconv"} and err <= tol
+                and bool(torch.isfinite(outs["tconv"]).all()))
+        ok &= r_ok
+        detail[f"{name}_max_abs_err"] = err
+        print(f"[rewrite {name}] {card} | f32 B={B} 256x256, randomized "
+              f"weights, built with {sorted(built)}: tconv Upsample "
+              f"{detail[f'{name}_tconv_ms']:.3f} ms, literal "
+              f"{detail[f'{name}_dense_ms']:.3f} ms per forward | "
+              f"max|dy|={err:.3g} (tol {tol:.3g}) {'ok' if r_ok else 'FAIL'}",
+              flush=True)
+        del outs, net
+        torch.cuda.empty_cache()
+    return detail, k1, ok
+
+
+def rewrite_train(card, seed):
+    """Phase 23e: REWRITE_TRAIN_STEPS train steps (after one untimed) of
+    sr_fastdiffsr_train_64_256.json at full width, B=4, built with the
+    builder's default Upsample (tconv: the variable unset), then the same
+    with the literal one, from the same initial weights and step
+    generators: steps/s of each, and the first step's loss equal within
+    STEP_TOL["loss"]. Returns (detail, K1 launches, ok)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers)
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.train import (create_train_state,
+                                            make_train_step, step_generator)
+    cfg = load_json_config(os.path.join(ROOT, "fastdiffsr_tpu_torch",
+                                        "configs",
+                                        "sr_fastdiffsr_train_64_256.json"))
+    dev = torch.device("cuda")
+    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                          ScheduleBuffers.create(
+                              cfg["model"]["beta_schedule"]["train"],
+                              device=dev))
+    r = int(cfg["datasets"]["train"]["r_resolution"])
+    g = torch.Generator(device=dev).manual_seed(seed + 28)
+    batch = {k: torch.rand((B_TRAIN, r, r, 3), generator=g, device=dev)
+             * 2 - 1 for k in ("HR", "SR")}
+    lr = float(cfg["train"]["optimizer"]["lr"])
+    with environ({"FASTDIFFSR_TPU_UPSAMPLE": None}):
+        net = unet_from_config(cfg["model"]["unet"], device=dev, seed=seed)
+    built = upsample_modes(net)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    step = make_train_step(eng, ema_start=0)
+    detail, ok, k1 = {}, built == {"tconv"}, 0
+    for mode in ("tconv", ""):
+        set_upsample_mode(net, mode)
+        net.load_state_dict(start)
+        state = create_train_state(net, torch.optim.Adam(
+            net.parameters(), lr=lr))
+        losses = []
+        kernels.reset_launch_counts()
+        for k in range(1 + REWRITE_TRAIN_STEPS):
+            if k == 1:
+                torch.cuda.synchronize()
+                t0 = time.time()
+            state, m = step(state, batch, step_generator(seed, k, dev))
+            losses.append(m["l_pix"])
+        torch.cuda.synchronize()
+        rate = REWRITE_TRAIN_STEPS / (time.time() - t0)
+        n_k1 = kernels.LAUNCHES["gn_swish"]
+        k1 += n_k1
+        losses = [v.item() for v in losses]
+        detail[mode or "dense"] = {"steps_per_s": rate, "l_pix": losses,
+                                   "k1": n_k1}
+        ok &= (n_k1 == K1_PER_FORWARD["fastdiffsr"]
+               * (1 + REWRITE_TRAIN_STEPS)
+               and all(math.isfinite(v) for v in losses))
+        del state
+    del net
+    torch.cuda.empty_cache()
+    a, b = detail["tconv"]["l_pix"][0], detail["dense"]["l_pix"][0]
+    d_loss = abs(a - b) / abs(b)
+    ok &= d_loss <= STEP_TOL["loss"]
+    detail["rel_loss_first_step"] = d_loss
+    print(f"[rewrite train] {card} | sr_fastdiffsr_train_64_256.json full "
+          f"width B={B_TRAIN} f32, built with {sorted(built)}, "
+          f"{REWRITE_TRAIN_STEPS} steps after one: tconv "
+          f"{detail['tconv']['steps_per_s']:.3f} steps/s, dense "
+          f"{detail['dense']['steps_per_s']:.3f} steps/s | first l_pix "
+          f"{a:.6f} vs {b:.6f} (rel {d_loss:.3g}, tol {STEP_TOL['loss']}) | "
+          f"K1 launches {detail['tconv']['k1']} / {detail['dense']['k1']} "
+          f"(want {K1_PER_FORWARD['fastdiffsr'] * (1 + REWRITE_TRAIN_STEPS)}"
+          f") {'ok' if ok else 'FAIL'}", flush=True)
+    return detail, k1, ok
+
+
+def phase_rewrites(card, seed):
+    """Phase 23, the exact rewrites (module docstring). Returns (detail,
+    K1 launches of the path's runs, ok)."""
+    t_phase = time.time()
+    laps, t_lap = {}, [time.time()]
+
+    def lap(name):
+        now = time.time()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    detail = {}
+    detail["upsample"], u_ok = upsample_forms(card, seed)
+    lap("upsample")
+    detail["forwards"], sigs, k1_fwd, f_ok = rewrite_forwards(card, seed)
+    lap("forwards")
+    detail["k1"], k_ok = rewrite_k1(sigs, card, seed)
+    lap("K1")
+    detail["nets"], k1_nets, n_ok = rewrite_nets(card, seed)
+    lap("nets")
+    detail["train"], k1_train, t_ok = rewrite_train(card, seed)
+    lap("train")
+    ok = u_ok and f_ok and k_ok and n_ok and t_ok
+    launches = k1_fwd + k1_nets + k1_train
+    detail.update(seconds=time.time() - t_phase, ok=ok, launches=launches,
+                  part_seconds=laps)
+    print(f"[rewrites] {card} | phase 23 took {detail['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+          + f"), {launches} K1 launches {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return detail, launches, ok
+
+
 def gdp_reference(card, seed):
     """``--gdp-reference``: cli.infer of configs/sr_gdp_test_64_256.json
     (the guided UNet at full width, ancestral sampling over T=1000 at
@@ -4287,6 +4747,10 @@ def main(argv=None) -> int:
                     help="in place of phases 2-21: only phase 22 (the W8A8 "
                          "path: Q1, serving, infer, training and export "
                          "with FASTDIFFSR_TPU_QUANT)")
+    ap.add_argument("--rewrites-only", action="store_true",
+                    help="in place of phases 2-22: only phase 23 (the exact "
+                         "rewrites: Upsample forms, fold, skip_concat, "
+                         "conv_split)")
     ap.add_argument("--serving-worker", nargs=3,
                     metavar=("ROLE", "SPEC", "CASE"),
                     help="a worker process of phase 19")
@@ -4371,6 +4835,11 @@ def main(argv=None) -> int:
         with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
             json.dump(detail, f, indent=1, default=str)
         return 0 if quant_ok else 1
+    if args.rewrites_only:
+        detail["rewrites"], _, rw_ok = phase_rewrites(card, args.seed)
+        with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        return 0 if rw_ok else 1
     laps, t_lap = {}, [time.time()]
 
     def lap(name):
@@ -4570,9 +5039,17 @@ def main(argv=None) -> int:
     detail["quant"], _, quant_ok = phase_quant(card, args.seed)
     lap("22 W8A8")
     ok &= quant_ok
+
+    # 23. the exact rewrites: Upsample forms, fold, skip_concat, conv_split
+    gc.collect()
+    torch.cuda.empty_cache()
+    detail["rewrites"], rewrite_k1_launches, rw_ok = phase_rewrites(
+        card, args.seed)
+    lap("23 rewrites")
+    ok &= rw_ok
     demo = detail["demo"]
     k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]
-    k1_all_rows = k1_rows + demo["k1"] + [
+    k1_all_rows = k1_rows + demo["k1"] + detail["rewrites"]["k1"] + [
         r for v in detail["k1_variants"].values() for r in v["rows"]]
     # per SR3 forward (the shapes of phase 6) at batch 1, the batch of
     # the variants' -p val runs
@@ -4652,7 +5129,8 @@ def main(argv=None) -> int:
          "replaces": "fastdiffsr_tpu/ops/groupnorm.py:54",
          "launches": k1_launches + k1_variant_launches
          + dist_launches.get("gn_swish", 0) + ddpm_k1
-         + serve_launches.get("gn_swish", 0) + demo_launches["gn_swish"],
+         + serve_launches.get("gn_swish", 0) + demo_launches["gn_swish"]
+         + rewrite_k1_launches,
          "max_abs_err": max(r["max_abs_err"] for r in k1_all_rows
                             if r["dtype"] == "f32"),
          "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],

@@ -27,9 +27,12 @@ package's tree onto them.
 
 NHWC in and out, NCHW inside; ``dtype`` is the compute type of the convs
 and linears (float32 parameters); the attention's two einsums run in
-float32. Only the literal nearest x2 + 3x3 conv Upsample is ported: the
-JAX package's ``tconv``/``d2s2`` forms of it (its default through
-``default_upsample_mode``) compute the same function.
+float32. The decoder's Upsample conv (``ups.k.3.1``) runs in the form
+``upsample_mode`` of ``unet_fastdiffsr.apply_upsample2_conv3`` ('' the
+literal nearest x2 + 3x3 conv, 'tconv', 'd2s2'; JAX cond_unet.py:
+149-154); ``cond_unet_from_config``, EDiffSR's builder, reads it from
+``FASTDIFFSR_TPU_UPSAMPLE`` (default tconv), as JAX's
+``ediffsr/train.py`` does.
 """
 
 from __future__ import annotations
@@ -38,9 +41,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .nafnet import (UNPORTED, LayerNorm2d, SinusoidalPosEmb,
-                     sinusoidal_pos_emb)
-from .unet_fastdiffsr import _conv, _linear, init_params
+from .nafnet import LayerNorm2d, SinusoidalPosEmb, sinusoidal_pos_emb
+from .unet_fastdiffsr import (_conv, _linear, apply_upsample2_conv3,
+                              check_upsample_mode, default_upsample_mode,
+                              init_params)
 
 
 def default_conv(dim_in: int, dim_out: int, kernel_size: int = 3,
@@ -130,11 +134,9 @@ class ConditionalUNet(nn.Module):
                  depth: int = 4, upscale: int = 1, dtype=torch.float32,
                  upsample_mode: str = ""):
         super().__init__()
-        if upsample_mode:
-            raise NotImplementedError(
-                f"ConditionalUNet upsample_mode={upsample_mode!r} is "
-                f"{UNPORTED}; '' (nearest x2 + conv) is the same function")
+        check_upsample_mode(upsample_mode)
         self.nf, self.depth, self.dtype = nf, depth, dtype
+        self.upsample_mode = upsample_mode
         self.upscale = upscale           # accepted, unused (reference too)
         time_dim = nf * 4
         self.init_conv = default_conv(in_nc * 2, nf, 7)
@@ -201,8 +203,8 @@ class ConditionalUNet(nn.Module):
             x = b2(torch.cat([x, skips.pop()], dim=1), t, dt)
             x = attn(x, dt)
             if isinstance(up, nn.Sequential):
-                x = _conv(F.interpolate(x, scale_factor=2, mode="nearest"),
-                          up[1], dt)
+                x = apply_upsample2_conv3(x, up[1].weight, up[1].bias,
+                                          self.upsample_mode, dt)
             else:
                 x = _conv(x, up, dt)
 
@@ -215,11 +217,12 @@ def cond_unet_from_config(setting: dict, dtype=torch.float32, device="cuda",
                           seed: int = 0) -> ConditionalUNet:
     """Build from EDiffSR YAML network settings (``in_nc``, ``out_nc``,
     ``nf``, ``depth``), with seeded Flax-style initial parameters, on
-    ``device``."""
+    ``device``; the Upsample form from ``FASTDIFFSR_TPU_UPSAMPLE``."""
     from ..device import resolve_device
     dev = resolve_device(device)
     net = ConditionalUNet(in_nc=setting.get("in_nc", 3),
                           out_nc=setting.get("out_nc", 3),
                           nf=setting.get("nf", 64),
-                          depth=setting.get("depth", 4), dtype=dtype)
+                          depth=setting.get("depth", 4), dtype=dtype,
+                          upsample_mode=default_upsample_mode())
     return init_params(net, seed).to(dev)

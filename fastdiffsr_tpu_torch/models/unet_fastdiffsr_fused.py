@@ -17,6 +17,10 @@ of being recomputed:
 So one UNet eval at full width makes 49 K3 calls and 4 K2 calls. All maps
 are NHWC. :func:`prepare_fused_params` converts the module's parameters
 once into the layout K3 reads (HWIO conv weights in the compute type).
+It reads only the parameters, so the module's exact rewrites
+(``upsample_mode``, ``fold``, ``skip_concat``, ``conv_split``,
+``stats_barrier``) do not apply here, as JAX's ``fused_apply`` ignores
+them: the fused forward computes the same function in its own form.
 """
 
 from __future__ import annotations

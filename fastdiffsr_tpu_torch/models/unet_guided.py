@@ -31,6 +31,12 @@ scale-shift norm of ``out_layers`` stays plain ``F.group_norm`` -> affine
 -> SiLU: its affine is per image, (B, C), and K1 takes (C,). Maps stay
 channels-last NCHW views of NHWC memory, as K1 needs.
 
+An up ResBlock computes its ``in_layers`` conv of the nearest-x2 map in
+the form ``upsample_mode`` of ``unet_fastdiffsr.apply_upsample2_conv3``
+('' literal, 'tconv', 'd2s2'; JAX :72-81), its skip path still on the
+upsampled x; ``guided_unet_from_config`` reads the form from
+``FASTDIFFSR_TPU_UPSAMPLE`` (default tconv), as JAX's builder does.
+
 Train-mode dropout draws its masks from the ``generator`` passed to
 ``forward``. With ``use_checkpoint`` each ResBlock runs under
 ``torch.utils.checkpoint`` (JAX's ``nn.remat``); its dropout mask is
@@ -49,9 +55,10 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops.groupnorm import gn_swish_custom
-from .unet_fastdiffsr import _conv, _linear, init_params
-from .unet_sr3 import (attend, from_tokens, pointwise, refuse_upsample_mode,
-                       tokens)
+from .unet_fastdiffsr import (_conv, _linear, apply_upsample2_conv3,
+                              check_upsample_mode, default_upsample_mode,
+                              init_params)
+from .unet_sr3 import attend, from_tokens, pointwise, tokens
 
 GROUPS = 32
 
@@ -91,9 +98,11 @@ class GuidedResBlock(nn.Module):
 
     def __init__(self, channels: int, out_channels: int, emb_channels: int,
                  dropout: float = 0.0, up: bool = False, down: bool = False,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, upsample_mode: str = ""):
         super().__init__()
+        check_upsample_mode(upsample_mode)
         self.up, self.down = up, down
+        self.upsample_mode = upsample_mode
         self.use_checkpoint = use_checkpoint
         self.in_layers = nn.Sequential(
             nn.GroupNorm(GROUPS, channels), nn.SiLU(),
@@ -133,9 +142,15 @@ class GuidedResBlock(nn.Module):
         return self._body(x, emb, keep, dtype)
 
     def _body(self, x, emb, keep, dtype):
-        h = _resample(_gn_swish(x, self.in_layers[0]), self.up, self.down)
+        h = _gn_swish(x, self.in_layers[0])
+        conv = self.in_layers[2]
+        if self.up and self.upsample_mode:
+            # conv3(nearest_up2(h)) without the 4x map
+            h = apply_upsample2_conv3(h, conv.weight, conv.bias,
+                                      self.upsample_mode, dtype)
+        else:
+            h = _conv(_resample(h, self.up, self.down), conv, dtype)
         x = _resample(x, self.up, self.down)
-        h = _conv(h, self.in_layers[2], dtype)
         e = _linear(F.silu(emb), self.emb_layers[1], dtype).float()
         scale, shift = e[:, :, None, None].chunk(2, dim=1)
         gn = self.out_layers[0]
@@ -192,7 +207,6 @@ class GuidedUNet(nn.Module):
                  num_head_channels: int = 64, use_checkpoint: bool = False,
                  dtype=torch.float32, upsample_mode: str = ""):
         super().__init__()
-        refuse_upsample_mode(upsample_mode)
         self.in_channel = in_channel
         self.model_channels = mc = model_channels
         self.dtype = dtype
@@ -203,7 +217,8 @@ class GuidedUNet(nn.Module):
 
         def res(cin, cout, up=False, down=False):
             return GuidedResBlock(cin, cout, emb_ch, dropout=dropout, up=up,
-                                  down=down, use_checkpoint=use_checkpoint)
+                                  down=down, use_checkpoint=use_checkpoint,
+                                  upsample_mode=upsample_mode)
 
         def attn(ch):
             return GuidedAttention(ch, num_head_channels)
@@ -301,7 +316,8 @@ def guided_unet_from_config(unet_opt: dict, image_size: int = 256,
                             use_checkpoint: bool = False) -> GuidedUNet:
     """Build from a reference-schema ``model.unet`` config dict, in eval
     mode on ``device``. The width comes from ``model_channels`` (default
-    128); ``inner_channel`` is ignored (reference gdp unet.py:565,583)."""
+    128); ``inner_channel`` is ignored (reference gdp unet.py:565,583).
+    The Upsample form comes from ``FASTDIFFSR_TPU_UPSAMPLE``."""
     from ..device import resolve_device
     dev = resolve_device(device)
     net = GuidedUNet(
@@ -313,5 +329,6 @@ def guided_unet_from_config(unet_opt: dict, image_size: int = 256,
         channel_mults=tuple(unet_opt.get("channel_multiplier", (1, 2, 4, 8))),
         dropout=unet_opt.get("dropout", 0.0),
         use_checkpoint=use_checkpoint,
-        dtype=dtype)
+        dtype=dtype,
+        upsample_mode=default_upsample_mode())
     return init_guided_params(net, seed).to(dev).eval()

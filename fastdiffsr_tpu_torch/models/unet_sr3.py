@@ -23,8 +23,11 @@ kernel K1 through ``gn_swish_custom``, and its train-mode dropout draws
 from the ``generator`` passed to ``forward``. The attention is plain
 PyTorch: its two matmuls run in float32 on ``dtype``-rounded operands
 (as JAX's ``preferred_element_type=float32``) with a float32 softmax.
-Maps stay channels-last NCHW views of NHWC memory, as K1 needs. Only the
-literal nearest x2 + 3x3 conv Upsample is ported (``upsample_mode ''``).
+Maps stay channels-last NCHW views of NHWC memory, as K1 needs. The
+Upsample is the FastDiffSR UNet's in the form ``upsample_mode`` ('' the
+literal nearest x2 + 3x3 conv, 'tconv' or 'd2s2');
+``sr3_unet_from_config`` reads it from ``FASTDIFFSR_TPU_UPSAMPLE``
+(default tconv), as JAX's builder does.
 """
 
 from __future__ import annotations
@@ -37,16 +40,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .unet_fastdiffsr import (Block, Downsample, PositionalEncoding, Swish,
-                              Upsample, _conv, _linear, init_params,
+                              Upsample, _conv, _linear, check_upsample_mode,
+                              default_upsample_mode, init_params,
                               positional_encoding, swish)
-
-
-def refuse_upsample_mode(mode: str) -> None:
-    if mode:
-        raise NotImplementedError(
-            f"upsample_mode={mode!r}: only the literal nearest x2 + conv "
-            "Upsample ('') is ported (tconv/d2s2: ROADMAP.md queue 1 item "
-            "3e, the exact rewrites)")
 
 
 class SR3ResnetBlock(nn.Module):
@@ -163,7 +159,7 @@ class SR3UNet(nn.Module):
                  image_size: int = 128, dtype=torch.float32,
                  upsample_mode: str = ""):
         super().__init__()
-        refuse_upsample_mode(upsample_mode)
+        check_upsample_mode(upsample_mode)
         self.in_channel = in_channel
         self.inner_channel = inner_channel
         self.dtype = dtype
@@ -206,7 +202,7 @@ class SR3UNet(nn.Module):
                                             with_attn=use_attn, **rb))
                 pre = ch
             if ind >= 1:
-                ups.append(Upsample(pre))
+                ups.append(Upsample(pre, mode=upsample_mode))
                 now_res *= 2
         self.ups = nn.ModuleList(ups)
         self.final_conv = Block(pre, out_channel, groups=norm_groups)
@@ -254,7 +250,7 @@ def sr3_unet_from_config(unet_opt: dict, image_size: int = 128,
                          seed: int = 0) -> SR3UNet:
     """Build from a reference-schema ``model.unet`` config dict, with
     seeded initial parameters (Flax's defaults), in eval mode on
-    ``device``."""
+    ``device``; the Upsample form from ``FASTDIFFSR_TPU_UPSAMPLE``."""
     from ..device import resolve_device
     dev = resolve_device(device)
     net = SR3UNet(
@@ -268,5 +264,6 @@ def sr3_unet_from_config(unet_opt: dict, image_size: int = 128,
         res_blocks=unet_opt.get("res_blocks", 3),
         dropout=unet_opt.get("dropout", 0.0),
         image_size=image_size,
-        dtype=dtype)
+        dtype=dtype,
+        upsample_mode=default_upsample_mode())
     return init_params(net, seed).to(dev).eval()

@@ -149,9 +149,48 @@ def test_nafnet_tpu_layout_modes_raise(kw):
 
 
 def test_cond_unet_upsample_modes_raise():
+    """The tconv and d2s2 Upsample forms (once refused) against the JAX
+    ConditionalUNet in the same form, same random tree: within 1e-4 of
+    max(1, max|y|), as test_cond_unet_matches_jax; an unknown form
+    raises."""
+    x, c, t = _inputs(5)
+    rng = np.random.default_rng(6)
+    shapes = jax.eval_shape(JaxCondUNet(nf=8, depth=2).init,
+                            jax.random.PRNGKey(0), x, c, t)
+    params = jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape)
+                   / np.sqrt(np.prod(s.shape[:-1]) or 1)).astype(np.float32),
+        shapes["params"])
     for mode in ("tconv", "d2s2"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            ConditionalUNet(nf=8, depth=2, upsample_mode=mode)
+        want = np.asarray(jax.jit(JaxCondUNet(
+            nf=8, depth=2, upsample_mode=mode).apply)({"params": params},
+                                                      x, c, t))
+        net = ConditionalUNet(nf=8, depth=2, upsample_mode=mode).eval()
+        net.load_state_dict(flax_cond_unet_params_to_torch(params),
+                            strict=True)
+        got = _port(net, x, c, t)
+        assert got.shape == x.shape
+        assert (np.abs(got - want).max()
+                <= 1e-4 * max(1.0, np.abs(want).max()))
+    with pytest.raises(ValueError, match="upsample_mode='bad'"):
+        ConditionalUNet(nf=8, depth=2, upsample_mode="bad")
+
+
+def test_cond_unet_builder_reads_the_upsample_form(monkeypatch):
+    """``cond_unet_from_config`` (EDiffSR's builder) takes the Upsample
+    form from FASTDIFFSR_TPU_UPSAMPLE with JAX's default, tconv, as JAX's
+    ediffsr/train.py does; the constructor defaults to the literal form."""
+    from fastdiffsr_tpu_torch.models.cond_unet import cond_unet_from_config
+    monkeypatch.delenv("FASTDIFFSR_TPU_UPSAMPLE", raising=False)
+    setting = {"nf": 8, "depth": 2}
+    assert cond_unet_from_config(setting, device="cpu").upsample_mode == \
+        "tconv"
+    monkeypatch.setenv("FASTDIFFSR_TPU_UPSAMPLE", "d2s2")
+    assert cond_unet_from_config(setting, device="cpu").upsample_mode == \
+        "d2s2"
+    monkeypatch.setenv("FASTDIFFSR_TPU_UPSAMPLE", "dense")
+    assert cond_unet_from_config(setting, device="cpu").upsample_mode == ""
+    assert ConditionalUNet(nf=8, depth=2).upsample_mode == ""
 
 
 def test_convert_cli_nafnet(tmp_path):

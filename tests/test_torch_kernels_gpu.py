@@ -266,11 +266,21 @@ def test_channel_stats_refuses_what_its_counters_cannot_hold(cuda):
     assert kernels.LAUNCHES["channel_stats"] == before
 
 
+# the last seven are the maps the UNet's exact rewrites give K1 at 64->256,
+# batch 16: fold's level-0 maps at half the batch with twice the groups
+# (group sizes 2, 6 and 4), and the skip_concat='split' parts
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,groups", [((2, 32, 32, 64), 32),
                                           ((2, 16, 16, 192), 32),
                                           ((3, 6, 6, 24), 4),
-                                          ((2, 9, 7, 6), 3)])
+                                          ((2, 9, 7, 6), 3),
+                                          ((8, 256, 256, 128), 64),
+                                          ((8, 256, 256, 384), 64),
+                                          ((8, 256, 256, 256), 64),
+                                          ((16, 32, 32, 256), 16),
+                                          ((16, 64, 64, 256), 16),
+                                          ((16, 128, 128, 128), 16),
+                                          ((16, 256, 256, 64), 16)])
 def test_gn_swish_kernel_matches_plain(cuda, shape, groups, dt):
     """K1 against its plain version. f32: atol 1e-4 (statistics summed in
     another order shift mean and 1/std by a few float32 steps); bf16: one
@@ -480,6 +490,66 @@ def test_fused_unet_matches_plain_on_card(cuda):
     assert kernels.LAUNCHES["fused_gn_swish_conv3x3"] == (
         before["fused_gn_swish_conv3x3"] + 2 * 27)
     assert kernels.LAUNCHES["channel_stats"] == before["channel_stats"] + 2 * 2
+
+
+@pytest.mark.parametrize("kw", [{"upsample_mode": "tconv"},
+                                {"upsample_mode": "d2s2"}, {"fold": "down"},
+                                {"fold": "all"}, {"skip_concat": "split"},
+                                {"skip_concat": "swap"},
+                                {"conv_split": "ups_0,ups_5"}])
+def test_rewrite_modes_match_literal_on_card(cuda, kw):
+    """The plain UNet (inner 32, groups 16, mults (1, 2)) on the card in
+    each exact rewrite against the literal form, same weights, f32: atol
+    1e-4 (summation order); K1 takes every GroupNorm -> Swish, and the
+    split form adds one call per split up block."""
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import (FastDiffSRUNet,
+                                                             init_params)
+    small = dict(inner_channel=32, norm_groups=16, channel_mults=(1, 2),
+                 dropout=0.0)
+    lit = init_params(FastDiffSRUNet(**small), seed=1).to(cuda).eval()
+    net = FastDiffSRUNet(**small, **kw).to(cuda).eval()
+    net.load_state_dict(lit.state_dict())
+    x = torch.randn(2, 32, 32, 6, device=cuda)
+    lvl = torch.tensor([0.7, 0.3], device=cuda)
+    with torch.no_grad():
+        want = lit(x, lvl)
+        before = kernels.LAUNCHES["gn_swish"]
+        got = net(x, lvl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    # 12 ResnetBlocks x 2 + the final Block; split: ups_0, ups_1, ups_5
+    # and ups_6 take the parts apart (group size 8 or 4 divides x's width)
+    n_split = sum(m.split_input for m in net.ups if hasattr(m, "split_input"))
+    assert kernels.LAUNCHES["gn_swish"] - before == 25 + n_split
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_tconv_repeats_bit_equal_on_card(cuda, dtype):
+    """The tconv Upsample's transposed conv (``ops.tconv.upsample_tconv``,
+    cuDNN's deterministic algorithms) at the 128x128, C=128 map of a
+    64->256 eval, batch 4: a second call, and a second backward, give the
+    same bits, with cuDNN's timing on as the trainers set it."""
+    from fastdiffsr_tpu_torch.ops.tconv import upsample_tconv
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        g = torch.Generator(device=cuda).manual_seed(3)
+        x = torch.randn((4, 128, 128, 128), generator=g, device=cuda,
+                        dtype=dtype).permute(0, 3, 1, 2).requires_grad_()
+        w = (torch.randn((128, 128, 4, 4), generator=g, device=cuda,
+                         dtype=dtype) / 40).requires_grad_()
+        b = torch.randn(128, generator=g, device=cuda,
+                        dtype=dtype).requires_grad_()
+        dy = torch.randn((4, 128, 256, 256), generator=g, device=cuda,
+                         dtype=dtype)
+        runs = []
+        for _ in range(2):
+            y = upsample_tconv(x, w, b)
+            runs.append((y.detach(), *torch.autograd.grad(y, (x, w, b), dy)))
+        for a, c in zip(*runs):
+            assert torch.equal(a, c)
+    finally:
+        torch.backends.cudnn.benchmark = prev
 
 
 # Q1 (B, H, W, Ci, Co): a 128-row map of the UNet's first stage, the final

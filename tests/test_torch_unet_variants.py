@@ -184,22 +184,60 @@ def test_guided_init_has_the_zero_layers():
     assert net.input_blocks[1][0].in_layers[2].weight.abs().max() > 0
 
 
-def test_from_config_constructors():
+def test_from_config_constructors(monkeypatch):
     """``model_channels`` sets the guided width and ``inner_channel`` is
-    ignored; SR3 reads ``attn_res``; the tconv/d2s2 Upsample is refused."""
-    g = guided_unet_from_config(
-        {"model_channels": 32, "inner_channel": 8,
-         "channel_multiplier": [1, 2], "res_blocks": 1},
-        image_size=SIZE, device="cpu")
+    ignored; SR3 reads ``attn_res``; both builders read the Upsample form
+    from FASTDIFFSR_TPU_UPSAMPLE with JAX's default, tconv ('dense' is the
+    literal form), and the constructors default to the literal form."""
+    monkeypatch.delenv("FASTDIFFSR_TPU_UPSAMPLE", raising=False)
+    g_opt = {"model_channels": 32, "inner_channel": 8,
+             "channel_multiplier": [1, 2], "res_blocks": 1}
+    s_opt = {"inner_channel": 16, "norm_groups": 8,
+             "channel_multiplier": [1, 2], "attn_res": [8],
+             "res_blocks": 1}
+    g = guided_unet_from_config(g_opt, image_size=SIZE, device="cpu")
     assert g.input_blocks[0][0].out_channels == 32 and not g.training
-    s = sr3_unet_from_config({"inner_channel": 16, "norm_groups": 8,
-                              "channel_multiplier": [1, 2], "attn_res": [8],
-                              "res_blocks": 1}, image_size=SIZE,
-                             device="cpu")
+    s = sr3_unet_from_config(s_opt, image_size=SIZE, device="cpu")
     assert s.downs[1].attn is None and s.downs[3].attn is not None
+
+    def modes(net):
+        return {m.upsample_mode if isinstance(m, GuidedResBlock) else m.mode
+                for m in net.modules()
+                if isinstance(m, (GuidedResBlock, unet_fastdiffsr.Upsample))
+                and (not isinstance(m, GuidedResBlock) or m.up)}
+
+    assert modes(g) == modes(s) == {"tconv"}
+    monkeypatch.setenv("FASTDIFFSR_TPU_UPSAMPLE", "dense")
+    assert modes(guided_unet_from_config(g_opt, image_size=SIZE,
+                                         device="cpu")) == {""}
+    assert modes(sr3_unet_from_config(s_opt, image_size=SIZE,
+                                      device="cpu")) == {""}
+    assert modes(SR3UNet(**SR3_KW)) == modes(GuidedUNet(**GUIDED_KW)) == {""}
     for cls, kw in ((SR3UNet, SR3_KW), (GuidedUNet, GUIDED_KW)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3e"):
-            cls(**kw, upsample_mode="tconv")
+        with pytest.raises(ValueError, match="upsample_mode='dense'"):
+            cls(**kw, upsample_mode="dense")
+
+
+@pytest.mark.parametrize("arch", ["sr3", "guided"])
+@pytest.mark.parametrize("mode", ["tconv", "d2s2"])
+def test_unet_upsample_modes_match_flax(arch, mode):
+    """The Upsample forms on both sides (SR3's Upsample, the guided up
+    ResBlock's in_layers conv), same params: f32 atol 1e-4 of max(1,
+    max|y|), as test_unet_matches_flax."""
+    _, tree = _flax(arch)
+    flax_net = (FlaxSR3(**SR3_KW, upsample_mode=mode) if arch == "sr3"
+                else FlaxGuided(**GUIDED_KW, upsample_mode=mode))
+    net = _port(arch, tree, upsample_mode=mode).eval()
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, SIZE, SIZE, 6)).astype(np.float32)
+    lvl = LEVELS["discrete"]
+    want = np.asarray(flax_net.apply({"params": tree}, jnp.asarray(x),
+                                     jnp.asarray(lvl), deterministic=True))
+    with torch.no_grad():
+        got = net(torch.from_numpy(x), torch.from_numpy(lvl))
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * max(1.0, np.abs(want).max()))
 
 
 def _recording(calls):
