@@ -209,6 +209,28 @@ limit:
    builders' default tconv Upsample against the literal one; 3 train steps
    at batch 4 with tconv (the default) and with dense, from the same
    weights and step generators (steps/s, first losses equal).
+24. NAFNet's layout modes (``FASTDIFFSR_TPU_NAF_DW=shift``,
+   ``FASTDIFFSR_TPU_NAF_FOLD=enc|all``): the full-width NAFNet of phase
+   16 built in each mode from the literal net's weights, at batch 2 on
+   256x256: forward and train-step ms, max|dy| to the literal forward and
+   a second call bit-equal;
+25. the native PNG/JPEG decoder (``fastdiffsr_tpu_torch.native``, built
+   with g++ here; whether it built): seeded 256x256 PNG and JPEG folders
+   read through ``LRHRDataset`` with it and with
+   ``FASTDIFFSR_TPU_NO_NATIVE=1`` (PIL): seconds per image, PNG
+   bit-equal, JPEG's max|d|;
+26. ``train.steps_per_call`` as one CUDA-graph replay: on
+   sr_fastdiffsr_train_64_256.json (256x256, B=4) and
+   demo_ucm_native_8_64_s8hg.json (64x64, B=16), a replay of 4 captured
+   steps against 4 eager steps from the same state, the chain captured
+   first (max|d| of parameters, EMA and l_pix, bit-equal or not, on
+   cuDNN's deterministic algorithms), K1's launches per replay by kernel
+   name in a torch.profiler trace; ``cli.sr_mfe`` of both configs with
+   ``FASTDIFFSR_TPU_STEPS_PER_CALL=4``, its step-12 checkpoint against
+   the unchained run's (these two in a process of their own,
+   ``--chain-worker``, as a training run is); steps/s, peak GiB and the
+   device idle share (torch.profiler) of each arm alone, chained and
+   unchained.
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -225,7 +247,8 @@ evaluation at its reference shape (ancestral T=1000 at 256x256 through
 (``--dist-worker <spec>`` is phase 18's rank, which torchrun starts) and
 ``--serving-only`` only phases 19-20 (``--serving-worker`` is a process
 of phase 19), ``--demo-only`` only phase 21, ``--quant-only`` only
-phase 22 and ``--rewrites-only`` only phase 23.
+phase 22, ``--rewrites-only`` only phase 23 and ``--slice-only``
+only phases 24-26.
 
 The builders read the Upsample form from ``FASTDIFFSR_TPU_UPSAMPLE``
 with JAX's default, tconv: every plain forward that a phase builds
@@ -250,7 +273,7 @@ number of it measured in this run or, for ``bound_ms``, computed from
 this run's shapes; the last line is {"ok": true, "device":
 {...}}. Per-shape details go to build/chip_smoke.json. Any failed check
 exits non-zero. The ``[time]`` line says how long the run took, the
-kernel build included: about sixteen minutes on an H100.
+kernel build included: about seventeen to nineteen minutes on an H100.
 """
 
 from __future__ import annotations
@@ -320,6 +343,10 @@ B_SAMPLER = 2        # phase 10: batch of the fused-vs-plain sampler check
 # exceed the tolerance, or the check could not tell a bf16-sized fault.
 SAMPLER_EPS_GAP = 1e-5
 VARIANT_STEPS = 6    # phase 12: full-width train steps per variant
+# phase 12: cuDNN candidates timed per conv shape of the guided UNet
+# (PyTorch's default, 10, took ~140 s of the phase on the H100; cut to
+# make room for phases 24-26; PERF.md §4)
+GDP_BENCHMARK_LIMIT = 3
 # phase 12: the val sampler of each variant (ddpm: its own T=1000)
 VARIANT_VAL = {"ddpm": None,
                "tesr": {"sampler": "ddim", "ddim_steps": 50},
@@ -421,6 +448,38 @@ REWRITE_EVALS = 2
 REWRITE_MODES = ("literal", "tconv", "d2s2", "fold_down", "fold_all",
                  "split", "swap", "conv_split")
 REWRITE_TRAIN_STEPS = 3
+# phase 24, NAFNet's layout modes: (dw_mode, fold_mode) pairs, the
+# literal first; batch, timed forwards and train steps per mode; |dy| to
+# the literal forward <= tol * max(1, max|y|) (f32, summation order: the
+# CPU tests' 1e-4)
+NAF_MODES = (("", ""), ("shift", ""), ("", "enc"), ("", "all"))
+NAF_B = 2
+NAF_REPS = 5
+NAF_STEPS = 3
+NAF_TOL = 1e-4
+# phase 25, the native decoder: seeded 256x256 pairs per format; JPEG
+# native vs PIL max|d| in [-1, 1] units (two decoders of one file may
+# round an IDCT or an upsampled chroma sample apart by a few levels)
+DECODE_IMAGES = 48
+DECODE_JPEG_TOL = 0.1
+# phase 26, chained train steps: the configs, the chain, the device
+# cache's tiles, replay vs eager max|d| of parameters and EMA and the
+# relative max|d| of l_pix (JAX's stated 1e-6 for its chain: sound runs
+# read 0, runs whose capture took other conv plans 1.9e-6 to 4.3e-6 in
+# parameters and EMA, and l_pix 1.1e-6 to 7.2e-6 apart, 1.3e-6 relative
+# where that was read; PERF.md §6), the EMA's
+# start, timed steps per arm (a few seconds each) and profiled steps, the
+# CLI runs' steps, the chain worker's time limit in seconds
+CHAIN_CONFIGS = ("sr_fastdiffsr_train_64_256", "demo_ucm_native_8_64_s8hg")
+CHAIN_N = 4
+CHAIN_TILES = 64
+CHAIN_TOL = 1e-6
+CHAIN_EMA_START = 6
+CHAIN_TIMED = {"sr_fastdiffsr_train_64_256": 24,
+               "demo_ucm_native_8_64_s8hg": 48}
+CHAIN_PROFILED = 4
+CHAIN_CLI_STEPS = 12
+CHAIN_TIMEOUT = 400
 
 
 def card_line() -> str:
@@ -1567,10 +1626,21 @@ def phase_variants(card, seed, pack):
     bf16 on the plain forward with DPM-Solver++."""
     detail, ok = {}, True
     k1 = 0
+    import torch
+
     for variant in ("ddpm", "tesr", "gdp"):
         cfg = variant_cfg(variant)
-        detail[f"{variant}_step"], s_ok = phase_train_parity(
-            cfg, B_TRAIN, card, seed)
+        # the parity step meets the UNet's conv shapes first and times
+        # them for the CLI run after it; gdp's among GDP_BENCHMARK_LIMIT
+        # candidates each (PERF.md §4)
+        limit = torch.backends.cudnn.benchmark_limit
+        if variant == "gdp":
+            torch.backends.cudnn.benchmark_limit = GDP_BENCHMARK_LIMIT
+        try:
+            detail[f"{variant}_step"], s_ok = phase_train_parity(
+                cfg, B_TRAIN, card, seed)
+        finally:
+            torch.backends.cudnn.benchmark_limit = limit
         # gdp also validates inside its run: timed cuDNN algorithms took
         # 3x the heuristics' time for its batch-1 evals (PERF.md)
         detail[variant], k1_train, t_ok = phase_train(
@@ -4719,6 +4789,565 @@ def gdp_reference(card, seed):
     return 0 if ok else 1
 
 
+def phase_naf_modes(card, seed):
+    """Phase 24, NAFNet's layout modes: the paper's full-width NAFNet
+    (setting_mfe_Train_x4.yml, phase 16's) built through
+    ``ediffsr.train.naf_modes`` in each of NAF_MODES from the literal
+    net's weights (randomized by ``randomize_naf``), at B=NAF_B on 256x256
+    inputs: forward ms (CUDA events, NAF_REPS calls), max|dy| to the
+    literal forward (within NAF_TOL * max(1, max|y|)) and a second call
+    bit-equal, on cuDNN's deterministic algorithms; then NAF_STEPS timed
+    train steps (L1 to a seeded target, AdamW as the option file has it)
+    from the same weights, the first step's loss against the literal's.
+    No kernel of ours runs. Returns (detail, ok)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.ediffsr import train as etrain
+    from fastdiffsr_tpu_torch.ediffsr.options import load_yaml
+    from fastdiffsr_tpu_torch.models.nafnet import nafnet_from_config
+    from fastdiffsr_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    with open(os.path.join(ROOT, "fastdiffsr_tpu_torch", "ediffsr",
+                           "options_yml", "setting_mfe_Train_x4.yml")) as f:
+        opt = load_yaml(f.read())
+    setting = opt["network_G"]["setting"]
+    g = torch.Generator(device=dev).manual_seed(seed + 41)
+    x, c, target = (torch.rand((NAF_B, 256, 256, 3), generator=g,
+                               device=dev) * 2 - 1 for _ in range(3))
+    t = torch.tensor([17.0, 71.0], device=dev)[:NAF_B]
+    lit = randomize_naf(nafnet_from_config(setting, device=dev, seed=seed),
+                        seed + 5)
+    start = {k: v.clone() for k, v in lit.state_dict().items()}
+    detail, ok, want = {}, True, None
+    kernels.reset_launch_counts()
+    for dw, fold in NAF_MODES:
+        name = "+".join(m for m in (dw, fold and f"fold {fold}") if m) \
+            or "literal"
+        with environ({"FASTDIFFSR_TPU_NAF_DW": dw or None,
+                      "FASTDIFFSR_TPU_NAF_FOLD": fold or None}):
+            modes = etrain.naf_modes()
+        net = nafnet_from_config(setting, device=dev, seed=seed, **modes)
+        net.load_state_dict(start, strict=True)
+        net.eval()
+        torch.backends.cudnn.deterministic = True
+        try:
+            with torch.no_grad():
+                y = net(x, c, t)
+                again = net(x, c, t)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if want is None:
+            want = y
+        err = (y - want).abs().max().item()
+        tol = NAF_TOL * max(1.0, want.abs().max().item())
+        repeat = torch.equal(y, again)
+
+        def fwd():
+            with torch.no_grad():
+                net(x, c, t)
+        fwd_ms = time_ms(fwd, NAF_REPS)
+        net.train()
+        optim = torch.optim.AdamW(net.parameters(), lr=4e-5,
+                                  betas=(0.9, 0.99), eps=1e-8,
+                                  weight_decay=1e-4)
+        losses = []
+
+        def step():
+            loss = (net(x, c, t) - target).abs().mean()
+            optim.zero_grad(set_to_none=True)
+            loss.backward()
+            optim.step()
+            losses.append(loss.detach())
+        step_ms = time_ms(step, NAF_STEPS, warmup=1)
+        first = losses[0].item()
+        row = {"modes": modes, "fwd_ms": fwd_ms, "max_abs_err": err,
+               "tol": tol, "repeats_bit_equal": repeat,
+               "train_step_ms": step_ms, "first_loss": first}
+        detail[name] = row
+        base = detail["literal"]["first_loss"]
+        d_loss = abs(first - base) / abs(base)
+        row_ok = (err <= tol and repeat and math.isfinite(first)
+                  and d_loss <= STEP_TOL["loss"])
+        ok &= row_ok
+        print(f"[naf {name}] {card} | setting_mfe_Train_x4 NAFNet full "
+              f"width, B={NAF_B} 256x256 f32, modes {modes}: forward "
+              f"{fwd_ms:.3f} ms, train step {step_ms:.3f} ms "
+              f"({1e3 / step_ms:.3f} steps/s) | max|dy| to literal "
+              f"{err:.3g} (tol {tol:.3g}), second call bit-equal {repeat} "
+              f"| first loss {first:.6f} (rel to literal {d_loss:.3g}, tol "
+              f"{STEP_TOL['loss']}) {'ok' if row_ok else 'FAIL'}",
+              flush=True)
+        del net, optim
+    launches = dict(kernels.LAUNCHES)
+    ok &= not any(launches.values())
+    detail["launches"] = launches
+    del lit, x, c, target
+    torch.cuda.empty_cache()
+    return detail, ok
+
+
+def write_decode_dirs(root, seed):
+    """Two LRHR folder trees under ``root`` (``sr_64_256`` and
+    ``hr_256``), DECODE_IMAGES seeded smooth 256x256 tiles each, one in
+    PNG and one in JPEG (quality 95), written by PIL."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from PIL import Image
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    small = torch.rand((DECODE_IMAGES, 3, 24, 24), generator=g,
+                       device="cuda")
+    img = (F.interpolate(small, size=256, mode="bicubic",
+                         align_corners=False).clamp(0, 1) * 255).round()
+    img = img.to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+    roots = {}
+    for ext in ("png", "jpg"):
+        base = os.path.join(root, ext)
+        for sub, imgs in (("hr_256", img), ("sr_64_256",
+                                            np.ascontiguousarray(
+                                                img[:, ::-1]))):
+            d = os.path.join(base, sub)
+            os.makedirs(d, exist_ok=True)
+            for j, a in enumerate(imgs):
+                kw = {"quality": 95} if ext == "jpg" else {}
+                Image.fromarray(a).save(os.path.join(d, f"{j:04d}.{ext}"),
+                                        **kw)
+        roots[ext] = base
+    return roots
+
+
+def phase_decode(card, seed):
+    """Phase 25, the native PNG/JPEG decoder on the host
+    (``fastdiffsr_tpu_torch.native``, built with g++ on this machine):
+    whether it built (and why not), then a seeded folder of DECODE_IMAGES
+    256x256 PNG pairs and one of JPEG pairs read through ``LRHRDataset``
+    with the native decoder and with FASTDIFFSR_TPU_NO_NATIVE=1 (PIL):
+    seconds per image for each, PNG bit-equal, JPEG's max|d| (in [-1, 1]
+    units) reported. Returns (detail, ok)."""
+    import numpy as np
+
+    from fastdiffsr_tpu_torch import native
+    from fastdiffsr_tpu_torch.data import dataset
+
+    roots = write_decode_dirs(os.path.join(ROOT, "build", "smoke", "decode",
+                                           f"d_{seed}"), seed + 43)
+    t0 = time.time()
+    built = native.get_lib() is not None
+    build_s = time.time() - t0
+    print(f"[decode build] {card} | native decoder "
+          f"{'built and loaded' if built else 'NOT built'} in {build_s:.2f} "
+          f"s ({native.library_path()})"
+          + ("" if built else f": {native.FAILURE}"), flush=True)
+    detail, ok = {"built": built, "build_s": build_s,
+                  "failure": native.FAILURE}, True
+    for ext, root in roots.items():
+        out = {}
+        for dec, flag in (("native", None), ("pil", "1")):
+            with environ({"FASTDIFFSR_TPU_NO_NATIVE": flag}):
+                ds = dataset.LRHRDataset(root, "img", 64, 256, split="val")
+                t0 = time.time()
+                items = [ds[i] for i in range(len(ds))]
+                dt = time.time() - t0
+            out[dec] = (items, dt / (2 * len(ds)))
+        err = max(float(np.abs(a[k] - b[k]).max())
+                  for a, b in zip(out["native"][0], out["pil"][0])
+                  for k in ("HR", "SR"))
+        row = {"images": 2 * len(out["pil"][0]),
+               "s_per_image_native": out["native"][1],
+               "s_per_image_pil": out["pil"][1], "max_abs_err": err}
+        detail[ext] = row
+        row_ok = len(out["pil"][0]) == DECODE_IMAGES and (
+            err == 0.0 if ext == "png" else err <= DECODE_JPEG_TOL)
+        ok &= row_ok
+        first = "native" if built else "PIL (the native decoder did not build)"
+        print(f"[decode {ext}] {card} | LRHRDataset over {row['images']} "
+              f"256x256 {ext.upper()} files: {first} "
+              f"{row['s_per_image_native'] * 1e3:.3f} ms, NO_NATIVE=1 (PIL) "
+              f"{row['s_per_image_pil'] * 1e3:.3f} ms per image (host) | "
+              f"max|d| native vs PIL {err:.3g} "
+              f"({'want 0' if ext == 'png' else f'tol {DECODE_JPEG_TOL}'}) "
+              f"{'ok' if row_ok else 'FAIL'}", flush=True)
+    return detail, ok
+
+
+def chain_setup(cfg_name, seed, dev):
+    """(config, train engine, state, device uint8 data) of a train config
+    as ``cli.sr_mfe`` builds them, from ``seed``: the net and Adam (on
+    the device: capturable) of ``build_all``, CHAIN_TILES seeded tiles."""
+    import torch
+
+    from fastdiffsr_tpu_torch.cli.sr_mfe import build_all
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.train import create_train_state, make_optimizer
+    cfg = load_json_config(os.path.join(ROOT, "fastdiffsr_tpu_torch",
+                                        "configs", f"{cfg_name}.json"))
+    eng, _, net = build_all(cfg, dev, seed)
+    state = create_train_state(net, make_optimizer(
+        net.parameters(), cfg["train"]["optimizer"]))
+    r = int(cfg["datasets"]["train"]["r_resolution"])
+    g = torch.Generator(device=dev).manual_seed(seed + 47)
+    data = {k: torch.randint(0, 256, (CHAIN_TILES, r, r, 3), generator=g,
+                             device=dev, dtype=torch.uint8)
+            for k in ("HR", "SR")}
+    return cfg, eng, state, data
+
+
+def idle_share(fn, n_steps):
+    """(device busy ms per step, idle share) of ``fn`` under
+    torch.profiler (tools/torch_train_profile.py's method: the union of
+    the device's kernel intervals over the traced window), or (None,
+    None) when the profiler sees no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None, None
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    window = max(s[1] for s in spans) - min(s[0] for s in spans)
+    total, end = 0.0, None
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in kern):
+        if end is None or s > end:
+            total, end = total + e - s, e
+        elif e > end:
+            total, end = total + e - end, e
+    return total / 1e3 / n_steps, 1 - total / window
+
+
+def device_kernels(fn):
+    """Counter of the names of the device kernels (and copies) that one
+    call of ``fn`` runs, from a torch.profiler trace: a CUDA-graph replay's
+    kernels are traced one by one."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def chain_parity(cfg_name, card, seed):
+    """A chain of CHAIN_N steps replayed from a CUDA graph against eager
+    steps from the same state, on cuDNN's deterministic algorithms in the
+    script's timed regime, the chain first (the order in which a capture
+    once took other plans; PERF.md §6): a state is warmed up and captured
+    by its first call (CHAIN_N eager steps; the allocator's
+    out-of-memory errors in it counted) and replays once under
+    torch.profiler; then a state built alike takes 2 * CHAIN_N eager
+    steps and is compared with it (the EMA starts at step
+    CHAIN_EMA_START, inside the replay). Prints max|d| of parameters, EMA
+    and l_pix and whether they are bit-equal, the card's free memory, the
+    replay's device kernels and K1 launches (by kernel name), the host
+    counts of the replay and the Adam step count. Passes within CHAIN_TOL
+    (parameters, EMA; l_pix relative). Returns (detail, ok)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.ops import kernels
+    from fastdiffsr_tpu_torch.train import make_cached_train_step
+
+    dev = torch.device("cuda")
+    n = CHAIN_N
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, eng, state, data = chain_setup(cfg_name, seed, dev)
+        bsz = int(cfg["datasets"]["train"]["batch_size"])
+        free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+        step = make_cached_train_step(eng, bsz, ema_start=CHAIN_EMA_START,
+                                      n_sub=n)
+        ooms = torch.cuda.memory_stats().get("num_ooms", 0)
+        step(state, data, seed)
+        ooms = torch.cuda.memory_stats().get("num_ooms", 0) - ooms
+        kernels.reset_launch_counts()
+        res = {}
+        names = device_kernels(
+            lambda: res.update(l=step(state, data, seed)[1]["l_pix"]))
+        host = dict(kernels.LAUNCHES)
+        nodes = {"all": sum(names.values()),
+                 **{k: sum(v for name, v in names.items() if k in name)
+                    for k in ("gn_swish_apply_kernel",
+                              "channel_stats_kernel")}}
+        steps = {int(s["step"].item())
+                 for s in state.optimizer.state.values()}
+        at, lg = state.step, res["l"].reshape(-1)
+        del step
+        ref = chain_setup(cfg_name, seed, dev)[2]
+        eager = make_cached_train_step(eng, bsz, ema_start=CHAIN_EMA_START)
+        le = torch.stack([eager(ref, data, seed)[1]["l_pix"]
+                          for _ in range(2 * n)][n:])
+        torch.cuda.synchronize()
+        pe = dict(ref.net.named_parameters())
+        d_param = max((p - pe[k]).abs().max().item()
+                      for k, p in state.net.named_parameters())
+        d_ema = max((v - ref.ema_params[k]).abs().max().item()
+                    for k, v in state.ema_params.items())
+        d_loss = (lg - le).abs().max().item()
+        rel_loss = d_loss / le.abs().max().item()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    bit = d_param == 0.0 and d_ema == 0.0 and d_loss == 0.0
+    want_k1 = K1_PER_FORWARD["fastdiffsr"] * n
+    ok = (max(d_param, d_ema) <= CHAIN_TOL and rel_loss <= CHAIN_TOL
+          and at == 2 * n and steps == {2 * n}
+          and nodes["gn_swish_apply_kernel"] == want_k1
+          and nodes["channel_stats_kernel"] == want_k1
+          and not any(host.values()))
+    print(f"[chain parity {cfg_name}] {card} | B={bsz}: one replay of {n} "
+          f"captured steps vs {n} eager steps from the same state, the "
+          f"chain first (EMA from step {CHAIN_EMA_START}; cuDNN "
+          f"deterministic): max|d| params {d_param:.3g}, EMA {d_ema:.3g}, "
+          f"l_pix {d_loss:.3g} (rel {rel_loss:.3g}; tol {CHAIN_TOL}), "
+          f"bit-equal {bit} | {free_gib:.1f} GiB free before the chain, "
+          f"out-of-memory errors in its warm-up and capture {ooms} | Adam "
+          f"step {sorted(steps)} (want {2 * n}) | per replay "
+          f"(torch.profiler): {nodes['all']} device kernels, K1 "
+          f"{nodes['gn_swish_apply_kernel']} gn_swish + "
+          f"{nodes['channel_stats_kernel']} channel_stats launches (want "
+          f"{want_k1} each), host counts of the replay {host} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    del state, ref, data
+    torch.cuda.empty_cache()
+    return {"max_abs_param": d_param, "max_abs_ema": d_ema,
+            "max_abs_l_pix": d_loss, "bit_equal": bit, "capture_ooms": ooms,
+            "free_gib": free_gib, "kernels_per_replay": nodes}, ok
+
+
+def chain_rates(cfg_name, card, seed):
+    """Steps/s, peak GiB and the device idle share of the config's train
+    step unchained (CHAIN_TIMED eager steps) and chained by CHAIN_N (the
+    same steps as CHAIN_TIMED / CHAIN_N replays), in the trainer's cuDNN
+    regime, one arm after the other, each alone on the card: the arm's
+    state is built and warmed up (the chained one captured), the cache
+    the warm-up left (cuDNN's timing workspaces among it) is emptied and
+    the allocator's peaks reset, the arm is timed and then profiled
+    (CHAIN_PROFILED steps), and freed before the next arm. The peaks are
+    the timed steps', counted from before the state's build: allocated
+    (live tensors) and reserved (the allocator's segments: the card's
+    memory the arm holds, the graph's pool included). Returns (detail,
+    ok)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.train import make_cached_train_step
+
+    dev = torch.device("cuda")
+    detail = {}
+    for arm, n in (("unchained", 1), ("chained", CHAIN_N)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        base_res = torch.cuda.memory_reserved()
+        cfg, eng, state, data = chain_setup(cfg_name, seed, dev)
+        bsz = int(cfg["datasets"]["train"]["batch_size"])
+        step = make_cached_train_step(eng, bsz, n_sub=n)
+        for _ in range(max(2, CHAIN_N // n)):      # warm-up (and capture)
+            step(state, data, seed)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timed = CHAIN_TIMED[cfg_name]
+        t0 = time.time()
+        for _ in range(timed // n):
+            step(state, data, seed)
+        torch.cuda.synchronize()
+        rate = timed / (time.time() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        peak_res = (torch.cuda.max_memory_reserved() - base_res) / 2 ** 30
+        busy, idle = idle_share(
+            lambda: [step(state, data, seed)
+                     for _ in range(CHAIN_PROFILED // n)], CHAIN_PROFILED)
+        detail[arm] = {"steps_per_s": rate, "peak_gib": peak,
+                       "peak_reserved_gib": peak_res, "batch": bsz,
+                       "busy_ms_per_step": busy, "idle_share": idle}
+        del cfg, eng, state, data, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    u, c = detail["unchained"], detail["chained"]
+
+    def fmt(v, f):
+        return "not measured" if v is None else format(v, f)
+
+    def arm_text(d):
+        return (f"{d['steps_per_s']:.3f} steps/s, peak {d['peak_gib']:.2f} "
+                f"GiB allocated, {d['peak_reserved_gib']:.2f} reserved, "
+                f"idle share {fmt(d['idle_share'], '.3f')} (busy "
+                f"{fmt(d['busy_ms_per_step'], '.2f')} ms/step)")
+    print(f"[chain rate {cfg_name}] {card} | B={u['batch']}, "
+          f"{CHAIN_TIMED[cfg_name]} timed steps an arm: unchained "
+          f"{arm_text(u)} | "
+          f"chained by {CHAIN_N} (one replay per call) {arm_text(c)} | "
+          f"chained / unchained "
+          f"{c['steps_per_s'] / u['steps_per_s']:.3f}", flush=True)
+    ok = all(math.isfinite(d["steps_per_s"]) for d in (u, c))
+    return detail, ok
+
+
+def chain_cli(cfg_name, card, seed):
+    """``cli.sr_mfe -p train`` of a config (the device cache on) on a
+    seeded npy pack for CHAIN_CLI_STEPS steps, a checkpoint at the last,
+    unchained and with FASTDIFFSR_TPU_STEPS_PER_CALL=CHAIN_N, on cuDNN's
+    deterministic algorithms: the checkpoints' params and EMA and the
+    losses equal bit for bit; steady steps/s of both. Returns (detail,
+    ok)."""
+    import torch
+
+    from fastdiffsr_tpu_torch.cli import sr_mfe
+    from fastdiffsr_tpu_torch.config import load_json_config
+    from fastdiffsr_tpu_torch.data import write_pack
+
+    work = os.path.join(ROOT, "build", "smoke", "chain")
+    cfg = load_json_config(os.path.join(ROOT, "fastdiffsr_tpu_torch",
+                                        "configs", f"{cfg_name}.json"))
+    l_res = int(cfg["datasets"]["train"]["l_resolution"])
+    r_res = int(cfg["datasets"]["train"]["r_resolution"])
+    pack = os.path.join(work, f"pack_{l_res}_{r_res}_{seed}")
+    write_pack(pack, CHAIN_TILES, seed + 53, l_res, r_res)
+    runs = {}
+    for chain in ("1", str(CHAIN_N)):
+        c = json.loads(json.dumps(cfg))
+        c["name"] = f"chip_smoke_chain_{r_res}_{chain}"
+        c["path"]["resume_state"] = None
+        for ds in c["datasets"].values():
+            ds.update(dataroot=pack, datatype="npy")
+        c["datasets"]["train"]["device_cache"] = True
+        c["train"].update(n_iter=CHAIN_CLI_STEPS, val_freq=10 ** 9,
+                          save_checkpoint_freq=CHAIN_CLI_STEPS,
+                          print_freq=CHAIN_N)
+        path = os.path.join(work, f"{c['name']}.json")
+        with open(path, "w") as f:
+            json.dump(c, f)
+        torch.backends.cudnn.deterministic = True
+        try:
+            with environ({"FASTDIFFSR_TPU_STEPS_PER_CALL": chain}):
+                out = sr_mfe.main(["-p", "train", "-c", path, "--device",
+                                   "cuda", "--seed", str(seed)])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        runs[chain] = out
+    a, b = (torch.load(os.path.join(runs[k]["checkpoint"], "state.pt"),
+                       map_location="cpu", weights_only=True)
+            for k in ("1", str(CHAIN_N)))
+    same = all(torch.equal(v, b[key][k]) for key in ("params", "ema_params")
+               for k, v in a[key].items())
+    same_loss = runs["1"]["l_pix"] == runs[str(CHAIN_N)]["l_pix"]
+    u, ch = runs["1"], runs[str(CHAIN_N)]
+    ok = (same and same_loss and a["step"] == b["step"] == CHAIN_CLI_STEPS
+          and os.path.basename(ch["checkpoint"]).startswith(
+              f"I{CHAIN_CLI_STEPS}_"))
+    print(f"[chain cli {cfg_name}] {card} | cli.sr_mfe -p train "
+          f"(B={cfg['datasets']['train']['batch_size']}, {l_res}->{r_res}, "
+          f"device cache) {CHAIN_CLI_STEPS} steps, cuDNN deterministic: "
+          f"checkpoint {os.path.basename(ch['checkpoint'])} with "
+          f"FASTDIFFSR_TPU_STEPS_PER_CALL={CHAIN_N} equals the unchained one"
+          f" bit for bit {same}, losses {same_loss} | steady "
+          f"{u['steady_steps_per_s']:.3f} unchained, "
+          f"{ch['steady_steps_per_s']:.3f} chained steps/s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return {"bit_equal": same, "losses_equal": same_loss,
+            "steps_per_s_unchained": u["steady_steps_per_s"],
+            "steps_per_s_chained": ch["steady_steps_per_s"]}, ok
+
+
+def chain_worker(seed) -> int:
+    """Phase 26's own process (``--chain-worker``): the replay-vs-eager
+    parity of each of CHAIN_CONFIGS and their ``cli.sr_mfe`` runs chained
+    and unchained, in a process of their own as a training run is: the
+    smoke's process holds what 25 phases left in the card's memory and in
+    cuDNN's plan cache, where a capture ran out of memory for a plan's
+    workspace (PERF.md §6). Prints the phases' lines, then one line
+    ``CHAIN_RESULT {detail, nodes, ok}``."""
+    sys.path.insert(0, ROOT)
+    from fastdiffsr_tpu_torch.device import use_ieee_float32
+    from fastdiffsr_tpu_torch.ops import kernels
+
+    use_ieee_float32()
+    own_phases_regime()
+    kernels.load()
+    card = card_line()
+    detail, nodes, ok = {}, {}, True
+    for cfg_name in CHAIN_CONFIGS:
+        d, p_ok = chain_parity(cfg_name, card, seed)
+        detail[f"chain_{cfg_name}"] = d
+        nodes[f"{cfg_name} n={CHAIN_N}"] = d["kernels_per_replay"][
+            "gn_swish_apply_kernel"]
+        ok &= p_ok
+    for cfg_name in CHAIN_CONFIGS:
+        detail[f"chain_cli_{cfg_name}"], c_ok = chain_cli(cfg_name, card,
+                                                          seed)
+        ok &= c_ok
+    print("CHAIN_RESULT " + json.dumps(
+        {"detail": detail, "nodes": nodes, "ok": bool(ok)}), flush=True)
+    return 0 if ok else 1
+
+
+def phase_slice(card, seed):
+    """Phases 24-26 (module docstring): NAFNet's layout modes, the native
+    decoder, chained train steps (parity and the CLI in ``chain_worker``'s
+    process, the rates and profiles here, last). Returns (detail, K1
+    launches per replay by config and chain, ok)."""
+    import torch
+
+    t0 = time.time()
+    detail = {}
+    detail["naf"], ok = phase_naf_modes(card, seed)
+    laps = {"naf": time.time() - t0}
+    detail["decode"], d_ok = phase_decode(card, seed)
+    ok &= d_ok
+    laps["decode"] = time.time() - t0 - sum(laps.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--chain-worker", "--seed", str(seed)],
+            capture_output=True, text=True, timeout=CHAIN_TIMEOUT)
+        out, rc = proc.stdout, proc.returncode
+        err = proc.stderr
+    except subprocess.TimeoutExpired as e:      # run() killed the worker
+        out, rc = e.stdout or "", None
+        out = out if isinstance(out, str) else out.decode(errors="replace")
+        err = f"the chain worker outlived {CHAIN_TIMEOUT} s"
+    lines = out.splitlines()
+    for line in lines:
+        if line.startswith("[chain"):
+            print(line, flush=True)
+    result = [json.loads(line[len("CHAIN_RESULT "):]) for line in lines
+              if line.startswith("CHAIN_RESULT ")]
+    if not result or rc != 0:
+        print(f"[chain worker] {card} | exit {rc}: {err[-1500:]} FAIL",
+              flush=True)
+    res = result[0] if result else {"detail": {}, "nodes": {}, "ok": False}
+    detail.update(res["detail"])
+    nodes = res["nodes"]
+    ok &= bool(res["ok"]) and rc == 0
+    laps["parity, cli (worker)"] = time.time() - t0 - sum(laps.values())
+    for cfg_name in CHAIN_CONFIGS:
+        detail[f"chain_rates_{cfg_name}"], r_ok = chain_rates(cfg_name, card,
+                                                              seed)
+        ok &= r_ok
+    laps["rates"] = time.time() - t0 - sum(laps.values())
+    detail["seconds"] = time.time() - t0
+    print(f"[slice] {card} | phases 24-26 took {detail['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ") "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return detail, nodes, ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0,
@@ -4751,12 +5380,21 @@ def main(argv=None) -> int:
                     help="in place of phases 2-22: only phase 23 (the exact "
                          "rewrites: Upsample forms, fold, skip_concat, "
                          "conv_split)")
+    ap.add_argument("--slice-only", action="store_true",
+                    help="in place of phases 2-23: only phases 24-26 "
+                         "(NAFNet's layout modes, the native decoder, "
+                         "chained train steps)")
     ap.add_argument("--serving-worker", nargs=3,
                     metavar=("ROLE", "SPEC", "CASE"),
                     help="a worker process of phase 19")
+    ap.add_argument("--chain-worker", action="store_true",
+                    help="phase 26's process (replay vs eager, the CLI "
+                         "chained)")
     args = ap.parse_args(argv)
     if args.dist_worker:
         return dist_worker(args.dist_worker)
+    if args.chain_worker:
+        return chain_worker(args.seed)
     if args.serving_worker:
         return serving_worker(*args.serving_worker)
 
@@ -4840,6 +5478,11 @@ def main(argv=None) -> int:
         with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
             json.dump(detail, f, indent=1, default=str)
         return 0 if rw_ok else 1
+    if args.slice_only:
+        detail["slice"], _, sl_ok = phase_slice(card, args.seed)
+        with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        return 0 if sl_ok else 1
     laps, t_lap = {}, [time.time()]
 
     def lap(name):
@@ -5047,6 +5690,14 @@ def main(argv=None) -> int:
         card, args.seed)
     lap("23 rewrites")
     ok &= rw_ok
+
+    # 24. NAFNet's layout modes; 25. the native decoder; 26. chained
+    # train steps (its profiles last)
+    gc.collect()
+    torch.cuda.empty_cache()
+    detail["slice"], chain_nodes, sl_ok = phase_slice(card, args.seed)
+    lap("24-26 NAFNet modes, decoder, chained steps")
+    ok &= sl_ok
     demo = detail["demo"]
     k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]
     k1_all_rows = k1_rows + demo["k1"] + detail["rewrites"]["k1"] + [
@@ -5145,6 +5796,10 @@ def main(argv=None) -> int:
          "launches_per_call": max(r["launches_per_call"]
                                   for r in k1_all_rows),
          "floor_ms": detail["floor_ms"],
+         # K1's launches per CUDA-graph replay of a chained train step
+         # (gn_swish kernels in a profile of one replay), by config and
+         # chain
+         "chained_launches_per_replay": chain_nodes,
          # per training forward of the demo configs' 64x64 UNet, B=16
          **{f"{k}_64": v for k, v in demo["k1_total"].items()}},
         # K3 has two hand-written kernels: bf16 maps (serving) run on the

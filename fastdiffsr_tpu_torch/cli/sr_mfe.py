@@ -38,9 +38,16 @@ Weights & Biases where ``wandb`` imports and is a no-op otherwise.
 (``train.step_generator``) and the per-image sampling noise (pass k of
 the K-sample average from ``train.pass_seed``); a config's ``val_seed``,
 when set, seeds the validation noise in its place (JAX
-cli/sr_mfe.py:183). ``train.steps_per_call`` above 1 (JAX's chained
-steps per dispatch) raises: it waits for the CUDA-graph train step
-(ROADMAP.md queue 1 item 7e). ``-debug``
+cli/sr_mfe.py:183). ``train.steps_per_call`` (or
+``FASTDIFFSR_TPU_STEPS_PER_CALL``) n > 1 chains n steps of the
+device-cache loop into one call, on CUDA one CUDA-graph replay
+(``train.make_cached_train_step``), with the same draws and arithmetic
+as n calls; :func:`steps_per_call` clamps n as JAX does, so that every
+print, validation and checkpoint lands on a call edge. ``-dist`` with a
+chain above 1 on CUDA raises (ROADMAP.md queue 1 item 7e-dist). The
+device cache is uploaded ``FASTDIFFSR_TPU_UPLOAD_CHUNK`` tiles (1024 by
+default) at a time into a preallocated device tensor
+(:func:`upload_chunked`). ``-debug``
 shrinks the run as the reference does and writes a synthetic 6-image
 npy pack for any dataroot that does not exist. ``-gpu`` is accepted and
 logged.
@@ -64,6 +71,7 @@ train steps module says why).
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -95,6 +103,57 @@ def ensure_debug_data(opt, logger=None, seed: int = 0) -> None:
         ds["dataroot"] = cache[key]
         ds["datatype"] = "npy"
     barrier()
+
+
+def steps_per_call(train_opt: dict, n_iter: int, step: int,
+                   use_cache: bool, logger) -> int:
+    """The train steps chained per call (JAX cli/sr_mfe.py:488-540):
+    ``train.steps_per_call``, else ``FASTDIFFSR_TPU_STEPS_PER_CALL``, else
+    1; clamped to its gcd with ``print_freq``, ``val_freq``,
+    ``save_checkpoint_freq``, ``n_iter`` and the resume ``step`` (each
+    where not 0), with a warning, so that every boundary lands on a call
+    edge. Without the device cache it is 1, with a warning when the
+    environment variable asks for more."""
+    env = os.environ.get("FASTDIFFSR_TPU_STEPS_PER_CALL", "1")
+    if not use_cache:
+        if env != "1":
+            logger.warning(
+                "FASTDIFFSR_TPU_STEPS_PER_CALL is set but "
+                "datasets.train.device_cache is off — step chaining only "
+                "applies to the device-resident loop, so the env var is "
+                "ignored")
+        return 1
+    chain = requested = int(train_opt.get("steps_per_call") or env)
+    if chain < 1:
+        raise ValueError(f"steps per call {chain} (want >= 1)")
+    if chain > 1:
+        for f in (int(train_opt["print_freq"]), int(train_opt["val_freq"]),
+                  int(train_opt["save_checkpoint_freq"]), n_iter, step):
+            if f:
+                chain = math.gcd(chain, f)
+        if chain != requested:
+            logger.warning(
+                f"steps_per_call clamped {requested} -> {chain}: the chain "
+                "must divide print/val/checkpoint freqs, n_iter and the "
+                "resume step so every boundary lands on a call edge — pick "
+                "freqs divisible by the requested chain to keep full "
+                "chaining")
+        logger.info(f"device-cache loop: {chain} steps per call (one "
+                    "CUDA-graph replay on a GPU)")
+    return chain
+
+
+def upload_chunked(arr, device, chunk: int) -> torch.Tensor:
+    """``arr`` (a host or memory-mapped uint8 array) in a tensor on
+    ``device``, preallocated there and filled ``chunk`` rows at a time:
+    the host holds one chunk at a time, the device the array once."""
+    if chunk < 1:
+        raise ValueError(f"upload chunk {chunk} (want >= 1)")
+    out = torch.empty(arr.shape, dtype=torch.from_numpy(
+        np.empty(0, arr.dtype)).dtype, device=device)
+    for i in range(0, len(arr), chunk):
+        out[i:i + chunk].copy_(torch.from_numpy(np.array(arr[i:i + chunk])))
+    return out
 
 
 def build_all(opt, device, seed: int = 0):
@@ -307,13 +366,6 @@ def main(argv=None) -> dict:
     opt = parse(args.config, args.phase, debug=args.debug,
                 enable_wandb=args.enable_wandb,
                 log_wandb_ckpt=args.log_wandb_ckpt, log_eval=args.log_eval)
-    chain = (opt.get("train") or {}).get("steps_per_call")
-    if args.phase == "train" and chain is not None and int(chain) > 1:
-        raise NotImplementedError(
-            f"train.steps_per_call={chain}: chaining train steps per call "
-            "(JAX cli/sr_mfe.py:488-512) needs the CUDA-graph train step, "
-            "which is not ported yet (ROADMAP.md queue 1 item 7e); remove "
-            "the key or set it to 1")
     # the validation noise's seed (JAX keys it with val_seed, :183)
     val_seed = (args.seed if opt.get("val_seed") is None
                 else int(opt["val_seed"]))
@@ -378,10 +430,14 @@ def main(argv=None) -> dict:
     n_iter = int(train_opt["n_iter"])
     steps_per_epoch = max(len(train_set) // max(bsz, 1), 1)
     use_cache = bool(opt["datasets"]["train"].get("device_cache"))
+    chain = steps_per_call(train_opt, n_iter, current_step, use_cache,
+                           logger)
     if use_cache:
-        device_data = {k: torch.from_numpy(np.array(v)).to(device)
-                       for k, v in train_set.raw_uint8().items()}
-        cached_step = make_cached_train_step(eng_train, bsz, **ema)
+        chunk = int(os.environ.get("FASTDIFFSR_TPU_UPLOAD_CHUNK", "1024"))
+        device_data = {k: upload_chunked(v, device, chunk) for k, v in
+                       train_set.raw_uint8(materialize=False).items()}
+        cached_step = make_cached_train_step(eng_train, bsz, **ema,
+                                             n_sub=chain)
         logger.info(f"device-resident dataset: {len(train_set)} tiles "
                     "(batches drawn WITH replacement; '<epoch:N>' counts "
                     f"{steps_per_epoch}-step windows)")
@@ -404,12 +460,12 @@ def main(argv=None) -> dict:
         return path
 
     loss_window, losses = [], []
-    steps_done = 0
+    steps_done = first_steps = 0
     t_first = None
     paused = 0.0      # seconds spent in validation and saves after step 1
     while current_step < n_iter:
         if use_cache:
-            inner = [None] * steps_per_epoch
+            inner = [None] * max(steps_per_epoch // chain, 1)
         else:
             current_epoch += 1
             inner = train_loader
@@ -424,18 +480,20 @@ def main(argv=None) -> dict:
                 state, metrics = step_fn(
                     state, batch,
                     step_generator(args.seed, current_step, device))
-            current_step += 1
-            steps_done += 1
+            current_step += chain
+            steps_done += chain
             if use_cache:
                 current_epoch = current_step // steps_per_epoch
-            loss_window.append(metrics["l_pix"])
-            losses.append(metrics["l_pix"])
-            if steps_done == 1:
+            # a chained call's metrics hold one value per step
+            loss_window.append(metrics["l_pix"].reshape(-1))
+            losses.append(metrics["l_pix"].reshape(-1))
+            if not first_steps:
                 _sync(device)
                 t_first = time.time()
+                first_steps = steps_done
 
             if current_step % int(train_opt["print_freq"]) == 0:
-                window = torch.stack(loss_window).float().cpu().numpy()
+                window = torch.cat(loss_window).float().cpu().numpy()
                 loss_window.clear()
                 l_pix, l_avg = float(window[-1]), float(window.mean())
                 logger.info(f"<epoch:{current_epoch:3d}, iter:"
@@ -477,7 +535,7 @@ def main(argv=None) -> dict:
                     checkpoint()
                 barrier()           # the other ranks wait for rank 0's
                 _sync(device)
-                if steps_done > 1:
+                if steps_done > first_steps:
                     paused += time.time() - t_pause
                 else:
                     t_first = time.time()
@@ -486,15 +544,16 @@ def main(argv=None) -> dict:
     t_end = time.time()
     path = checkpoint()
     barrier()
-    rate = ((steps_done - 1) / (t_end - t_first - paused)
-            if steps_done > 1 else None)
+    rate = ((steps_done - first_steps) / (t_end - t_first - paused)
+            if steps_done > first_steps else None)
     if rate is not None:
         logger.info(f"train: {steps_done} steps, steady {rate:.4f} steps/s "
-                    "(the first step, validation and saves left out)")
+                    f"(the first call's {first_steps} steps, validation "
+                    "and saves left out)")
     logger.info("training complete")
     return {"steps": steps_done, "step": current_step, "checkpoint": path,
             "steady_steps_per_s": rate,
-            "l_pix": torch.stack(losses).tolist() if losses else [],
+            "l_pix": torch.cat(losses).tolist() if losses else [],
             "last_validation": val_res}
 
 

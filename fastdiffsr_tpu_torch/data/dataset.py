@@ -1,10 +1,10 @@
 """LRHR paired dataset + host input pipeline.
 
 Counterpart of ``fastdiffsr_tpu/data/dataset.py``, copied with two
-changes: PIL is imported only to decode image folders and LMDB tiles (the
-JAX package's native C++ decoder is not ported), and process sharding
-reads the rank and world of the ``torch.distributed`` group
-(``parallel.multihost``).
+changes: PNG and JPEG files decode with the port's own native decoder
+(``fastdiffsr_tpu_torch.native``) and PIL is imported only for the rest
+(other formats, LMDB tiles), and process sharding reads the rank and
+world of the ``torch.distributed`` group (``parallel.multihost``).
 
 Parity target: data/LRHR_dataset.py + data/util.py of the reference —
 - folder tree ``{dataroot}/sr_{l}_{r}``, ``{dataroot}/hr_{r}``, optional
@@ -59,8 +59,18 @@ def get_paths_from_images(path: str) -> list:
 
 
 def _load_image(path: str) -> np.ndarray:
-    """uint8 HWC RGB, decoded with PIL (imported here, so the npy-pack
-    path needs no image library)."""
+    """uint8 HWC RGB. PNG and JPEG files go through the port's native
+    decoder (``fastdiffsr_tpu_torch.native``, libpng / libjpeg:
+    bit-identical to PIL for PNG) unless ``FASTDIFFSR_TPU_NO_NATIVE=1``;
+    PIL (imported here, so the npy-pack path needs no image library)
+    decodes every other format, and any file where that decoder is
+    unavailable (its build failure is logged once) or fails."""
+    if os.environ.get("FASTDIFFSR_TPU_NO_NATIVE") != "1" and \
+            path.lower().endswith((".png", ".jpg", ".jpeg")):
+        from ..native import decode_rgb
+        arr = decode_rgb(path)
+        if arr is not None:
+            return arr
     from PIL import Image
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), dtype=np.uint8)

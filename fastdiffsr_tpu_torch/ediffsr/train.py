@@ -103,9 +103,10 @@ def build(opt, device, seed: int = 0):
 def naf_modes() -> dict:
     """The NAFNet formulations the JAX package reads from the
     environment: ``FASTDIFFSR_TPU_NAF_UP`` ('tconv' by default, or '' for
-    the literal 1x1 conv + PixelShuffle; the same function), and
-    ``FASTDIFFSR_TPU_NAF_DW`` / ``FASTDIFFSR_TPU_NAF_FOLD``, whose
-    non-default values raise in the port (not ported)."""
+    the literal 1x1 conv + PixelShuffle; the same function),
+    ``FASTDIFFSR_TPU_NAF_DW`` ('' or 'shift') and
+    ``FASTDIFFSR_TPU_NAF_FOLD`` ('', 'enc' or 'all'): the same function
+    in other layouts (``models.nafnet``)."""
     return {"up_mode": os.environ.get("FASTDIFFSR_TPU_NAF_UP", "tconv"),
             "dw_mode": os.environ.get("FASTDIFFSR_TPU_NAF_DW", ""),
             "fold_mode": os.environ.get("FASTDIFFSR_TPU_NAF_FOLD", "")}

@@ -28,8 +28,17 @@ compute type of the convs and linears, with float32 parameters (the
 Flax ``dtype`` semantics); the output is float32. ``up_mode`` picks the
 decoder's upsample: ``''`` the literal 1x1 conv + PixelShuffle,
 ``'tconv'`` (the JAX default) the same function as one stride-2
-transposed conv of the 1x1 weights. The JAX package's ``dw_mode='shift'``
-and ``fold_mode`` are TPU layout rewrites that are not ported.
+transposed conv of the 1x1 weights. ``dw_mode='shift'`` computes each
+NAFBlock's depthwise 3x3 conv as nine shifted multiply-adds over the
+zero-padded map (JAX's order: dy, then dx). ``fold_mode`` ('enc' or
+'all') folds image pairs into the channels (``unet_fastdiffsr.fold2``,
+JAX's image-major layout) for encoder stage 0, and under 'all' also for
+the last decoder stage, at even batch only: a folded NAFBlock runs
+block-diagonal 1x1 convs built from its own weights (the outputs that
+feed SimpleGate in gate-half-major order, ``_gate_major_idx``), its
+depthwise kernel tiled, and its LayerNorm per image half, so each image
+gets the unfolded block's function. Every mode keeps the same parameters.
+No NAFBlock draws dropout (the JAX package's rate is 0 in EDiffSR).
 """
 
 from __future__ import annotations
@@ -41,9 +50,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .unet_fastdiffsr import _conv, _linear, init_params
-
-UNPORTED = "not ported yet (ROADMAP.md queue 1 item 3, opt-in ops)"
+from .unet_fastdiffsr import (_blockdiag2, _conv, _linear, fold2,
+                              init_params, unfold2)
 
 
 def sinusoidal_pos_emb(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -90,6 +98,53 @@ class LayerNorm2d(nn.Module):
         return (x - mean) * torch.rsqrt(var + self.eps) * self.g
 
 
+def _gate_major_idx(co: int, device) -> torch.Tensor:
+    """Output order of a folded conv that feeds SimpleGate: the image
+    halves' gate halves as [A_x1, B_x1, A_x2, B_x2], so that a plain
+    chunk(2) gates each image against itself (JAX ``_gate_major_idx``).
+    Indexes the image-major channels (i*co + j) of a folded output."""
+    half = co // 2
+    a = torch.arange(half, device=device)
+    return torch.cat([a, co + a, half + a, co + half + a])
+
+
+def _folded_1x1(x, conv: nn.Conv2d, dtype, order=None) -> torch.Tensor:
+    """``conv`` (1x1) on a folded map: its weight block-diagonal, its bias
+    tiled, both output channels permuted by ``order``."""
+    w, b = _blockdiag2(conv.weight), conv.bias.repeat(2)
+    if order is not None:
+        w, b = w[order], b[order]
+    return F.conv2d(x.to(dtype), w.to(dtype), b.to(dtype))
+
+
+def _cln_folded(x: torch.Tensor, g: torch.Tensor, eps: float
+                ) -> torch.Tensor:
+    """LayerNorm2d on a folded (B/2, 2c, H, W) map: statistics per image
+    half, the scale tiled (JAX ``_cln_folded``)."""
+    b2, c2, h, w = x.shape
+    xr = x.reshape(b2, 2, c2 // 2, h, w)
+    mean = xr.mean(dim=2, keepdim=True)
+    var = ((xr - mean) ** 2).mean(dim=2, keepdim=True)
+    xr = (xr - mean) * torch.rsqrt(var + eps)
+    return xr.reshape(b2, c2, h, w) * g.repeat(1, 2, 1, 1)
+
+
+def _shift_dw(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
+    """The depthwise 3x3 conv as nine shifted multiply-adds over the
+    zero-padded map, in JAX's order (dy, then dx)."""
+    k = conv.weight.to(dtype)
+    x = x.to(dtype)
+    xp = F.pad(x, (1, 1, 1, 1))
+    hh, ww = x.shape[2], x.shape[3]
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            term = xp[:, :, dy:dy + hh, dx:dx + ww] * \
+                k[:, 0, dy, dx][None, :, None, None]
+            acc = term if acc is None else acc + term
+    return acc + conv.bias.to(dtype)[None, :, None, None]
+
+
 class NAFBlock(nn.Module):
     def __init__(self, c: int, time_emb_dim: int, dw_expand: int = 2,
                  ffn_expand: int = 2):
@@ -110,8 +165,13 @@ class NAFBlock(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, c, 1, 1))
         self.gamma = nn.Parameter(torch.zeros(1, c, 1, 1))
 
-    def forward(self, x, t_emb, dtype=torch.float32):
+    def forward(self, x, t_emb, dtype=torch.float32, dw_mode: str = "",
+                folded: bool = False):
+        """``folded``: ``x`` is a fold2-folded (B/2, 2c, H, W) map of the
+        batch whose (B, ...) time embedding is ``t_emb``."""
         te = _linear(simple_gate(t_emb), self.mlp[1], dtype)
+        if folded:
+            return self._folded(x, te, dtype)
         shift_att, scale_att, shift_ffn, scale_ffn = \
             te[:, :, None, None].chunk(4, dim=1)
 
@@ -119,9 +179,12 @@ class NAFBlock(nn.Module):
         x = self.norm1(x)
         x = x * (scale_att + 1) + shift_att
         x = _conv(x, self.conv1, dtype)
-        x = F.conv2d(x.to(dtype), self.conv2.weight.to(dtype),
-                     self.conv2.bias.to(dtype), padding=1,
-                     groups=self.conv2.groups)
+        if dw_mode == "shift":
+            x = _shift_dw(x, self.conv2, dtype)
+        else:
+            x = F.conv2d(x.to(dtype), self.conv2.weight.to(dtype),
+                         self.conv2.bias.to(dtype), padding=1,
+                         groups=self.conv2.groups)
         x = simple_gate(x)
         sca = _conv(x.mean(dim=(2, 3), keepdim=True), self.sca[1], dtype)
         x = _conv(x * sca, self.conv3, dtype)
@@ -132,6 +195,38 @@ class NAFBlock(nn.Module):
         x = simple_gate(_conv(x, self.conv4, dtype))
         x = _conv(x, self.conv5, dtype)
         return y + x * self.gamma
+
+    def _folded(self, x, te, dtype):
+        """JAX ``NAFBlock._folded_body``: the depthwise conv is always the
+        grouped conv here, as there."""
+        b2 = x.shape[0]
+        c = self.norm1.g.shape[1]
+        dw = self.conv1.out_channels
+        shift_att, scale_att, shift_ffn, scale_ffn = [
+            m.reshape(b2, 2 * c)[:, :, None, None] for m in te.chunk(4, 1)]
+        gate = _gate_major_idx(dw, x.device)
+
+        inp = x
+        x = _cln_folded(x, self.norm1.g, self.norm1.eps)
+        x = x * (scale_att + 1) + shift_att
+        x = _folded_1x1(x, self.conv1, dtype, gate)
+        # depthwise: the kernel tiled in the same gate-half-major order
+        k = self.conv2.weight.repeat(2, 1, 1, 1)[gate]
+        x = F.conv2d(x.to(dtype), k.to(dtype),
+                     self.conv2.bias.repeat(2)[gate].to(dtype), padding=1,
+                     groups=2 * dw)
+        x = simple_gate(x)                  # (B/2, dw, H, W) image-major
+        sca = _folded_1x1(x.mean(dim=(2, 3), keepdim=True), self.sca[1],
+                          dtype)
+        x = _folded_1x1(x * sca, self.conv3, dtype)
+        y = inp + x * self.beta.repeat(1, 2, 1, 1)
+
+        x = _cln_folded(y, self.norm2.g, self.norm2.eps)
+        x = x * (scale_ffn + 1) + shift_ffn
+        x = _folded_1x1(x, self.conv4, dtype,
+                        _gate_major_idx(self.conv4.out_channels, x.device))
+        x = _folded_1x1(simple_gate(x), self.conv5, dtype)
+        return y + x * self.gamma.repeat(1, 2, 1, 1)
 
 
 class CALayer(nn.Module):
@@ -173,17 +268,18 @@ class ConditionalNAFNet(nn.Module):
                  dtype=torch.float32, dw_mode: str = "", up_mode: str = "",
                  fold_mode: str = ""):
         super().__init__()
-        if dw_mode:
-            raise NotImplementedError(f"NAFNet dw_mode={dw_mode!r} is "
-                                      f"{UNPORTED}")
-        if fold_mode:
-            raise NotImplementedError(f"NAFNet fold_mode={fold_mode!r} is "
-                                      f"{UNPORTED}")
+        if dw_mode not in ("", "shift"):
+            raise ValueError(f"dw_mode={dw_mode!r} (want '' or 'shift')")
+        if fold_mode not in ("", "enc", "all"):
+            raise ValueError(f"fold_mode={fold_mode!r} (want '', 'enc' or "
+                             "'all')")
         if up_mode not in ("", "tconv"):
             raise ValueError(f"up_mode={up_mode!r} (want '' or 'tconv')")
         self.width = width
         self.dtype = dtype
         self.up_mode = up_mode
+        self.dw_mode = dw_mode
+        self.fold_mode = fold_mode
         self.upscale = upscale           # accepted, unused (reference too)
         time_dim = width * 4
         self.time_mlp = nn.Sequential(
@@ -223,6 +319,16 @@ class ConditionalNAFNet(nn.Module):
             return F.conv_transpose2d(x, wt, stride=2)
         return F.pixel_shuffle(F.conv2d(x, w), 2)
 
+    def _stage(self, x, t, blocks, fold: bool):
+        """A stage's NAFBlocks, on the folded map where ``fold`` (and the
+        stage has blocks)."""
+        fold = fold and len(blocks) > 0
+        if fold:
+            x = fold2(x)
+        for blk in blocks:
+            x = blk(x, t, self.dtype, self.dw_mode, fold)
+        return unfold2(x) if fold else x
+
     def forward(self, inp: torch.Tensor, cond: torch.Tensor,
                 time: torch.Tensor) -> torch.Tensor:
         """(B,H,W,C) noisy state and condition, (B,) or scalar times ->
@@ -244,18 +350,21 @@ class ConditionalNAFNet(nn.Module):
 
         x = _conv(x, self.intro, dt)
         x = x + self.enhance(x, dt)
+        # fold image pairs into the channels where JAX does: encoder
+        # stage 0, and under 'all' the last decoder stage; even batch only
+        fold = bool(self.fold_mode) and x.shape[0] % 2 == 0
         encs = []
-        for blocks, down in zip(self.encoders, self.downs):
-            for blk in blocks:
-                x = blk(x, t, dt)
+        for i, (blocks, down) in enumerate(zip(self.encoders, self.downs)):
+            x = self._stage(x, t, blocks, fold and i == 0)
             encs.append(x)
             x = _conv(x, down, dt)
         for blk in self.middle_blks:
-            x = blk(x, t, dt)
+            x = blk(x, t, dt, self.dw_mode)
+        last = len(self.decoders) - 1
         for i, (blocks, skip) in enumerate(zip(self.decoders, encs[::-1])):
             x = self._up(x, i) + skip
-            for blk in blocks:
-                x = blk(x, t, dt)
+            x = self._stage(x, t, blocks,
+                            fold and self.fold_mode == "all" and i == last)
         x = _conv(x, self.ending, dt)
         return x[:, :, :H, :W].permute(0, 2, 3, 1).float()
 

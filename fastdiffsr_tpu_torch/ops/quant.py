@@ -368,9 +368,12 @@ def quant_conv3(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """W8A8 3x3 SAME conv: h (B,H,W,Ci) NHWC float x weight (Co,Ci,3,3)
     -> (B,H,W,Co) in ``dtype``. ``static_scale``: the 'w8a8s' scale.
     ``cache``: a dict owned by the caller that keeps the packed weights
-    while ``weight`` is unchanged."""
+    while ``weight`` is unchanged. A call captured into a CUDA graph
+    packs them inside the graph (a chained train step updates the weight
+    between replays) and leaves the cache alone."""
     grad_w = torch.is_grad_enabled() and weight.requires_grad
-    key = (None if cache is None or kernels.traced() else
+    capturing = weight.is_cuda and torch.cuda.is_current_stream_capturing()
+    key = (None if cache is None or kernels.traced() or capturing else
            (weight.data_ptr(), weight._version, weight.device))
     if key is not None and cache.get("key") == key:
         packed, s_w = cache["packed"], cache["s_w"]

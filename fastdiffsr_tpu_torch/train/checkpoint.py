@@ -26,7 +26,7 @@ import torch
 
 from ..models.convert import (flax_converter, optax_state_to_torch,
                               strip_diffusion_prefix)
-from .state import TrainState
+from .state import TrainState, keep_capturable
 
 # optax states a JAX pickle names, as plain stand-ins (pickle rebuilds a
 # NamedTuple from its fields in order)
@@ -125,7 +125,9 @@ def load_state(prefix: str, state: TrainState, variant: str) -> TrainState:
                   "param_groups": state.optimizer.state_dict()[
                       "param_groups"]}
     state.net.load_state_dict(params)
+    flags = [g.get("capturable") for g in state.optimizer.param_groups]
     state.optimizer.load_state_dict(opt_sd)
+    keep_capturable(state.optimizer, flags)
     with torch.no_grad():
         for k in names:
             state.ema_params[k].copy_(ema[k])

@@ -14,7 +14,11 @@ the EMA and the checkpoints stay the bare module, so saved keys carry no
 optax's defaults: ``adam`` (b1 0.9, b2 0.999, eps 1e-8), ``adamw`` (the
 same, decoupled weight decay 1e-4, where torch's default is 1e-2) and
 ``lion`` (b1 0.9, b2 0.99, weight decay 1e-3), which torch lacks and
-:class:`Lion` writes out.
+:class:`Lion` writes out. Adam and AdamW on CUDA parameters are built
+``capturable`` (their step counts on the device), so that an unchained
+step and a step replayed from a CUDA graph (``train.steps``) take the
+same arithmetic; :func:`keep_capturable` holds that over a checkpoint's
+load.
 """
 
 from __future__ import annotations
@@ -87,11 +91,30 @@ def make_optimizer(params: Iterable,
     opt_cfg = opt_cfg or {}
     lr = float(opt_cfg.get("lr", 2e-4))
     kind = str(opt_cfg.get("type", "adam")).lower()
+    params = list(params)
+    cap = any(p.is_cuda for p in params)
     if kind == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                capturable=cap)
     if kind == "adamw":
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=1e-4)
+                                 weight_decay=1e-4, capturable=cap)
     if kind == "lion":
         return Lion(params, lr=lr)
     raise ValueError(f"unknown optimizer type: {kind}")
+
+
+def keep_capturable(optimizer: torch.optim.Optimizer, flags) -> None:
+    """Set each param group's ``capturable`` back to ``flags`` (their
+    values before ``load_state_dict``, which takes the saved groups'),
+    with the step counts of a capturable group on its parameters'
+    device, as a capturable optimizer keeps them."""
+    for group, flag in zip(optimizer.param_groups, flags):
+        if flag is None:
+            continue
+        group["capturable"] = flag
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if flag and torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(device=p.device,
+                                           dtype=torch.float32)

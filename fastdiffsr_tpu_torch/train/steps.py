@@ -8,8 +8,13 @@ that lives on the device, as the JAX package's device-resident mode does.
 A step's random draws come from one ``torch.Generator`` seeded from (run
 seed, step) by :func:`step_generator`, the counterpart of
 ``fold_in(rng, step)`` there, so a resumed run draws what an unbroken
-one would. The JAX package's ``n_sub`` (several steps in one dispatch)
-has no counterpart: a call per step costs nothing extra here.
+one would. The cached step takes JAX's ``n_sub``: one call runs that
+many steps, sub-step i drawing from ``step_generator(seed, state.step +
+i)``. On the CPU they are a loop of unchained steps; on CUDA the n steps
+are captured once into a ``torch.cuda.CUDAGraph`` and every later call
+is one replay of it (:class:`_CapturedSteps`), which leaves no host gap
+between the kernels (the FastDiffSR step at 256x256, batch 4, leaves the
+device idle for 0.143 of its time when it is launched from Python).
 
 Under a ``torch.distributed`` group of W ranks a rank's batch is its
 ``parallel.rank_rows`` block of the global batch. Every rank draws the
@@ -35,6 +40,7 @@ DPM-Solver++) around a denoiser.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -47,12 +53,15 @@ from ..parallel import all_reduce_mean, rank, rank_rows, world_size
 from .state import TrainState
 
 
+def _step_seed(seed: int, step: int) -> int:
+    return int(np.random.SeedSequence([int(seed), 1, int(step)])
+               .generate_state(1, np.uint64)[0])
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of train step ``step`` of a run seeded with ``seed``
     (a stream apart from the per-image sampling generators)."""
-    state = np.random.SeedSequence([int(seed), 1, int(step)]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
+    return torch.Generator(device=device).manual_seed(_step_seed(seed, step))
 
 
 def rank_generator(generator: torch.Generator, r: int) -> torch.Generator:
@@ -61,6 +70,51 @@ def rank_generator(generator: torch.Generator, r: int) -> torch.Generator:
         [int(generator.initial_seed()), 3, int(r)]).generate_state(
             1, np.uint64)[0]
     return torch.Generator(device=generator.device).manual_seed(int(state))
+
+
+def _ema_decay(ema_decay: float, ema_start: int, step: int) -> float:
+    """The EMA decay of train step ``step``: 0 before ``ema_start``."""
+    return ema_decay if step >= ema_start else 0.0
+
+
+def _step_body(engine: DiffusionEngine, state: TrainState, batch, generator,
+               decay: torch.Tensor, noise=None, gamma=None, t=None) -> dict:
+    """One optimizer step on ``state`` (without advancing ``state.step``):
+    the loss, the backward, the update and the EMA with ``decay``, a 0-d
+    float32 tensor on the net's device (so that a captured step reads the
+    decay of the step it replays)."""
+    net = state.net
+    net.train()
+    world = world_size()
+    if noise is None and gamma is None and t is None:
+        x = batch["HR"]
+        rows = rank_rows(x.shape[0] * world, rank(), world)
+        draws = engine.training_draws(
+            generator, (x.shape[0] * world, *x.shape[1:]), x.device)
+        noise, gamma, t = (draws[k][rows] if k in draws else None
+                           for k in ("noise", "gamma", "t"))
+    net_gen = (generator if world == 1 or generator is None
+               else rank_generator(generator, rank()))
+
+    def denoise(x_in, level):
+        return state.train_net(x_in, level, generator=net_gen)
+
+    with shared_activation_scale(dist.group.WORLD if world > 1 else None):
+        loss = engine.training_loss(denoise, batch, generator,
+                                    noise=noise, gamma=gamma, t=t)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    named = list(net.named_parameters())
+    grads = [p.grad for _, p in named if p.grad is not None]
+    grad_norm = torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(grads)))
+    state.optimizer.step()
+    with torch.no_grad():
+        ema = [state.ema_params[k] for k, _ in named]
+        params = [p.detach() for _, p in named]
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, torch._foreach_mul(params, 1.0 - decay))
+    return {"l_pix": all_reduce_mean(loss.detach()), "grad_norm": grad_norm}
 
 
 def make_train_step(engine: DiffusionEngine, ema_decay: float = 0.9999,
@@ -82,47 +136,170 @@ def make_train_step(engine: DiffusionEngine, ema_decay: float = 0.9999,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator], *, noise=None,
                    gamma=None, t=None):
-        net = state.net
-        net.train()
-        world = world_size()
-        if noise is None and gamma is None and t is None:
-            x = batch["HR"]
-            rows = rank_rows(x.shape[0] * world, rank(), world)
-            draws = engine.training_draws(
-                generator, (x.shape[0] * world, *x.shape[1:]), x.device)
-            noise, gamma, t = (draws[k][rows] if k in draws else None
-                               for k in ("noise", "gamma", "t"))
-        net_gen = (generator if world == 1 or generator is None
-                   else rank_generator(generator, rank()))
-        def denoise(x_in, level):
-            return state.train_net(x_in, level, generator=net_gen)
-
-        with shared_activation_scale(dist.group.WORLD if world > 1
-                                     else None):
-            loss = engine.training_loss(denoise, batch, generator,
-                                        noise=noise, gamma=gamma, t=t)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        named = list(net.named_parameters())
-        grads = [p.grad for _, p in named if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        state.optimizer.step()
-        decay = ema_decay if state.step >= ema_start else 0.0
-        with torch.no_grad():
-            ema = [state.ema_params[k] for k, _ in named]
-            torch._foreach_mul_(ema, decay)
-            torch._foreach_add_(ema, [p.detach() for _, p in named],
-                                alpha=1.0 - decay)
+        decay = torch.full((), _ema_decay(ema_decay, ema_start,
+                                          state.step),
+                           dtype=torch.float32, device=batch["HR"].device)
+        metrics = _step_body(engine, state, batch, generator, decay,
+                             noise, gamma, t)
         state.step += 1
-        return state, {"l_pix": all_reduce_mean(loss.detach()),
-                       "grad_norm": grad_norm}
+        return state, metrics
 
     return train_step
 
 
+def _assemble(data: Dict[str, torch.Tensor], batch_size: int,
+              gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The cached step's batch: ``batch_size`` indices drawn with
+    replacement, ``u8 / 127.5 - 1``, each pair flipped horizontally with
+    probability 1/2; this rank's rows."""
+    n = data["HR"].shape[0]
+    dev = data["HR"].device
+    idx = torch.randint(0, n, (batch_size,), generator=gen, device=dev)
+    flip = torch.rand((batch_size,), generator=gen, device=dev) < 0.5
+    rows = rank_rows(batch_size, rank(), world_size())
+    idx, sel = idx[rows], flip[rows, None, None, None]
+    out = {}
+    for k, v in data.items():
+        x = v[idx].float() / 127.5 - 1.0
+        out[k] = torch.where(sel, x.flip(2), x)
+    return out
+
+
+def _run_steps(engine, batch_size, state, data, gens, decays) -> dict:
+    """One cached step per (generator, decay), the metrics stacked."""
+    out = [_step_body(engine, state, _assemble(data, batch_size, g), g, d)
+           for g, d in zip(gens, decays)]
+    return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+
+
+def _eager_steps(engine, batch_size, state, data, seed, n, ema_decay,
+                 ema_start) -> dict:
+    """``n`` unchained cached steps, step i drawing from
+    ``step_generator(seed, state.step + i)``; advances ``state.step``."""
+    dev = data["HR"].device
+    steps = range(state.step, state.step + n)
+    out = _run_steps(
+        engine, batch_size, state, data,
+        [step_generator(seed, s, dev) for s in steps],
+        [torch.full((), _ema_decay(ema_decay, ema_start, s),
+                    dtype=torch.float32, device=dev) for s in steps])
+    state.step += n
+    return out
+
+
+class _CapturedSteps:
+    """``n`` cached train steps captured once into one CUDA graph.
+
+    The first call runs the n steps eagerly, on a side stream (PyTorch's
+    warm-up before a capture: cuDNN's algorithm choice, the optimizer's
+    state and the kernel library are made there, not inside the graph),
+    then empties the allocator's cache and captures them with cuDNN's
+    autotuning off: a convolution takes the plan its shape was given in
+    the warm-up, and a shape cuDNN has no plan for gets its heuristics'
+    pick, never the timing runs of every candidate (which the graph would
+    replay each call). The cache is emptied because the allocator cannot
+    release cached blocks during a capture: a plan's workspace that does
+    not fit in what is left raises out of memory inside PyTorch's
+    convolution, which then takes (and keeps) another plan without a
+    word, and the graph computes other bits than the eager steps. Where
+    that still happens (the card's memory is held elsewhere) the
+    allocator's count of such errors rises over the capture, and a
+    RuntimeWarning says so. Every
+    later call re-seeds the n generators registered with the graph (``register_generator_state``) to
+    ``step_generator(seed, state.step + i)``, writes the n EMA decays
+    into a device buffer and replays the graph: the same draws and the
+    same arithmetic as n unchained steps. The graph holds the addresses
+    of the state's tensors and of ``data``: a call with another state or
+    data raises. After a replay every parameter's version counter is
+    advanced, as an in-place update would, so that a cache keyed on it
+    (``ops.quant``'s packed weights) repacks.
+    """
+
+    def __init__(self, engine, batch_size, n, ema_decay, ema_start):
+        self.engine, self.batch_size, self.n = engine, batch_size, n
+        self.ema_decay, self.ema_start = ema_decay, ema_start
+        self.graph = None
+        self.key = None
+        self.out = None
+        self.gens = self.decays = None
+
+    def _key(self, state, data):
+        return (id(state.net), id(state.optimizer),
+                tuple((k, v.data_ptr()) for k, v in sorted(data.items())))
+
+    def _decays(self, state):
+        return [_ema_decay(self.ema_decay, self.ema_start, state.step + i)
+                for i in range(self.n)]
+
+    def __call__(self, state, data, seed):
+        if state.train_net is not state.net:
+            raise NotImplementedError(
+                "chained train steps (steps_per_call > 1) under a process "
+                "group: capturing DDP's backward in a CUDA graph is not "
+                "ported (ROADMAP.md queue 1 item 7e-dist); run without "
+                "-dist or with steps_per_call 1")
+        dev = data["HR"].device
+        if dev.type != "cuda":
+            raise ValueError("a captured train step needs CUDA tensors, got "
+                             f"{dev}")
+        if self.graph is None:
+            return self._warm_up_and_capture(state, data, seed)
+        if self._key(state, data) != self.key:
+            raise ValueError("a captured train step replays on the state "
+                             "and data it was captured with")
+        for i, g in enumerate(self.gens):
+            g.manual_seed(_step_seed(seed, state.step + i))
+        self.decays.copy_(torch.tensor(self._decays(state),
+                                       dtype=torch.float32))
+        self.graph.replay()
+        with torch.no_grad():
+            for p in state.net.parameters():
+                torch.autograd.graph.increment_version(p)
+        state.step += self.n
+        return state, {k: v.clone() for k, v in self.out.items()}
+
+    def _warm_up_and_capture(self, state, data, seed):
+        dev = data["HR"].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            metrics = _eager_steps(self.engine, self.batch_size, state, data,
+                                   seed, self.n, self.ema_decay,
+                                   self.ema_start)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.gens = [torch.Generator(device=dev) for _ in range(self.n)]
+        self.decays = torch.zeros(self.n, dtype=torch.float32, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        for g in self.gens:
+            graph.register_generator_state(g)
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        ooms = torch.cuda.memory_stats(dev).get("num_ooms", 0)
+        timed = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
+        try:
+            with torch.cuda.graph(graph):
+                self.out = _run_steps(self.engine, self.batch_size, state,
+                                      data, self.gens,
+                                      list(self.decays.unbind(0)))
+        finally:
+            torch.backends.cudnn.benchmark = timed
+        ooms = torch.cuda.memory_stats(dev).get("num_ooms", 0) - ooms
+        if ooms:
+            warnings.warn(
+                f"{ooms} out-of-memory error(s) inside the CUDA-graph capture "
+                f"of {self.n} train steps: cuDNN replaced a convolution plan "
+                "whose workspace did not fit, so the replays compute other "
+                "bits than unchained steps (free device memory, or set "
+                "steps_per_call 1)", RuntimeWarning, stacklevel=3)
+        self.graph, self.key = graph, self._key(state, data)
+        return state, metrics
+
+
 def make_cached_train_step(engine: DiffusionEngine, batch_size: int,
-                           ema_decay: float = 0.9999, ema_start: int = 5000):
+                           ema_decay: float = 0.9999, ema_start: int = 5000,
+                           n_sub: int = 1):
     """Device-resident-dataset train step: returns
     train_step(state, data, seed) -> (state, metrics).
 
@@ -132,26 +309,30 @@ def make_cached_train_step(engine: DiffusionEngine, batch_size: int,
     to [-1, 1] as ``u8 / 127.5 - 1`` and flips each pair horizontally
     with probability 1/2, from ``step_generator(seed, state.step)``,
     keeps this rank's rows, and then runs :func:`make_train_step`'s body
-    with the same generator."""
-    body = make_train_step(engine, ema_decay, ema_start)
+    with the same generator.
 
-    def assemble(data, gen):
-        n = data["HR"].shape[0]
-        dev = data["HR"].device
-        idx = torch.randint(0, n, (batch_size,), generator=gen, device=dev)
-        flip = torch.rand((batch_size,), generator=gen, device=dev) < 0.5
-        rows = rank_rows(batch_size, rank(), world_size())
-        idx, sel = idx[rows], flip[rows, None, None, None]
-        out = {}
-        for k, v in data.items():
-            x = v[idx].float() / 127.5 - 1.0
-            out[k] = torch.where(sel, x.flip(2), x)
-        return out
+    ``n_sub`` steps run per call (JAX's chained steps), sub-step i from
+    ``step_generator(seed, state.step + i)``, and the metrics come back
+    stacked with leading dimension ``n_sub`` when it is above 1. With
+    ``n_sub > 1`` and ``data`` on CUDA the n steps are one CUDA-graph
+    replay per call after the first call (:class:`_CapturedSteps`, which
+    raises where it cannot capture); otherwise they are a loop of
+    unchained steps."""
+    if n_sub < 1:
+        raise ValueError(f"n_sub={n_sub} (want >= 1)")
+    captured = _CapturedSteps(engine, batch_size, n_sub, ema_decay,
+                              ema_start)
 
     def train_step(state: TrainState, data: Dict[str, torch.Tensor],
                    seed: int):
-        gen = step_generator(seed, state.step, data["HR"].device)
-        return body(state, assemble(data, gen), gen)
+        if n_sub > 1 and data["HR"].device.type == "cuda":
+            state, metrics = captured(state, data, seed)
+        else:
+            metrics = _eager_steps(engine, batch_size, state, data, seed,
+                                   n_sub, ema_decay, ema_start)
+        if n_sub == 1:
+            metrics = {k: v[0] for k, v in metrics.items()}
+        return state, metrics
 
     return train_step
 

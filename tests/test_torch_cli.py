@@ -210,7 +210,7 @@ def test_port_imports_without_jax_or_jax_package():
         "ediffsr.train", "models.vgg_feat", "msi.data", "msi.degradation",
         "msi.swinir", "msi.hat", "msi.hsenet", "msi.transenet",
         "msi.ndsrgan", "msi.trainer", "msi.logger", "msi.plots",
-        "msi.main", "ops.quant")} <= names
+        "msi.main", "ops.quant", "native", "train.steps")} <= names
 
 
 IMPORT_OF_REFERENCE = re.compile(

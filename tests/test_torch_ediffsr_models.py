@@ -144,8 +144,51 @@ def test_cond_unet_matches_jax():
 @pytest.mark.parametrize("kw", [{"dw_mode": "shift"}, {"fold_mode": "enc"},
                                 {"fold_mode": "all"}])
 def test_nafnet_tpu_layout_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ConditionalNAFNet(**NAF, **kw)
+    """The layout modes (once refused): ``dw_mode='shift'`` and
+    ``fold_mode='enc'|'all'`` against the JAX NAFNet in the same mode on
+    the same random tree, within 1e-4 absolute as
+    test_nafnet_matches_jax, and against the port's literal form within
+    1e-5; the state dict is the literal one."""
+    x, c, t = _inputs(7)
+    lit = _randomized(ConditionalNAFNet(**NAF, up_mode="tconv"), 8)
+    net = ConditionalNAFNet(**NAF, up_mode="tconv", **kw).eval()
+    net.load_state_dict(lit.state_dict(), strict=True)
+    jnet = JaxNAFNet(**NAF, up_mode="tconv", **kw)
+    params = torch_nafnet_to_flax(_numpy_sd(lit))
+    want = np.asarray(jax.jit(jnet.apply)({"params": params}, x, c, t))
+    got = _port(net, x, c, t)
+    assert got.shape == x.shape
+    assert np.abs(got - want).max() <= 1e-4
+    np.testing.assert_allclose(got, _port(lit, x, c, t), atol=1e-5)
+    with pytest.raises(ValueError, match="bad"):
+        ConditionalNAFNet(**NAF, **{k: "bad" for k in kw})
+
+
+@pytest.mark.parametrize("fold_mode", ["enc", "all"])
+def test_nafnet_fold_skips_odd_batch(fold_mode, monkeypatch):
+    """At an odd batch neither net folds (JAX folds at even batch only):
+    the port calls no fold2 and equals its literal form bit for bit and
+    the JAX net in the same mode within 1e-4."""
+    from fastdiffsr_tpu_torch.models import nafnet
+
+    calls = []
+    monkeypatch.setattr(nafnet, "fold2",
+                        lambda x: calls.append(x.shape) or x)
+    rng = np.random.default_rng(9)
+    x, c = (rng.uniform(-1, 1, (3, 10, 13, 3)).astype(np.float32)
+            for _ in range(2))
+    t = np.array([3.0, 40.0, 77.0], np.float32)
+    lit = _randomized(ConditionalNAFNet(**NAF, up_mode="tconv"), 10)
+    net = ConditionalNAFNet(**NAF, up_mode="tconv",
+                            fold_mode=fold_mode).eval()
+    net.load_state_dict(lit.state_dict(), strict=True)
+    got = _port(net, x, c, t)
+    assert calls == []
+    np.testing.assert_array_equal(got, _port(lit, x, c, t))
+    jnet = JaxNAFNet(**NAF, up_mode="tconv", fold_mode=fold_mode)
+    want = np.asarray(jax.jit(jnet.apply)(
+        {"params": torch_nafnet_to_flax(_numpy_sd(lit))}, x, c, t))
+    assert np.abs(got - want).max() <= 1e-4
 
 
 def test_cond_unet_upsample_modes_raise():

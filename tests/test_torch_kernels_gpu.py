@@ -643,3 +643,72 @@ def test_quant_conv_refuses_what_the_kernel_does_not_take(cuda):
                           device=cuda)[8:].view(packed.shape)
     with pytest.raises(ValueError, match="aligned"):
         quant.quant_conv3_launch(h, shifted, s_w, s_a, b, torch.float32)
+
+
+def test_chained_train_step_replays_eager_steps(cuda):
+    """make_cached_train_step(n_sub=3) on the card: the first call runs 3
+    eager steps and captures them, the second replays the CUDA graph;
+    against 6 unchained steps from the same state, taken after them
+    (dropout on, the EMA starting inside the replay, cuDNN's
+    deterministic algorithms) the parameters, EMA and losses are
+    bit-equal; a replay runs 3 x the K1
+    launches of one eager step (its gn_swish and channel_stats kernels in
+    a torch.profiler trace of the replay), and counts none on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers)
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import (FastDiffSRUNet,
+                                                             init_params)
+    from fastdiffsr_tpu_torch.train import (create_train_state,
+                                            make_cached_train_step,
+                                            make_optimizer)
+
+    sched = {"schedule": "linear_cosine", "n_timestep": 20,
+             "linear_start": 1e-6, "linear_end": 1e-2}
+    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                          ScheduleBuffers.create(sched, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    data = {k: torch.randint(0, 256, (8, 32, 32, 3), generator=g,
+                             device=cuda, dtype=torch.uint8)
+            for k in ("HR", "SR")}
+
+    def state():
+        net = init_params(FastDiffSRUNet(inner_channel=32, norm_groups=8,
+                                         channel_mults=(1, 2),
+                                         res_blocks=1, dropout=0.2),
+                          5).to(cuda)
+        return create_train_state(net, make_optimizer(net.parameters(),
+                                                      {"lr": 1e-3}))
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, b = state(), state()
+        eager = make_cached_train_step(eng, 4, ema_decay=0.9, ema_start=4)
+        chained = make_cached_train_step(eng, 4, ema_decay=0.9, ema_start=4,
+                                         n_sub=3)
+        got = [chained(b, data, 9)[1]["l_pix"] for _ in range(1)]
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got.append(chained(b, data, 9)[1]["l_pix"])
+            torch.cuda.synchronize()
+        host = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        want = [eager(a, data, 9)[1]["l_pix"] for _ in range(6)]
+        k1_per_step = kernels.LAUNCHES["gn_swish"] // 6
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert not any(host.values())
+    assert a.step == b.step == 6
+    assert torch.equal(torch.cat(got), torch.stack(want))
+    pa = dict(a.net.named_parameters())
+    for k, p in b.net.named_parameters():
+        assert torch.equal(p, pa[k]), k
+        assert torch.equal(b.ema_params[k], a.ema_params[k]), k
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert k1_per_step > 0
+    for kernel in ("gn_swish_apply_kernel", "channel_stats_kernel"):
+        assert sum(kernel in n for n in names) == 3 * k1_per_step, kernel

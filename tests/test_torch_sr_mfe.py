@@ -256,9 +256,22 @@ def test_val_seed_keys_the_validation_noise(tmp_path):
 
 
 def test_steps_per_call_above_one_raises(tmp_path):
-    """train.steps_per_call chains steps per dispatch in JAX; the port
-    refuses it, naming ROADMAP item 7e, instead of ignoring it."""
-    cfg = _config(tmp_path, steps_per_call=4)
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        sr_mfe.main(["-p", "train", "-c", _write(tmp_path, cfg),
-                     "--device", "cpu"])
+    """train.steps_per_call (once refused) chains the device-cache loop:
+    2 steps per call over 4 steps give the unchained run's losses and
+    final checkpoint bit for bit."""
+    write_pack(str(tmp_path / "pack"), 6, 2, 8, 16)
+    out, states = {}, {}
+    for chain in (1, 2):
+        cfg = _config(tmp_path, "pack", steps_per_call=chain)
+        cfg["name"] = f"chain{chain}"
+        cfg["datasets"]["train"]["device_cache"] = True
+        out[chain] = sr_mfe.main(["-p", "train", "-c",
+                                  _write(tmp_path, cfg), "--device", "cpu"])
+        states[chain] = torch.load(f"{out[chain]['checkpoint']}/state.pt",
+                                   weights_only=True)
+    log = (_run_dir(tmp_path) / "logs" / "train.log").read_text()
+    assert "device-cache loop: 2 steps per call" in log
+    assert out[2]["step"] == 4 and out[2]["l_pix"] == out[1]["l_pix"]
+    for key in ("params", "ema_params"):
+        for k, v in states[1][key].items():
+            assert torch.equal(v, states[2][key][k]), (key, k)
