@@ -66,15 +66,18 @@ limit:
    phase 6 did not measure, with the same columns, then in f32 at batch
    1, the batch of their ``-p val`` runs, and K1's time per forward of
    each net at both batches;
-12. the ddpm, tesr and gdp variants: per variant a train step on K1
-   against one on gn_swish_reference (randomized weights), then
+12. the ddpm, tesr and gdp variants: per UNet (ddpm's and tesr's SR3,
+   gdp's guided) a train step on K1 against one on gn_swish_reference
+   (randomized weights), then per variant
    ``cli.sr_mfe -p train`` at full width (45 K1 launches per step for
    SR3, 29 for the guided UNet; steady steps/s; peak memory; a checkpoint
    that reloads bit-equal; gdp also validates VAL_PACK_IMAGES images at
    its last step inside the run, on cuDNN's heuristics) and ``-p val`` on
    one image (ddpm: ancestral T=1000; tesr, gdp: DDIM 50 steps; K1
    launches per eval, seconds per image); then ``cli.infer`` of the ddpm
-   config in bf16 on the plain forward with DPM-Solver++ at 20 steps;
+   config in bf16 on the plain forward with DPM-Solver++ at 20 steps
+   (beside phases 16-17, as the phases below marked so; see after the
+   list);
 13. K3 (f32 and bf16) and K2 against their plain versions at every
    signature of one 128->512 UNet eval at batch 1 (the maps of
    configs/sr_fastdiffsr_infer_x4.json: 512, 256, 128 and 64 pixels a
@@ -90,27 +93,29 @@ limit:
    with an Inception weight pack made from --seed: the extractor's time
    per image apart from the PNG decoding and from scipy's ``sqrtm``; the
    card's pool3 features against the CPU's on a few images, and the FID
-   against a float64 evaluation of the same statistics by eigenvalues;
+   against a float64 evaluation of the same statistics by eigenvalues
+   (beside phases 16-17);
 16. EDiffSR through ``fastdiffsr_tpu_torch.ediffsr.train`` on synthetic
    64->256 PNG folders from --seed: training of the paper's full-width
    ConditionalNAFNet (setting_mfe_Train_x4.yml: width 64, enc
    [14,1,1,1], T=100, batch 2, AdamW 4e-5) for EDIFFSR_STEPS steps with a
    T=100 validation of 2 images at the last one (steady steps/s, peak
    memory, seconds per validation image), ``--test`` of
-   setting_mfe_Test_x4.yml from its checkpoint with the reverse SDE on 4
+   setting_mfe_Test_x4.yml from its checkpoint with the reverse SDE on 2
    images and the Euler ODE and RK45 on one each (seconds per image,
    RK45's accepted and trial steps, peak memory), and the same port code
    on the card against the CPU (a full-width NAFNet forward, a 4-step
    reverse SDE, a ConditionalUNet forward). EDiffSR has no kernel of
-   ours: every launch counter must read 0 there;
+   ours: every launch counter must read 0 there. Phases 16 and 17 run in
+   a process of their own (``--side-worker``);
 17. the five MSI baselines (SwinIR, HAT, HSENet, TransENet, NDSRGAN)
    through ``fastdiffsr_tpu_torch.msi.main`` at full width (JAX
    ``msi/main.py``'s defaults, x4, crop 256, batch 1) on PNG folders from
    --seed: ``--mode train`` for MSI_STEPS steps with its epoch-end
    validation of 8 tiles (steady steps/s, peak memory, a checkpoint
-   that reloads bit-equal), ``--mode validateByClass`` from the
-   checkpoint (PSNR/SSIM/ERGAS and LPIPS on the card, seconds per
-   image), ``--mode test_single`` on an odd-size PNG; NDSRGAN's
+   that reloads bit-equal), ``--mode validateByClass`` from SwinIR's
+   checkpoint (MSI_BY_CLASS; PSNR/SSIM/ERGAS and LPIPS on the card,
+   seconds per image), ``--mode test_single`` on an odd-size PNG; NDSRGAN's
    GANTrainer at full width (batch 2, GAN_STEPS steps); each full-width
    model on the card against the CPU on an LR input that is not a
    window multiple. No kernel of ours here either: every launch counter
@@ -129,36 +134,57 @@ limit:
    same run without (SR PNGs equal); ``ediffsr.train -launcher pytorch``
    (phase 16's run on one loader thread), ``msi.main --launcher
    pytorch`` for SwinIR (phase 17's) and NDSRGAN's GANTrainer in DDP,
-   each against its plain run in this
-   process (losses, steady steps/s, peak GiB; no kernel of ours);
+   each against its plain run in this process (beside phases 16-17;
+   losses, steady steps/s, peak GiB; no kernel of ours); before
+   those jobs, first in the rank's process, the chained train step
+   under the group on the train config (its state DDP-wrapped): a replay
+   of CHAIN_N captured steps (the bare net, its gradients' all-reduce in
+   the graph) against unchained DDP steps, with K1's and NCCL's kernels
+   per replay in a torch.profiler trace, and ``sr_mfe -p train -dist``
+   with FASTDIFFSR_TPU_STEPS_PER_CALL=CHAIN_N against unchained (steady
+   steps/s and peak reserved GiB of both);
 19. the serving export (``fastdiffsr_tpu_torch.serving``) at full width,
    every artifact with a symbolic batch: 64->256 ancestral T=20 in f32
    (through the CLI's ``main`` with ``--selftest``) and bf16, DPM-Solver++
    10 steps in f32 (with a CPU copy, ``--platforms cuda,cpu``), 128->512
-   ancestral in bf16 (the fused forward: K3 and K2), and ddpm's DDIM 5
-   steps in f32 (the plain SR3 forward: K1), exported by one process each
-   (export seconds, artifact MB); a fresh process per artifact that
+   ancestral in bf16 (the fused forward: K3 and K2), ddpm's DDIM 5
+   steps in f32 (the plain SR3 forward: K1), ddpm's own ancestral T=1000
+   in f32, which the CLI exports in the scan form (one eval in the graph,
+   the noise drawn inside from one seed per image), and the 64->256 f32
+   sampler with the scan form forced (``export_sampler(loop=True)``),
+   exported by one process each (export seconds, artifact MB); a fresh
+   process per artifact that
    imports torch and the op registry (``fastdiffsr_tpu_torch.ops``) only
    loads it (seconds) as soon as its export is written, and runs it on the
    inputs of the in-process sampler, which a further fresh process runs
    with the same per-image generators (64->256 at batches 16 and 3, DPM
-   and DDIM at 2, 128->512 at 1 over 4 timed images): outputs within
-   EXPORT_TOL, launches per image of each kernel, and of K3 per route,
-   equal, 49 K3 and 4 K2 (fused) or 45 K1 (SR3) per eval, and img/s of
-   both; the DPM loader also runs the CPU copy on image 0 against the
+   and DDIM at 2, 128->512 at 1 over 2 timed images, ddpm T=1000 on one
+   image, its reference before the turns, the forced scan form at 2; a
+   scan-form case's in-process sampler fed the noise ``counter_noise``
+   makes of the seeds): outputs
+   within EXPORT_TOL, launches per image of each kernel, and of K3 per
+   route, equal, 49 K3 and 4 K2 (fused) or 45 K1 (SR3) per eval, and
+   img/s of both; the f32 loader also runs its unrolled artifact on the
+   forced scan form's noise, which must give the scan's images bit for
+   bit; the DPM loader also runs the CPU copy on image 0 against the
    card's (phase 10's tolerance) before its turn; the workers take the
-   card in turns. Then the host microseconds of one K3 call through its
-   registered operator against the direct wrapper;
+   card in turns. The workers start after phase 14, niced, and prepare
+   (export, load, run every in-process reference) beside phases 12 and
+   15-18; phase 18 starts once the references are done, and the turns
+   wait for phase 19. Then the host microseconds of
+   one K3 call through its registered operator against the direct
+   wrapper;
 20. ``model_api.DDPM`` on sr_fastdiffsr_train_64_256.json at full width,
    batch 4: three ``optimize_parameters`` steps (45 K1 launches each,
    l_pix equal bit for bit to ``make_train_step`` with the step's
    generator), ``set_new_noise_schedule`` to val and ``test(continous=
    True)`` (a (T,B,256,256,3) trajectory whose last frame is ``test()``,
    49 K3 and 4 K2 per eval), ``save_network`` / ``load_network``
-   bit-equal, ``count_parameters`` equal to ``param_count``;
+   bit-equal, ``count_parameters`` equal to ``param_count`` (beside
+   phases 16-17);
 21. the demo path: DEMO_SOURCES seeded 64x64 source PNGs tiled by
    ``fastdiffsr_tpu_torch.data.prepare`` (a pool of spawn workers) at
-   8->64 and 16->64 into folders, npy packs and LMDB, which must decode
+   8->64 into folders, npy packs and LMDB, which must decode
    to equal uint8 arrays (seconds to write and read each); one train step
    of configs/demo_ucm_native_8_64_s8hg.json (full width, batch 16,
    64x64, its SSIM term on) on K1 against gn_swish_reference, with the
@@ -213,24 +239,33 @@ limit:
    ``FASTDIFFSR_TPU_NAF_FOLD=enc|all``): the full-width NAFNet of phase
    16 built in each mode from the literal net's weights, at batch 2 on
    256x256: forward and train-step ms, max|dy| to the literal forward and
-   a second call bit-equal;
+   a second call bit-equal (beside phases 16-17, as phase 25);
 25. the native PNG/JPEG decoder (``fastdiffsr_tpu_torch.native``, built
    with g++ here; whether it built): seeded 256x256 PNG and JPEG folders
    read through ``LRHRDataset`` with it and with
    ``FASTDIFFSR_TPU_NO_NATIVE=1`` (PIL): seconds per image, PNG
    bit-equal, JPEG's max|d|;
 26. ``train.steps_per_call`` as one CUDA-graph replay: on
-   sr_fastdiffsr_train_64_256.json (256x256, B=4) and
-   demo_ucm_native_8_64_s8hg.json (64x64, B=16), a replay of 4 captured
-   steps against 4 eager steps from the same state, the chain captured
-   first (max|d| of parameters, EMA and l_pix, bit-equal or not, on
-   cuDNN's deterministic algorithms), K1's launches per replay by kernel
-   name in a torch.profiler trace; ``cli.sr_mfe`` of both configs with
-   ``FASTDIFFSR_TPU_STEPS_PER_CALL=4``, its step-12 checkpoint against
-   the unchained run's (these two in a process of their own,
-   ``--chain-worker``, as a training run is); steps/s, peak GiB and the
-   device idle share (torch.profiler) of each arm alone, chained and
-   unchained.
+   demo_ucm_native_8_64_s8hg.json (64x64, B=16; phase 18's rank runs
+   sr_fastdiffsr_train_64_256.json, 256x256, B=4, under ``-dist``), a
+   replay of 4 captured steps against 4 eager steps from the same state,
+   the chain captured first (max|d| of parameters, EMA and l_pix,
+   bit-equal or not, on cuDNN's deterministic algorithms), K1's launches
+   per replay by kernel name in a torch.profiler trace; ``cli.sr_mfe``
+   with ``FASTDIFFSR_TPU_STEPS_PER_CALL=4``, its step-12 checkpoint
+   against the unchained run's (these two in a process of their own,
+   ``--chain-worker``, as a training run is, started before phase 23 and
+   running beside it); steps/s, peak GiB and the device idle share
+   (torch.profiler) of each arm alone, chained and unchained.
+
+Phases run in the order 1-11, 13, 14; then 12, 15, phase 18's plain
+references, 20, 24 and 25 in the smoke's process while phases 16-17 run
+in theirs (``--side-worker``) and phase 19's workers prepare (its
+exporters and loaders on SERVING_CPUS of the host's cores); then 18,
+19, 21, 22, 23 (beside 26's ``--chain-worker``), 26. No time on the ``kernels`` line is taken beside another
+phase (phases 2-3, 6, 11, 13, 21 and 22 time the kernels, each alone on
+the card); the rates of the phases in that window (phase 18's plain
+runs, phase 19's in-process samplers) are read beside each other.
 
 Float32 is full float32 throughout (no TF32, as the CLIs set it). The
 CLIs set cuDNN's algorithm choice themselves (``device.
@@ -286,6 +321,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -343,17 +379,20 @@ B_SAMPLER = 2        # phase 10: batch of the fused-vs-plain sampler check
 # exceed the tolerance, or the check could not tell a bf16-sized fault.
 SAMPLER_EPS_GAP = 1e-5
 VARIANT_STEPS = 6    # phase 12: full-width train steps per variant
+VARIANT_PARITY = ("ddpm", "gdp")    # phase 12's train-step parity: one
+                                    # per UNet (tesr's is ddpm's SR3)
 # phase 12: cuDNN candidates timed per conv shape of the guided UNet
 # (PyTorch's default, 10, took ~140 s of the phase on the H100; cut to
 # make room for phases 24-26; PERF.md §4)
 GDP_BENCHMARK_LIMIT = 3
-# phase 12: the val sampler of each variant (ddpm: its own T=1000)
-VARIANT_VAL = {"ddpm": None,
+# phase 12: the val sampler of each variant (ddpm's own ancestral T=1000
+# runs in phase 19, in process and as the scan artifact, at full width)
+VARIANT_VAL = {"ddpm": {"sampler": "ddim", "ddim_steps": 50},
                "tesr": {"sampler": "ddim", "ddim_steps": 50},
                "gdp": {"sampler": "ddim", "ddim_steps": 50}}
 # phase 14: 128->512 images per type at batch 1; the first is set-up, and
-# the other 23 make a steady window of seconds in bf16
-INFER_512_IMAGES = 24
+# the other 5 make a steady window (cut to keep the run in its time limit)
+INFER_512_IMAGES = 6
 # phase 15: images per cli.fid directory: more than pool3's 2048 features,
 # so both covariances have full rank (fewer than the Potsdam test set's
 # 3272, SURVEY.md §3, to leave time for phase 23; PERF.md §4)
@@ -362,11 +401,12 @@ FID_CHECK_IMAGES = 8   # phase 15: pool3 on the card against the CPU's
 FID_FEAT_TOL = 1e-4    # |dpool3| <= tol * max|pool3| (the CPU tests')
 FID_RTOL = 1e-3        # FID against the eigenvalue evaluation (the tests')
 LPIPS_REPS = 10        # phase 9: timed LPIPS calls
-# phase 16, EDiffSR: full-width training steps (batch 2, T=100), the PNGs
-# written per split, the in-run validation's images
-EDIFFSR_STEPS = 16
+# phase 16, EDiffSR: full-width training steps (batch 2, T=100; 16
+# before phases 18-19 grew), the PNGs written per split, the in-run
+# validation's images
+EDIFFSR_STEPS = 8
 EDIFFSR_TRAIN_IMAGES = 16
-EDIFFSR_VAL_IMAGES = 4
+EDIFFSR_VAL_IMAGES = 2
 EDIFFSR_IN_RUN_VAL = 2
 # the same port code on the card and on the CPU: max|d| <= tol * max|y|
 # (IEEE float32 on both; only the order of the sums differs)
@@ -376,7 +416,9 @@ EDIFFSR_CPU_TOL = 1e-4
 # the odd-size test_single input (h, w; TransENet takes multiples of its
 # 8x8 patches), GAN steps and batch, and the card-vs-CPU LR inputs
 MSI_MODELS = ("SwinIR", "HAT", "HSENet", "TransENet", "NDSRGAN")
-MSI_STEPS = 12
+MSI_STEPS = 4        # cut to keep the run in its time limit
+MSI_BY_CLASS = ("SwinIR",)  # --mode validateByClass (its code is the
+                            # models'; each model's eval runs in train)
 MSI_TRAIN_TILES = 16
 MSI_CLASSES, MSI_PER_CLASS = 2, 4
 MSI_SINGLE = {"TransENet": (184, 248)}
@@ -413,14 +455,34 @@ SERVING_CASES = (
      (16, 16, 3)),
     ("dpm_f32", "sr_fastdiffsr_test_64_256", "f32", "dpm", 10, (2, 2)),
     ("bf16_512", "sr_fastdiffsr_infer_x4", "bf16", "ancestral", None,
-     (1, 1, 1, 1, 1)),
+     (1, 1, 1)),
     # the plain forward traces to ~2.5x the fused one's nodes per eval:
     # 5 evals check K1 through the artifact within the fused cases' time
-    ("ddpm_ddim", "sr_ddpm_test_64_256", "f32", "ddim", 5, (2, 2)),
+    ("ddpm_ddim", "sr_ddpm_test_64_256", "f32", "ddim", 5, (2,)),
+    # ddpm's own T=1000 ancestral sampler: the CLI exports it in the scan
+    # form (one UNet eval in the graph, noise from seeds); one image
+    ("ddpm_t1000", "sr_ddpm_test_64_256", "f32", "ancestral", None, (1,)),
+    # the scan form forced at T=20 (build_sample_export(loop=True)), also
+    # run through the f32 case's unrolled artifact on the noise it drew
+    ("fastdiffsr_loop", "sr_fastdiffsr_test_64_256", "f32", "ancestral",
+     None, (2, 2)),
 )
+# phase 19's cases in the scan form, those the CLI would not put in it,
+# and the case whose unrolled artifact each forced one is held against;
+# the cases whose in-process reference runs before the card's turns, while
+# the exporters trace beside phases 12-17 (all: ~40 s off the phase's
+# serial turns, ddpm's T=1000 ~24 of them; their in-process rates are read
+# beside those phases)
+SERVING_SCAN = ("ddpm_t1000", "fastdiffsr_loop")
+SERVING_FORCED = {"fastdiffsr_loop": "f32"}
+SERVING_EARLY_REF = tuple(c[0] for c in SERVING_CASES)
 EXPORT_TOL = 1e-5
 HOST_CALLS = 200
 SERVING_TIMEOUT = 600
+SERVING_NICE = 19   # phase 19's workers prepare beside phases 12-18,
+SERVING_CPUS = 3    # its exporters and loaders on this many cores
+GO_TIMEOUT = 1500   # a worker's wait for phase 19's go
+SIDE_TIMEOUT = 900  # phases 16-17's process, from its start
 DDPM_STEPS = 3      # phase 20: optimize_parameters calls
 # phase 21, the demo path: seeded 64x64 source images prepared at both
 # demo sizes in the three formats (by a pool of DEMO_WORKERS processes),
@@ -428,7 +490,7 @@ DDPM_STEPS = 3      # phase 20: optimize_parameters calls
 # tiles
 DEMO_SOURCES = 96
 DEMO_SIDE = 64
-DEMO_SIZES = ((8, 64), (16, 64))
+DEMO_SIZES = ((8, 64),)     # the size the demo configs train on
 DEMO_FORMATS = {"folder": "img", "pack": "npy", "lmdb": "lmdb"}
 DEMO_WORKERS = 4
 DEMO_STEPS = 12
@@ -470,13 +532,16 @@ DECODE_JPEG_TOL = 0.1
 # where that was read; PERF.md §6), the EMA's
 # start, timed steps per arm (a few seconds each) and profiled steps, the
 # CLI runs' steps, the chain worker's time limit in seconds
-CHAIN_CONFIGS = ("sr_fastdiffsr_train_64_256", "demo_ucm_native_8_64_s8hg")
+# phase 26 runs the demo config; phase 18's rank runs the train config
+# (256x256) under -dist: the same capture of the bare net, in a fresh
+# process, with its CLI pair
+CHAIN_CONFIGS = ("demo_ucm_native_8_64_s8hg",)
+DIST_CHAIN_CONFIG = "sr_fastdiffsr_train_64_256"
 CHAIN_N = 4
 CHAIN_TILES = 64
 CHAIN_TOL = 1e-6
 CHAIN_EMA_START = 6
-CHAIN_TIMED = {"sr_fastdiffsr_train_64_256": 24,
-               "demo_ucm_native_8_64_s8hg": 48}
+CHAIN_TIMED = {"demo_ucm_native_8_64_s8hg": 32}
 CHAIN_PROFILED = 4
 CHAIN_CLI_STEPS = 12
 CHAIN_TIMEOUT = 400
@@ -1633,12 +1698,15 @@ def phase_variants(card, seed, pack):
         # the parity step meets the UNet's conv shapes first and times
         # them for the CLI run after it; gdp's among GDP_BENCHMARK_LIMIT
         # candidates each (PERF.md §4)
+        # (tesr's UNet is ddpm's SR3: its parity step is ddpm's)
         limit = torch.backends.cudnn.benchmark_limit
         if variant == "gdp":
             torch.backends.cudnn.benchmark_limit = GDP_BENCHMARK_LIMIT
         try:
-            detail[f"{variant}_step"], s_ok = phase_train_parity(
-                cfg, B_TRAIN, card, seed)
+            s_ok = True
+            if variant in VARIANT_PARITY:
+                detail[f"{variant}_step"], s_ok = phase_train_parity(
+                    cfg, B_TRAIN, card, seed)
         finally:
             torch.backends.cudnn.benchmark_limit = limit
         # gdp also validates inside its run: timed cuDNN algorithms took
@@ -2271,6 +2339,23 @@ def phase_msi(card, seed):
         torch.cuda.synchronize()
         return out, time.time() - t, torch.cuda.max_memory_allocated() / 2**30
 
+    def single(name, ckpt, row):
+        """``--mode test_single`` on an odd-size PNG into ``row``."""
+        nonlocal ok
+        h, w = MSI_SINGLE.get(name, MSI_SINGLE_DEFAULT)
+        out_png = os.path.join(work, f"{name}_single.png")
+        _, wall, peak = run(name, "--mode", "test_single", "--resume", ckpt,
+                            "--input", dirs[(h, w)], "--output", out_png)
+        sr = load_img(out_png)
+        s_ok = sr.shape == (4 * h, 4 * w, 3)
+        ok &= s_ok
+        print(f"[msi test_single {name}] {card} | {w}x{h} PNG -> "
+              f"{sr.shape[1]}x{sr.shape[0]}, batch 1: wall {wall:.2f} s "
+              f"(set-up included) | peak {peak:.2f} GiB "
+              f"{'ok' if s_ok else 'FAIL'}", flush=True)
+        row["test_single"] = {"in_hw": [h, w], "out_shape": list(sr.shape),
+                              "wall_s": wall, "peak_gib": peak}
+
     for name in MSI_MODELS:
         row = {}
         summ, wall, peak = run(name, "--mode", "train", "--data_dir",
@@ -2303,6 +2388,10 @@ def phase_msi(card, seed):
                         "loss": losses, "wall_s": wall, "peak_gib": peak,
                         "validation": val, "bit_equal": equal}
 
+        detail[name] = row
+        if name not in MSI_BY_CLASS:
+            single(name, summ["checkpoint"], row)
+            continue
         rep, wall, peak = run(name, "--mode", "validateByClass", "--resume",
                               summ["checkpoint"])
         overall = rep["__overall__"]
@@ -2322,22 +2411,7 @@ def phase_msi(card, seed):
         row["validate_by_class"] = {"report": rep, "wall_s": wall,
                                     "s_per_image": wall / n_test,
                                     "peak_gib": peak}
-
-        h, w = MSI_SINGLE.get(name, MSI_SINGLE_DEFAULT)
-        out_png = os.path.join(work, f"{name}_single.png")
-        _, wall, peak = run(name, "--mode", "test_single", "--resume",
-                            summ["checkpoint"], "--input", dirs[(h, w)],
-                            "--output", out_png)
-        sr = load_img(out_png)
-        s_ok = sr.shape == (4 * h, 4 * w, 3)
-        ok &= s_ok
-        print(f"[msi test_single {name}] {card} | {w}x{h} PNG -> "
-              f"{sr.shape[1]}x{sr.shape[0]}, batch 1: wall {wall:.2f} s "
-              f"(set-up included) | peak {peak:.2f} GiB "
-              f"{'ok' if s_ok else 'FAIL'}", flush=True)
-        row["test_single"] = {"in_hw": [h, w], "out_shape": list(sr.shape),
-                              "wall_s": wall, "peak_gib": peak}
-        detail[name] = row
+        single(name, summ["checkpoint"], row)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2372,6 +2446,88 @@ def phase_msi(card, seed):
           f"(none on this path) {'ok' if l_ok else 'FAIL'}", flush=True)
     detail["launches"] = launches
     return detail, ok
+
+
+def side_worker(seed) -> int:
+    """Phases 16-17 (EDiffSR, MSI) in a process of their own
+    (``--side-worker``), which the smoke runs beside its phases 12, 15,
+    20, 24-25 and phase 18's plain references (``start_side``): no kernel
+    of ours is on their paths and nothing of theirs feeds the ``kernels``
+    line, so their checks hold as alone while their rates are read beside
+    those phases. Prints the phases' lines,
+    then one line ``SIDE_RESULT {ediffsr, msi, ok, seconds}``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from fastdiffsr_tpu_torch.device import use_ieee_float32
+    from fastdiffsr_tpu_torch.ops import kernels
+
+    use_ieee_float32()
+    own_phases_regime()
+    kernels.load()
+    card = card_line()
+    t0 = time.time()
+    res = {}
+    res["ediffsr"], e_ok = phase_ediffsr(card, seed)
+    res["seconds"] = {"16 ediffsr": time.time() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["msi"], m_ok = phase_msi(card, seed)
+    res["seconds"]["17 msi"] = time.time() - t0 - res["seconds"][
+        "16 ediffsr"]
+    res["ok"] = {"ediffsr": bool(e_ok), "msi": bool(m_ok)}
+    print("SIDE_RESULT " + json.dumps(res, default=str), flush=True)
+    return 0 if e_ok and m_ok else 1
+
+
+def start_side(seed):
+    """Start ``side_worker`` (phases 16-17) in the background; returns
+    (process, log path, start time) for ``join_side``."""
+    import atexit
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    log_path = os.path.join(work, "side.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--side-worker", "--seed", str(seed)], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    if not _BACKGROUND:
+        atexit.register(_stop_background)
+    _BACKGROUND.append(proc)
+    return proc, log_path, time.time()
+
+
+def join_side(side, card, timeout=SIDE_TIMEOUT):
+    """Wait for ``start_side``'s process (killing it after ``timeout``
+    from its start), print its phase lines; returns (detail of phase 16,
+    of phase 17, seconds of each, ok)."""
+    proc, log_path, t0 = side
+    t_wait = time.time()
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        if line.startswith("[ediffsr") or line.startswith("[msi"):
+            print(line, flush=True)
+    result = [json.loads(line[len("SIDE_RESULT "):]) for line in lines
+              if line.startswith("SIDE_RESULT ")]
+    ok = bool(result) and rc == 0 and all(result[0]["ok"].values())
+    print(f"[side] {card} | phases 16-17 in a process of their own beside "
+          f"phases 12, 15, 20, 24-25 and 18's plain runs: exit {rc}, {time.time() - t0:.1f} s from its "
+          f"start, the smoke waited {time.time() - t_wait:.1f} s for it "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not result or rc != 0:
+        print("\n".join(lines[-40:]), flush=True)
+    res = result[0] if result else {"ediffsr": {}, "msi": {}, "seconds": {}}
+    return res["ediffsr"], res["msi"], res["seconds"], ok
 
 
 def dist_specs(seed):
@@ -2558,8 +2714,15 @@ def allreduce_ms(n_params: int, device) -> tuple:
 
 def dist_worker(spec_path) -> int:
     """Phase 18's rank (run by torch.distributed.run from phase_dist):
-    join the group from torchrun's variables (NCCL), run the ``-dist``
-    jobs and the all-reduce timing, write the results for phase_dist."""
+    join the group from torchrun's variables (NCCL); first, while the
+    process's memory is fresh (in a long process's memory a capture took
+    other cuDNN plans, PERF.md §6), the chained train step under the
+    group on the train config, the state DDP-wrapped as under ``-dist``:
+    a replay of CHAIN_N captured steps (the bare net, its gradients'
+    all-reduce in the graph) against unchained DDP steps with a profile
+    of the replay, and ``cli.sr_mfe -p train -dist`` chained against
+    unchained (steps/s, reserved GiB); then the ``-dist`` jobs and the
+    all-reduce timing. Writes the results for phase_dist."""
     import torch
     import torch.distributed as dist
 
@@ -2577,6 +2740,17 @@ def dist_worker(spec_path) -> int:
            "device": str(device),
            "nccl": str(torch.cuda.nccl.version())}
     t0 = time.time()
+    own_phases_regime()
+    card = card_line()
+    out["chain"] = {}
+    out["chain"]["parity"], p_ok = chain_parity(DIST_CHAIN_CONFIG, card,
+                                                spec["seed"], " -dist")
+    out["chain"]["cli"], c_ok = chain_cli(DIST_CHAIN_CONFIG, card,
+                                          spec["seed"], dist=True)
+    out["chain_ok"] = p_ok and c_ok
+    out["chain_s"] = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
     out["jobs"] = run_jobs(dist_jobs(spec, dist=True))
     net = build_unet(load_json_config(spec["train"])["model"], device=device)
     n_params = sum(p.numel() for p in net.parameters())
@@ -2590,10 +2764,23 @@ def dist_worker(spec_path) -> int:
     return 0
 
 
-def phase_dist(card, seed):
+def dist_refs(seed, beside=""):
+    """Phase 18's inputs and its plain reference runs in this process
+    (``beside``: the phases they ran beside, for the printed rates);
+    returns what ``phase_dist`` takes as ``pre``."""
+    t0 = time.time()
+    spec = dist_specs(seed)
+    refs = run_jobs(dist_jobs(spec, dist=False))
+    own_phases_regime()
+    return {"spec": spec, "refs": refs, "beside": beside,
+            "seconds": time.time() - t0}
+
+
+def phase_dist(card, seed, pre=None):
     """Phase 18: data parallelism under torchrun at world size 1 on the
-    card (module docstring). Returns (detail, launches of the kernels in
-    it by name and K3 route, ok)."""
+    card (module docstring), its plain references from ``pre``
+    (``dist_refs``; run here if None). Returns (detail, launches of the
+    kernels in it by name and K3 route, ok)."""
     import signal
 
     import numpy as np
@@ -2604,8 +2791,9 @@ def phase_dist(card, seed):
     from fastdiffsr_tpu_torch.ops import fused_conv, kernels
 
     t_phase = time.time()
-    spec = dist_specs(seed)
-    refs = run_jobs(dist_jobs(spec, dist=False))
+    pre = pre or dist_refs(seed)
+    spec, refs = pre["spec"], pre["refs"]
+    without = f"without ({pre['beside']})" if pre["beside"] else "without"
     own_phases_regime()
     spec_path = os.path.join(spec["work"], "spec.json")
     with open(spec_path, "w") as f:
@@ -2640,9 +2828,13 @@ def phase_dist(card, seed):
         return {"worker_rc": rc}, {}, False
     with open(spec["out"]) as f:
         res = json.load(f)
+    with open(log_path) as f:
+        for line in f:
+            if line.startswith("[chain"):
+                print(line.rstrip(), flush=True)
     jobs = res["jobs"]
     ok = (res["backend"] == "nccl" and res["world"] == 1
-          and res["device"] == "cuda:0")
+          and res["device"] == "cuda:0" and res["chain_ok"])
     print(f"[dist] {card} | torch.distributed.run --standalone "
           f"--nproc_per_node=1: backend {res['backend']} (NCCL "
           f"{res['nccl']}), world {res['world']}, rank 0 on {res['device']},"
@@ -2652,7 +2844,8 @@ def phase_dist(card, seed):
     detail = {"backend": res["backend"], "world": res["world"],
               "nccl": res["nccl"], "worker_wall_s": worker_wall,
               "allreduce_ms": res["allreduce_ms"],
-              "n_params": res["n_params"], "buckets": res["buckets"]}
+              "n_params": res["n_params"], "buckets": res["buckets"],
+              "chain": res["chain"], "chain_s": res["chain_s"]}
 
     def rel(a, b):
         a, b = np.asarray(a, float), np.asarray(b, float)
@@ -2694,7 +2887,7 @@ def phase_dist(card, seed):
           f"({d['launches']['channel_stats'] / n_val:g} per eval) | l_pix "
           f"per step against the plain run: max rel diff {l_err:.3g} (tol "
           f"{DIST_LPIX_RTOL}) | steady {d_rate:.3f} steps/s with -dist, "
-          f"{p_rate:.3f} without ({d_rate / p_rate:.4f}) | all-reduce of "
+          f"{p_rate:.3f} {without} ({d_rate / p_rate:.4f}) | all-reduce of "
           f"the UNet's {res['n_params']} gradients ({mib:.1f} MiB in "
           f"{res['buckets']} buckets of 25 MiB): {res['allreduce_ms']:.4f} "
           f"ms per step (CUDA events) | peak {d['peak_gib']:.2f} GiB (plain "
@@ -2802,7 +2995,7 @@ def phase_dist(card, seed):
                 d["result"]["checkpoint"])
         print(f"[dist {name}] {card} | {what}: loss against the plain run "
               f"max rel diff {err:.3g} (tol {DIST_LPIX_RTOL}) | steady "
-              f"{d_rate:.3f} steps/s with DDP, {p_rate:.3f} without "
+              f"{d_rate:.3f} steps/s with DDP, {p_rate:.3f} {without} "
               f"({d_rate / p_rate:.4f}) | peak {d['peak_gib']:.2f} GiB "
               f"(plain {r['peak_gib']:.2f}) | kernel launches "
               f"{d['launches']} (none on this path) "
@@ -2815,7 +3008,9 @@ def phase_dist(card, seed):
                         "peak_gib": d["peak_gib"],
                         "plain_peak_gib": r["peak_gib"],
                         "wall_s": d["wall_s"]}
+
     detail["seconds"] = time.time() - t_phase
+    detail["refs_seconds"] = pre["seconds"]
     return detail, launches, ok
 
 
@@ -2835,6 +3030,8 @@ def serving_spec(seed):
         cases.append({
             "name": name, "dtype": dt, "sampler": sampler, "steps": steps,
             "runs": list(runs), "turn": k + 1, "config": config,
+            "scan": name in SERVING_SCAN,
+            "unrolled_twin": SERVING_FORCED.get(name),
             "variant": load_json_config(config)["model"]["which_model_G"],
             "artifact": os.path.join(work, f"sampler_{name}.pt2"),
             # the DPM artifact is also saved for the CPU (serving's
@@ -2842,11 +3039,13 @@ def serving_spec(seed):
             "platforms": "cuda,cpu" if name == "dpm_f32" else "cuda",
             "cpu_artifact": os.path.join(work, f"sampler_{name}.cpu.pt2"),
             # f32 and bf16 of one config and sampler share their inputs
-            "inputs": os.path.join(work, f"inputs_{cfg}_{sampler}_"
-                                         f"{steps}.pt"),
+            "inputs": os.path.join(
+                work, f"inputs_{cfg}_{sampler}_{steps}"
+                      f"{'_scan' if name in SERVING_SCAN else ''}.pt"),
             "export_out": os.path.join(work, f"export_{name}.json"),
             "ref_out": os.path.join(work, f"ref_{name}.pt"),
-            "load_out": os.path.join(work, f"load_{name}.pt")})
+            "load_out": os.path.join(work, f"load_{name}.pt"),
+            "twin_out": os.path.join(work, f"twin_{name}.pt")})
     return {"work": work, "seed": seed, "cases": cases,
             "ref_json": os.path.join(work, "ref.json")}
 
@@ -2866,14 +3065,18 @@ def _await(paths, timeout=SERVING_TIMEOUT):
 @contextlib.contextmanager
 def gpu_turn(spec, k):
     """Every worker of phase 19 prepares (exports, loads or builds) at
-    once, then they take the card in turns (k = 0 the in-process
-    reference, then the loaders in case order), so no timed run shares
-    the host with another worker's work."""
+    once, then, once the smoke writes the ``go`` marker (when it reaches
+    phase 19: the workers may start phases earlier, ``start_serving``),
+    they take the card in turns (k = 0 the in-process reference, then the
+    loaders in case order), so no timed run shares the host with another
+    worker's work or the card with another phase."""
     n = len(spec["cases"]) + 1
     with open(_marker(spec, "ready", k), "w"):
         pass
     try:
-        _await([_marker(spec, "ready", j) for j in range(n)])
+        _await([_marker(spec, "ready", j) for j in range(n)],
+               timeout=GO_TIMEOUT)
+        _await([_marker(spec, "go", 0)], timeout=GO_TIMEOUT)
         if k:
             _await([_marker(spec, "done", k - 1)])
         yield
@@ -2899,21 +3102,46 @@ def timed_run(fn):
         r: n - routes0[r] for r, n in fused_conv.ROUTE_TAKEN.items()}
 
 
+def forced_scan_export(case) -> dict:
+    """``serving.export_sampler(loop=True)`` of a case, in float32 on the
+    card (the CLI takes the scan form above MAX_EXPORT_STEPS evals only),
+    with the numbers ``serving.main`` returns."""
+    import torch
+
+    from fastdiffsr_tpu_torch import serving
+    from fastdiffsr_tpu_torch.config import parse
+    from fastdiffsr_tpu_torch.device import use_ieee_float32
+    use_ieee_float32()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    _, meta, *_ = serving.export_sampler(
+        parse(case["config"], phase="val"), case["artifact"],
+        sampler=case["sampler"], steps=case["steps"], platforms=["cuda"],
+        loop=True)
+    return {"paths": [case["artifact"]], "export_s": time.time() - t0,
+            "meta": meta, "selftest_err": None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "mb": [os.path.getsize(case["artifact"]) / 1e6]}
+
+
 def serving_export_worker(spec, case) -> int:
     """Phase 19: ``fastdiffsr_tpu_torch.serving``'s CLI (its ``main``)
     exports one case; the f32 64->256 case with ``--selftest``, the
-    acceptance command."""
+    acceptance command; a forced scan form through ``export_sampler``."""
     sys.path.insert(0, ROOT)
     from fastdiffsr_tpu_torch import serving
-    argv = ["-c", case["config"], "-o", case["artifact"], "--dtype",
-            case["dtype"], "--sampler", case["sampler"], "--platforms",
-            case["platforms"]]
-    if case["steps"]:
-        argv += ["--steps", str(case["steps"])]
-    if case["name"] == "f32":
-        argv.append("--selftest")
-    res = serving.main(argv)
-    res["argv"] = argv
+    if case["unrolled_twin"]:
+        res = forced_scan_export(case)
+    else:
+        argv = ["-c", case["config"], "-o", case["artifact"], "--dtype",
+                case["dtype"], "--sampler", case["sampler"], "--platforms",
+                case["platforms"]]
+        if case["steps"]:
+            argv += ["--steps", str(case["steps"])]
+        if case["name"] == "f32":
+            argv.append("--selftest")
+        res = serving.main(argv)
+        res["argv"] = argv
     with open(case["export_out"], "w") as f:
         json.dump(res, f, default=str)
     return 0
@@ -2926,7 +3154,13 @@ def serving_reference_worker(spec) -> int:
     generators (``pad_batch_with_keys``, indices counted over the case's
     runs). Before its turn it writes the inputs the loaders feed the
     artifacts: the same params, cond and the noise ``serving.draw_noise``
-    draws from the same generators."""
+    draws from the same generators, or for a scan-form case the seeds
+    ``serving.draw_seeds`` draws from them (and, for a forced one, the
+    noise ``counter_noise`` makes of them, which the unrolled twin is
+    fed); a scan-form case's in-process sampler is fed that noise. The
+    cases of SERVING_EARLY_REF run before the turns, beside the exporters
+    and the phases the smoke runs meanwhile (their in-process seconds are
+    read under that load); the ``early`` marker says they are done."""
     import numpy as np
     import torch
 
@@ -2937,10 +3171,17 @@ def serving_reference_worker(spec) -> int:
     from fastdiffsr_tpu_torch.config import load_json_config
     from fastdiffsr_tpu_torch.device import (set_cudnn_autotuning,
                                              use_ieee_float32)
+    from fastdiffsr_tpu_torch.diffusion import counter_noise
     from fastdiffsr_tpu_torch.train import make_sample_fn, pad_batch_with_keys
 
     use_ieee_float32()
     set_cudnn_autotuning(False)
+
+    def counter_draws(gens, shape, draws, by_t):
+        """(seeds, init_noise, noise_seq) of a scan-form case."""
+        seeds = serving.draw_seeds(gens, "cuda")
+        return (seeds, *counter_noise(seeds, draws, tuple(shape), by_t))
+
     seed = spec["seed"]
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     prepared = []
@@ -2966,28 +3207,50 @@ def serving_reference_worker(spec) -> int:
             for cond, start in runs:
                 cond_t, gens = pad_batch_with_keys(cond, len(cond), seed,
                                                    start, device="cuda")
-                init, seq = serving.draw_noise(gens, cond.shape[1:], draws,
-                                               by_t, "cuda")
-                feed.append({"cond": cond_t, "init": init, "seq": seq})
+                if not case["scan"]:
+                    init, seq = serving.draw_noise(gens, cond.shape[1:],
+                                                   draws, by_t, "cuda")
+                    feed.append({"cond": cond_t, "init": init, "seq": seq})
+                    continue
+                seeds, init, seq = counter_draws(gens, cond.shape[1:], draws,
+                                                 by_t)
+                feed.append({"cond": cond_t, "seeds": seeds})
+                if case["unrolled_twin"]:
+                    feed[-1].update(init=init, seq=seq)
             params = {k: v.detach() for k, v in net.state_dict().items()}
             tmp = case["inputs"] + ".tmp"
             torch.save({"params": params, "runs": feed}, tmp)
             os.replace(tmp, case["inputs"])
-        prepared.append((case, sample, runs))
-    res = {}
-    with gpu_turn(spec, 0):
-        for case, sample, runs in prepared:
-            outs, rows = [], []
-            for cond, start in runs:
-                cond_t, gens = pad_batch_with_keys(cond, len(cond), seed,
-                                                   start, device="cuda")
+        prepared.append((case, sample, runs, draws, by_t))
+
+    def run_case(case, sample, runs, draws, by_t):
+        outs, rows = [], []
+        for cond, start in runs:
+            cond_t, gens = pad_batch_with_keys(cond, len(cond), seed, start,
+                                               device="cuda")
+            if case["scan"]:
+                _, init, seq = counter_draws(gens, cond.shape[1:], draws,
+                                             by_t)
+                out, dt, launches, routes = timed_run(
+                    lambda: sample(cond_t, init_noise=init, noise_seq=seq))
+                del init, seq
+            else:
                 out, dt, launches, routes = timed_run(
                     lambda: sample(cond_t, gens))
-                outs.append(out.cpu())
-                rows.append({"batch": len(cond), "s": dt,
-                             "launches": launches, "routes": routes})
-            torch.save(outs, case["ref_out"])
-            res[case["name"]] = rows
+            outs.append(out.cpu())
+            rows.append({"batch": len(cond), "s": dt, "launches": launches,
+                         "routes": routes})
+        torch.save(outs, case["ref_out"])
+        return rows
+
+    # the long reference runs while the exporters trace, off the turns
+    res = {c["name"]: run_case(c, *rest) for c, *rest in prepared
+           if c["name"] in SERVING_EARLY_REF}
+    open(_marker(spec, "early", 0), "a").close()
+    with gpu_turn(spec, 0):
+        for case, *rest in prepared:
+            if case["name"] not in res:
+                res[case["name"]] = run_case(case, *rest)
     with open(spec["ref_json"], "w") as f:
         json.dump(res, f)
     return 0
@@ -2998,7 +3261,9 @@ def serving_load_worker(spec, case) -> int:
     registry (``fastdiffsr_tpu_torch.ops``) and nothing else of the port,
     loads one artifact with ``torch.export.load`` once its export is
     written, runs the CPU copy (if any) before its turn and the artifact
-    on the reference's inputs in its turn."""
+    on the reference's inputs in its turn (a scan-form artifact on the
+    seeds); an unrolled artifact that a forced scan form is held against
+    also runs, after its own runs, on the noise the scan form drew."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -3008,7 +3273,7 @@ def serving_load_worker(spec, case) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
-    _await([_marker(spec, "exported", case["turn"])])
+    _await([_marker(spec, "exported", case["turn"])], timeout=GO_TIMEOUT)
     if not os.path.exists(case["export_out"]):
         raise RuntimeError(f"{case['name']}: the export failed")
     t0 = time.time()
@@ -3036,16 +3301,33 @@ def serving_load_worker(spec, case) -> int:
             cpu_out = cpu_copy(*args)
         res["cpu_copy"] = {"load_s": cpu_load_s, "s": time.time() - t0,
                            "device": str(cpu_out.device)}
+    twins = [c for c in spec["cases"]
+             if c["unrolled_twin"] == case["name"]]
+    _await([c["inputs"] for c in twins])
     with gpu_turn(spec, case["turn"]):
         for run in feed["runs"]:
-            args = (feed["params"], run["cond"], run["init"])
-            if run["seq"] is not None:
-                args += (run["seq"],)
+            if case["scan"]:
+                args = (feed["params"], run["cond"], run["seeds"])
+            else:
+                args = (feed["params"], run["cond"], run["init"])
+                if run["seq"] is not None:
+                    args += (run["seq"],)
             with torch.no_grad():
                 out, dt, launches, routes = timed_run(lambda: module(*args))
             outs.append(out.cpu())
             res["rows"].append({"batch": run["cond"].shape[0], "s": dt,
                                 "launches": launches, "routes": routes})
+        for twin in twins:
+            tw = torch.load(twin["inputs"])
+            t_outs, t_rows = [], []
+            for run in tw["runs"]:
+                args = (tw["params"], run["cond"], run["init"], run["seq"])
+                with torch.no_grad():
+                    out, dt, launches, _ = timed_run(lambda: module(*args))
+                t_outs.append(out.cpu())
+                t_rows.append({"batch": run["cond"].shape[0], "s": dt,
+                               "launches": launches})
+            torch.save({"outs": t_outs, "rows": t_rows}, twin["twin_out"])
     if cpu_out is not None:
         outs.append(cpu_out)
     res["port_modules"] = sorted(m for m in sys.modules
@@ -3057,8 +3339,13 @@ def serving_load_worker(spec, case) -> int:
 
 
 def serving_worker(role, spec_path, name) -> int:
+    # below the smoke's own phases on the host while it prepares beside
+    # them (start_serving); alone on the host in its turn
+    os.nice(SERVING_NICE)
     with open(spec_path) as f:
         spec = json.load(f)
+    if spec.get("cpus") and role in ("export", "load"):
+        os.sched_setaffinity(0, spec["cpus"])
     case = next((c for c in spec["cases"] if c["name"] == name), None)
     if role == "export":
         try:
@@ -3073,29 +3360,54 @@ def serving_worker(role, spec_path, name) -> int:
         return serving_load_worker(spec, case)
     finally:
         # a worker that fails before or in its turn lets the others go on
-        for what in ("ready", "done"):
+        for what in ("ready", "done") + (("early",) if k == 0 else ()):
             open(_marker(spec, what, k), "a").close()
 
 
-def run_workers(spec_path, jobs, work, timeout=SERVING_TIMEOUT):
+_BACKGROUND = []        # processes started ahead of their phase
+
+
+def _stop_background():
+    """Kill what a background process (and its group) left running: a
+    smoke that fails or returns early stops every process it started."""
+    for proc in _BACKGROUND:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+
+
+def start_workers(spec_path, jobs, work):
     """Start ``jobs`` ((role, name) pairs) as processes of this script at
-    once, wait for all (killing what outlives ``timeout``); returns
-    {(role, name): (exit code, seconds, log tail)}."""
-    import signal
+    once; returns [(role, name, log, process)]."""
+    import atexit
     env = dict(os.environ, OMP_NUM_THREADS="2")
     procs = []
-    t0 = time.time()
     for role, name in jobs:
         log = open(os.path.join(work, f"{role}_{name}.log"), "w")
-        procs.append((role, name, log, subprocess.Popen(
+        proc = subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
              "--serving-worker", role, spec_path, name], cwd=work,
             stdout=log, stderr=subprocess.STDOUT, env=env,
-            start_new_session=True)))
+            start_new_session=True)
+        if not _BACKGROUND:
+            atexit.register(_stop_background)
+        _BACKGROUND.append(proc)
+        procs.append((role, name, log, proc))
+    return procs
+
+
+def wait_workers(procs, t0, timeout=SERVING_TIMEOUT):
+    """Wait for ``start_workers``' processes (killing what outlives
+    ``timeout`` from now); returns {(role, name): (exit code, seconds
+    since ``t0``, log tail)}."""
+    t_wait = time.time()
     out = {}
     for role, name, log, proc in procs:
         try:
-            rc = proc.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+            rc = proc.wait(timeout=max(1.0, timeout - (time.time() - t_wait)))
         except subprocess.TimeoutExpired:
             rc = None
         finally:
@@ -3166,25 +3478,68 @@ def serving_want(case, evals):
             "quant_conv3": 0}
 
 
-def phase_serving(card, seed):
-    """Phase 19: the serving export at full width (module docstring).
+def serving_cpus():
+    """The last SERVING_CPUS of the cores this process may run on, where
+    that leaves at least 5 to the rest (else None: any)."""
+    cpus = sorted(os.sched_getaffinity(0))
+    return (set(cpus[-SERVING_CPUS:]) if len(cpus) >= SERVING_CPUS + 5
+            else None)
+
+
+def start_serving(seed, cpus=None):
+    """Phase 19's workers, started ahead of the phase (niced to
+    SERVING_NICE; the exporters and loaders on ``cpus``): every one at
+    once, the exports; the reference preparing, then running
+    SERVING_EARLY_REF; each loader waiting for its export, then loading;
+    then they wait for the ``go`` marker that ``phase_serving`` writes,
+    and take the card in turns. Returns the pool ``phase_serving`` and
+    ``await_early_reference`` take."""
+    spec = serving_spec(seed)
+    spec["cpus"] = sorted(cpus) if cpus else None
+    spec_path = os.path.join(spec["work"], "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    names = [c["name"] for c in spec["cases"]]
+    t0 = time.time()
+    procs = start_workers(spec_path, [("export", n) for n in names]
+                          + [("reference", "-")]
+                          + [("load", n) for n in names], spec["work"])
+    return {"spec": spec, "procs": procs, "t0": t0, "cpus": spec["cpus"]}
+
+
+def await_early_reference(pool, card, timeout=SERVING_TIMEOUT):
+    """Wait until phase 19's reference worker has run SERVING_EARLY_REF
+    (the ``early`` marker), so that no phase that follows shares the
+    card with it; prints how long the smoke waited."""
+    t0 = time.time()
+    try:
+        _await([_marker(pool["spec"], "early", 0)], timeout=timeout)
+        done = True
+    except TimeoutError:
+        done = False
+    print(f"[serve export] {card} | phase 19's in-process references "
+          f"({len(SERVING_EARLY_REF)} cases) "
+          f"{'done' if done else 'NOT done'}, {time.time() - pool['t0']:.1f}"
+          f" s after its workers started; the smoke waited "
+          f"{time.time() - t0:.1f} s for them", flush=True)
+
+
+def phase_serving(card, seed, pool=None):
+    """Phase 19: the serving export at full width (module docstring), on
+    the workers ``start_serving`` started (here if ``pool`` is None).
     Returns (detail, kernel launches of the artifacts' and the in-process
     runs: K3 by the route each launch took, K2, K1; ok)."""
     import torch
 
     t_phase = time.time()
-    spec = serving_spec(seed)
-    spec_path = os.path.join(spec["work"], "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
-    names = [c["name"] for c in spec["cases"]]
     gc.collect()
     torch.cuda.empty_cache()
-    # every worker at once: the exports; the reference preparing; each
-    # loader waiting for its export, then loading; then the card in turns
-    st = run_workers(spec_path, [("export", n) for n in names]
-                     + [("reference", "-")]
-                     + [("load", n) for n in names], spec["work"])
+    if pool is None:
+        pool = start_serving(seed)
+    spec = pool["spec"]
+    ahead = t_phase - pool["t0"]
+    open(_marker(spec, "go", 0), "a").close()
+    st = wait_workers(pool["procs"], pool["t0"])
     ok = True
     for key, (rc, _, tail) in st.items():
         if rc != 0:
@@ -3196,7 +3551,7 @@ def phase_serving(card, seed):
     with open(spec["ref_json"]) as f:
         ref = json.load(f)
     detail = {"workers_s": {f"{k[0]} {k[1]}": v[1] for k, v in st.items()},
-              "cases": {}}
+              "started_ahead_s": ahead, "cpus": pool["cpus"], "cases": {}}
     launches = {"wgmma": 0, "cuda_cores": 0, "channel_stats": 0,
                 "gn_swish": 0}
     for case in spec["cases"]:
@@ -3221,17 +3576,28 @@ def phase_serving(card, seed):
         errs = [(a.float() - b.float()).abs().max().item()
                 for a, b in zip(got["outs"], want)]
         fin = all(bool(torch.isfinite(a).all()) for a in got["outs"])
-        same_launch = all(a["launches"] == b["launches"]
-                          and a["routes"] == b["routes"]
-                          for a, b in zip(lres["rows"], rows))
         evals = ex["meta"]["evals"]
         # K3 and K2 take the batch in one launch, K1 too: the count is per
-        # call, whatever the batch; every K3 launch took one route
+        # call, whatever the batch; every K3 launch took one route. The
+        # scan form's Python loop may run its body once more than T (torch
+        # 2.11's scan does, its result unchanged): the artifact's count is
+        # then one eval's more than the in-process sampler's
         want_l = serving_want(case, evals)
-        calls_ok = all(r["launches"] == want_l
-                       and sum(r["routes"].values())
-                       == r["launches"]["fused_gn_swish_conv3x3"]
-                       for r in lres["rows"] + rows)
+        body = evals
+        if case["scan"]:
+            main_k = max(want_l, key=want_l.get)
+            body = lres["rows"][0]["launches"][main_k] * evals // want_l[
+                main_k] or evals        # none launched: the checks fail
+        same_launch = len(lres["rows"]) == len(rows) and all(
+            a["launches"] == serving_want(case, body)
+            and b["launches"] == want_l
+            and a["routes"] == {r: k * body // evals
+                                for r, k in b["routes"].items()}
+            for a, b in zip(lres["rows"], rows))
+        calls_ok = ((body == evals or case["scan"] and body == evals + 1)
+                    and all(sum(r["routes"].values())
+                            == r["launches"]["fused_gn_swish_conv3x3"]
+                            for r in lres["rows"] + rows))
         mods_ok = (not lres["jax"] and all(
             m in ("fastdiffsr_tpu_torch", "fastdiffsr_tpu_torch.ops")
             or m.startswith("fastdiffsr_tpu_torch.ops.")
@@ -3241,6 +3607,27 @@ def phase_serving(card, seed):
                 and (ex["selftest_err"] is None
                      or ex["selftest_err"] <= EXPORT_TOL)
                 and (cpu is None or cpu["ok"]))
+        meta = ex["meta"]
+        form = (meta["loop"], meta["noise"])
+        c_ok &= form == (("scan", "counter") if case["scan"]
+                         else ("unrolled", "inputs"))
+        twin = None
+        if case["unrolled_twin"]:
+            # the scan artifact against the unrolled one on the noise the
+            # scan drew; host time per step over it, the runs after the
+            # first (the same inputs in both)
+            tw = torch.load(case["twin_out"])
+            twin = {"max_abs_err": max(
+                (a - b).abs().max().item()
+                for a, b in zip(got["outs"], tw["outs"])),
+                "bit_equal": len(tw["outs"]) == len(got["outs"]) and all(
+                    torch.equal(a, b) for a, b in zip(got["outs"],
+                                                      tw["outs"])),
+                "rows": tw["rows"], "extra_us_per_step": (
+                    sum(r["s"] for r in lres["rows"][1:]) / body
+                    - sum(r["s"] for r in tw["rows"][1:]) / evals)
+                / max(len(tw["rows"]) - 1, 1) * 1e6}
+            c_ok &= twin["bit_equal"]
         ok &= c_ok
         for r in lres["rows"] + rows:
             for route, k in r["routes"].items():
@@ -3250,23 +3637,26 @@ def phase_serving(card, seed):
 
         def rate(rs):
             """img/s over the runs after the first of the largest batch
-            (the first warms up), and s/img."""
+            (the first warms up; a case of one run times that one), and
+            s/img."""
             big = max(r["batch"] for r in rs)
-            timed = [r for r in rs if r["batch"] == big][1:]
+            timed = [r for r in rs if r["batch"] == big]
+            timed = timed[1:] or timed
             s = sum(r["s"] for r in timed) / sum(r["batch"] for r in timed)
             return 1.0 / s, s, big, len(timed)
 
         ip, ip_s, big, n_t = rate(rows)
         xp, xp_s, _, _ = rate(lres["rows"])
         first = lres["rows"][0]
-        per_eval = "/".join(f"{first['launches'][k] / evals:g}" for k in
+        per_eval = "/".join(f"{first['launches'][k] / body:g}" for k in
                             ("fused_gn_swish_conv3x3", "channel_stats",
                              "gn_swish"))
         print(f"[serve export] {card} | {n}: {os.path.basename(case['config'])}"
               f" {case['sampler']} {evals} evals, "
               + (f"fused {case['dtype']}" if ex["meta"]["fused"] else
                  f"plain {case['variant']} {case['dtype']}")
-              + f" forward, symbolic batch | export+save {ex['export_s']:.1f}"
+              + f" forward, symbolic batch, {form[0]} loop, noise from "
+              f"{form[1]} | export+save {ex['export_s']:.1f}"
               f" s (beside the other workers), {ex['mb'][0]:.2f} MB, "
               f"export peak {ex['peak_gib'] or math.nan:.2f} GiB, load "
               f"{lres['load_s']:.1f} s in a process importing "
@@ -3277,9 +3667,11 @@ def phase_serving(card, seed):
               + "/".join(f"{want_l[k] // evals}" for k in
                          ("fused_gn_swish_conv3x3", "channel_stats",
                           "gn_swish"))
-              + f"), K3 routes {first['routes']}, launches and routes equal "
+              + f"), K3 routes {first['routes']}, the artifact's loop ran "
+              f"{body} evals, launches and routes equal "
               f"{same_launch} | B={big} over {n_t} timed run(s): in-process "
-              f"{ip:.3f} img/s ({ip_s:.4f} s/img), exported {xp:.3f} img/s "
+              + ("(beside phases 12-17) " if n in SERVING_EARLY_REF else "")
+              + f"{ip:.3f} img/s ({ip_s:.4f} s/img), exported {xp:.3f} img/s "
               f"({xp_s:.4f} s/img)"
               + (f" | --selftest max|d| {ex['selftest_err']:.3g}"
                  if ex["selftest_err"] is not None else "")
@@ -3288,6 +3680,12 @@ def phase_serving(card, seed):
                  f"in {cpu['s']:.1f} s before the turns, max|d| vs the card "
                  f"{cpu['max_abs_err']:.3g} (tol {cpu['tol']:.3g})"
                  if cpu is not None else "")
+              + (f" | against the {case['unrolled_twin']} case's unrolled "
+                 f"artifact fed the noise drawn from the seeds: max|d| "
+                 f"{twin['max_abs_err']:.3g}, bit-equal {twin['bit_equal']}, "
+                 f"the scan form's time over it per eval run "
+                 f"{twin['extra_us_per_step']:.1f} us"
+                 if twin is not None else "")
               + f" {'ok' if c_ok else 'FAIL'}", flush=True)
         detail["cases"][n] = {
             "export_s": ex["export_s"], "mb": ex["mb"][0],
@@ -3298,6 +3696,8 @@ def phase_serving(card, seed):
             "img_per_s_in_process": ip, "img_per_s_exported": xp,
             "s_per_img_in_process": ip_s, "s_per_img_exported": xp_s,
             "loader_modules": lres["port_modules"], "cpu_copy": cpu,
+            "loop": form[0], "noise": form[1], "unrolled_twin": twin,
+            "evals_run": body,
             "ok": c_ok}
     host = op_host_us(seed)
     detail["host_us"] = host
@@ -3310,7 +3710,9 @@ def phase_serving(card, seed):
     detail["seconds"] = time.time() - t_phase
     slowest = max(st.items(), key=lambda kv: kv[1][1])
     print(f"[serve export] {card} | phase 19 took {detail['seconds']:.1f} s "
-          f"(workers {max(v[1] for v in st.values()):.1f} s, the last "
+          f"from its go, its workers {max(v[1] for v in st.values()):.1f} s "
+          f"from their start {ahead:.1f} s before it (exporters and loaders "
+          f"on cores {pool['cpus'] or 'any'}; the last "
           f"{slowest[0][0]} {slowest[0][1]}) {'ok' if ok else 'FAIL'}",
           flush=True)
     return detail, launches, ok
@@ -5043,7 +5445,7 @@ def device_kernels(fn):
         if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def chain_parity(cfg_name, card, seed):
+def chain_parity(cfg_name, card, seed, tag=""):
     """A chain of CHAIN_N steps replayed from a CUDA graph against eager
     steps from the same state, on cuDNN's deterministic algorithms in the
     script's timed regime, the chain first (the order in which a capture
@@ -5056,7 +5458,9 @@ def chain_parity(cfg_name, card, seed):
     and l_pix and whether they are bit-equal, the card's free memory, the
     replay's device kernels and K1 launches (by kernel name), the host
     counts of the replay and the Adam step count. Passes within CHAIN_TOL
-    (parameters, EMA; l_pix relative). Returns (detail, ok)."""
+    (parameters, EMA; l_pix relative). ``tag`` marks the printed line
+    (" -dist": in phase 18's rank, the states DDP-wrapped, the
+    replay's NCCL kernels counted too). Returns (detail, ok)."""
     import torch
 
     from fastdiffsr_tpu_torch.ops import kernels
@@ -5082,7 +5486,9 @@ def chain_parity(cfg_name, card, seed):
         nodes = {"all": sum(names.values()),
                  **{k: sum(v for name, v in names.items() if k in name)
                     for k in ("gn_swish_apply_kernel",
-                              "channel_stats_kernel")}}
+                              "channel_stats_kernel")},
+                 "nccl": sum(v for name, v in names.items()
+                             if "nccl" in name.lower())}
         steps = {int(s["step"].item())
                  for s in state.optimizer.state.values()}
         at, lg = state.step, res["l"].reshape(-1)
@@ -5108,7 +5514,7 @@ def chain_parity(cfg_name, card, seed):
           and nodes["gn_swish_apply_kernel"] == want_k1
           and nodes["channel_stats_kernel"] == want_k1
           and not any(host.values()))
-    print(f"[chain parity {cfg_name}] {card} | B={bsz}: one replay of {n} "
+    print(f"[chain parity{tag} {cfg_name}] {card} | B={bsz}: one replay of {n} "
           f"captured steps vs {n} eager steps from the same state, the "
           f"chain first (EMA from step {CHAIN_EMA_START}; cuDNN "
           f"deterministic): max|d| params {d_param:.3g}, EMA {d_ema:.3g}, "
@@ -5119,8 +5525,8 @@ def chain_parity(cfg_name, card, seed):
           f"(torch.profiler): {nodes['all']} device kernels, K1 "
           f"{nodes['gn_swish_apply_kernel']} gn_swish + "
           f"{nodes['channel_stats_kernel']} channel_stats launches (want "
-          f"{want_k1} each), host counts of the replay {host} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{want_k1} each), {nodes['nccl']} NCCL kernels, host counts "
+          f"of the replay {host} {'ok' if ok else 'FAIL'}", flush=True)
     del state, ref, data
     torch.cuda.empty_cache()
     return {"max_abs_param": d_param, "max_abs_ema": d_ema,
@@ -5128,7 +5534,7 @@ def chain_parity(cfg_name, card, seed):
             "free_gib": free_gib, "kernels_per_replay": nodes}, ok
 
 
-def chain_rates(cfg_name, card, seed):
+def chain_rates(cfg_name, card, seed, tag=""):
     """Steps/s, peak GiB and the device idle share of the config's train
     step unchained (CHAIN_TIMED eager steps) and chained by CHAIN_N (the
     same steps as CHAIN_TIMED / CHAIN_N replays), in the trainer's cuDNN
@@ -5187,7 +5593,7 @@ def chain_rates(cfg_name, card, seed):
                 f"GiB allocated, {d['peak_reserved_gib']:.2f} reserved, "
                 f"idle share {fmt(d['idle_share'], '.3f')} (busy "
                 f"{fmt(d['busy_ms_per_step'], '.2f')} ms/step)")
-    print(f"[chain rate {cfg_name}] {card} | B={u['batch']}, "
+    print(f"[chain rate{tag} {cfg_name}] {card} | B={u['batch']}, "
           f"{CHAIN_TIMED[cfg_name]} timed steps an arm: unchained "
           f"{arm_text(u)} | "
           f"chained by {CHAIN_N} (one replay per call) {arm_text(c)} | "
@@ -5197,12 +5603,14 @@ def chain_rates(cfg_name, card, seed):
     return detail, ok
 
 
-def chain_cli(cfg_name, card, seed):
+def chain_cli(cfg_name, card, seed, dist=False):
     """``cli.sr_mfe -p train`` of a config (the device cache on) on a
     seeded npy pack for CHAIN_CLI_STEPS steps, a checkpoint at the last,
     unchained and with FASTDIFFSR_TPU_STEPS_PER_CALL=CHAIN_N, on cuDNN's
     deterministic algorithms: the checkpoints' params and EMA and the
-    losses equal bit for bit; steady steps/s of both. Returns (detail,
+    losses equal bit for bit; steady steps/s and the peak of reserved
+    device memory over the run, of both. ``dist`` runs both
+    with ``-dist`` (in phase 18's torchrun process). Returns (detail,
     ok)."""
     import torch
 
@@ -5220,7 +5628,8 @@ def chain_cli(cfg_name, card, seed):
     runs = {}
     for chain in ("1", str(CHAIN_N)):
         c = json.loads(json.dumps(cfg))
-        c["name"] = f"chip_smoke_chain_{r_res}_{chain}"
+        c["name"] = (f"chip_smoke_chain{'_dist' if dist else ''}_{r_res}_"
+                     f"{chain}")
         c["path"]["resume_state"] = None
         for ds in c["datasets"].values():
             ds.update(dataroot=pack, datatype="npy")
@@ -5231,13 +5640,20 @@ def chain_cli(cfg_name, card, seed):
         path = os.path.join(work, f"{c['name']}.json")
         with open(path, "w") as f:
             json.dump(c, f)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
         torch.backends.cudnn.deterministic = True
         try:
             with environ({"FASTDIFFSR_TPU_STEPS_PER_CALL": chain}):
                 out = sr_mfe.main(["-p", "train", "-c", path, "--device",
-                                   "cuda", "--seed", str(seed)])
+                                   "cuda", "--seed", str(seed)]
+                                  + (["-dist"] if dist else []))
         finally:
             torch.backends.cudnn.deterministic = False
+        out["peak_reserved_gib"] = (torch.cuda.max_memory_reserved()
+                                    - base) / 2 ** 30
         runs[chain] = out
     a, b = (torch.load(os.path.join(runs[k]["checkpoint"], "state.pt"),
                        map_location="cpu", weights_only=True)
@@ -5249,18 +5665,23 @@ def chain_cli(cfg_name, card, seed):
     ok = (same and same_loss and a["step"] == b["step"] == CHAIN_CLI_STEPS
           and os.path.basename(ch["checkpoint"]).startswith(
               f"I{CHAIN_CLI_STEPS}_"))
-    print(f"[chain cli {cfg_name}] {card} | cli.sr_mfe -p train "
+    print(f"[chain cli{' -dist' if dist else ''} {cfg_name}] {card} | "
+          f"cli.sr_mfe -p train{' -dist' if dist else ''} "
           f"(B={cfg['datasets']['train']['batch_size']}, {l_res}->{r_res}, "
           f"device cache) {CHAIN_CLI_STEPS} steps, cuDNN deterministic: "
           f"checkpoint {os.path.basename(ch['checkpoint'])} with "
           f"FASTDIFFSR_TPU_STEPS_PER_CALL={CHAIN_N} equals the unchained one"
           f" bit for bit {same}, losses {same_loss} | steady "
           f"{u['steady_steps_per_s']:.3f} unchained, "
-          f"{ch['steady_steps_per_s']:.3f} chained steps/s "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{ch['steady_steps_per_s']:.3f} chained steps/s | peak reserved "
+          f"{u['peak_reserved_gib']:.2f} GiB unchained, "
+          f"{ch['peak_reserved_gib']:.2f} chained (the run's set-up "
+          f"included) {'ok' if ok else 'FAIL'}", flush=True)
     return {"bit_equal": same, "losses_equal": same_loss,
             "steps_per_s_unchained": u["steady_steps_per_s"],
-            "steps_per_s_chained": ch["steady_steps_per_s"]}, ok
+            "steps_per_s_chained": ch["steady_steps_per_s"],
+            "peak_reserved_gib_unchained": u["peak_reserved_gib"],
+            "peak_reserved_gib_chained": ch["peak_reserved_gib"]}, ok
 
 
 def chain_worker(seed) -> int:
@@ -5295,33 +5716,66 @@ def chain_worker(seed) -> int:
     return 0 if ok else 1
 
 
-def phase_slice(card, seed):
-    """Phases 24-26 (module docstring): NAFNet's layout modes, the native
-    decoder, chained train steps (parity and the CLI in ``chain_worker``'s
-    process, the rates and profiles here, last). Returns (detail, K1
-    launches per replay by config and chain, ok)."""
-    import torch
-
+def phase_naf_decode(card, seed):
+    """Phases 24-25 (module docstring): NAFNet's layout modes, the native
+    decoder. Returns (detail, seconds of each, ok)."""
     t0 = time.time()
     detail = {}
     detail["naf"], ok = phase_naf_modes(card, seed)
     laps = {"naf": time.time() - t0}
     detail["decode"], d_ok = phase_decode(card, seed)
     ok &= d_ok
-    laps["decode"] = time.time() - t0 - sum(laps.values())
+    laps["decode"] = time.time() - t0 - laps["naf"]
+    return detail, laps, ok
+
+
+def start_chain_worker(seed):
+    """Start ``chain_worker`` (phase 26's parity and CLI runs) in the
+    background; returns (process, log path, start time) for
+    ``phase_slice``."""
+    import atexit
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    log_path = os.path.join(work, "chain_worker.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--chain-worker", "--seed", str(seed)], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    if not _BACKGROUND:
+        atexit.register(_stop_background)
+    _BACKGROUND.append(proc)
+    return proc, log_path, time.time()
+
+
+def phase_slice(card, seed, early=None, chain=None):
+    """Phases 24-26 (module docstring): NAFNet's layout modes and the
+    native decoder (from ``early``, ``phase_naf_decode``'s result, or run
+    here), chained train steps (parity and the CLI in ``chain_worker``'s
+    process, ``chain`` from ``start_chain_worker`` or started here; the
+    rates and profiles here, last). Returns (detail, K1 launches per
+    replay by config and chain, ok)."""
+    import torch
+
+    t0 = time.time()
+    detail, laps, ok = early or phase_naf_decode(card, seed)
+    detail, laps = dict(detail), dict(laps)
+    if early:
+        t0 -= sum(laps.values())        # the phases' own seconds
     gc.collect()
     torch.cuda.empty_cache()
+    proc, log_path, t_chain = chain or start_chain_worker(seed)
     try:
-        proc = subprocess.run(
-            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-             "--chain-worker", "--seed", str(seed)],
-            capture_output=True, text=True, timeout=CHAIN_TIMEOUT)
-        out, rc = proc.stdout, proc.returncode
-        err = proc.stderr
-    except subprocess.TimeoutExpired as e:      # run() killed the worker
-        out, rc = e.stdout or "", None
-        out = out if isinstance(out, str) else out.decode(errors="replace")
-        err = f"the chain worker outlived {CHAIN_TIMEOUT} s"
+        rc = proc.wait(timeout=max(1.0, CHAIN_TIMEOUT
+                                   - (time.time() - t_chain)))
+        err = ""
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc, err = None, f"the chain worker outlived {CHAIN_TIMEOUT} s"
+    with open(log_path) as f:
+        out = f.read()
+    err = err or out
     lines = out.splitlines()
     for line in lines:
         if line.startswith("[chain"):
@@ -5335,7 +5789,9 @@ def phase_slice(card, seed):
     detail.update(res["detail"])
     nodes = res["nodes"]
     ok &= bool(res["ok"]) and rc == 0
-    laps["parity, cli (worker)"] = time.time() - t0 - sum(laps.values())
+    laps["parity, cli (worker, the wait)"] = (time.time() - t0
+                                              - sum(laps.values()))
+    detail["chain_worker_s"] = time.time() - t_chain
     for cfg_name in CHAIN_CONFIGS:
         detail[f"chain_rates_{cfg_name}"], r_ok = chain_rates(cfg_name, card,
                                                               seed)
@@ -5367,7 +5823,8 @@ def main(argv=None) -> int:
                     help="phase 18's rank, started by torchrun")
     ap.add_argument("--serving-only", action="store_true",
                     help="in place of phases 2-18: only phases 19-20 (the "
-                         "serving export and the DDPM wrapper)")
+                         "serving export and the DDPM wrapper), one after "
+                         "the other")
     ap.add_argument("--demo-only", action="store_true",
                     help="in place of phases 2-20: only phase 21 (the demo "
                          "path: data.prepare, the x8 demo config with its "
@@ -5390,15 +5847,22 @@ def main(argv=None) -> int:
     ap.add_argument("--chain-worker", action="store_true",
                     help="phase 26's process (replay vs eager, the CLI "
                          "chained)")
+    ap.add_argument("--side-worker", action="store_true",
+                    help="phases 16-17's process (EDiffSR, MSI), which "
+                         "runs beside phases 12, 15, 20 and 24-25")
     args = ap.parse_args(argv)
     if args.dist_worker:
         return dist_worker(args.dist_worker)
     if args.chain_worker:
         return chain_worker(args.seed)
+    if args.side_worker:
+        return side_worker(args.seed)
     if args.serving_worker:
         return serving_worker(*args.serving_worker)
 
     t_start = time.time()
+    # a SIGTERM exits through atexit, which stops the background workers
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -5623,51 +6087,66 @@ def main(argv=None) -> int:
     detail["k1_variants"], k1v_ok = phase_k1_variants(k1_rows, card,
                                                       args.seed)
     lap("11 K1 variants")
-    detail["variants"], k1_variant_launches, var_ok = phase_variants(
-        card, args.seed, droot)
-    lap("12 variants")
-    ok &= samp_ok and k1v_ok and var_ok
+    ok &= samp_ok and k1v_ok
 
-    # 13. K3/K2 at the 128->512 shapes; 14. the 128->512 path; 15. cli.fid
+    # 13. K3/K2 at the 128->512 shapes; 14. the 128->512 path (both
+    # alone on the card, before the phases that run beside others)
     detail["k512"], k512_ok = phase_512_kernels(card, args.seed)
     lap("13 K3, K2 at 512")
     detail["infer_512"], i512_ok = phase_512_infer(card, args.seed)
     lap("14 infer 128->512")
+    ok &= k512_ok and i512_ok
+
+    # from here to phase 18, two more processes beside the smoke's: phase
+    # 19's workers preparing (niced: exports, loads, the in-process
+    # references), and phases 16-17 (EDiffSR, MSI)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = start_serving(args.seed, serving_cpus())
+    side = start_side(args.seed)
+
+    # 12. the ddpm/tesr/gdp variants end to end; 15. cli.fid; phase 18's
+    # plain references; 20. the DDPM wrapper; 24. NAFNet's layout modes;
+    # 25. the native decoder
+    detail["variants"], k1_variant_launches, var_ok = phase_variants(
+        card, args.seed, droot)
+    lap("12 variants (beside 16-17)")
     detail["fid"], fid_ok = phase_fid(card, args.seed)
-    lap("15 fid")
-    ok &= k512_ok and i512_ok and fid_ok
+    lap("15 fid (beside 16-17)")
+    ok &= var_ok and fid_ok
+    dist_pre = dist_refs(args.seed, beside="beside phases 16-17")
+    lap("18 plain references (beside 16-17)")
+    detail["ddpm"], ddpm_k1, ddpm_launches, ddpm_ok = phase_ddpm(card,
+                                                                 args.seed)
+    lap("20 DDPM wrapper (beside 16-17)")
+    naf_decode = phase_naf_decode(card, args.seed)
+    lap("24-25 NAFNet modes, decoder (beside 16-17)")
+    ok &= ddpm_ok and naf_decode[2]
 
-    # 16. EDiffSR: training, --test with the three samplers, card vs CPU
-    gc.collect()
-    torch.cuda.empty_cache()
-    detail["ediffsr"], ediffsr_ok = phase_ediffsr(card, args.seed)
-    lap("16 ediffsr")
-    ok &= ediffsr_ok
-
+    # 16. EDiffSR: training, --test with the three samplers, card vs CPU;
     # 17. MSI: the five baselines through msi.main, GAN, card vs CPU
-    gc.collect()
-    torch.cuda.empty_cache()
-    detail["msi"], msi_ok = phase_msi(card, args.seed)
-    lap("17 msi")
-    ok &= msi_ok
+    detail["ediffsr"], detail["msi"], side_s, side_ok = join_side(side, card)
+    detail["side_seconds"] = side_s
+    lap("16-17 ediffsr, msi (the wait)")
+    ok &= side_ok
 
-    # 18. data parallel under torchrun (world size 1, NCCL)
+    # 18. data parallel under torchrun (world size 1, NCCL), alone on the
+    # card once phase 19's in-process references are done
+    await_early_reference(pool, card)
     gc.collect()
     torch.cuda.empty_cache()
-    detail["dist"], dist_launches, dist_ok = phase_dist(card, args.seed)
+    detail["dist"], dist_launches, dist_ok = phase_dist(card, args.seed,
+                                                        dist_pre)
     lap("18 dist")
     ok &= dist_ok
 
-    # 19. the serving export; 20. the DDPM wrapper
+    # 19. the serving export (its workers' turns)
     gc.collect()
     torch.cuda.empty_cache()
-    detail["serving"], serve_launches, export_ok = phase_serving(card,
-                                                                 args.seed)
+    detail["serving"], serve_launches, export_ok = phase_serving(
+        card, args.seed, pool)
     lap("19 serving export")
-    detail["ddpm"], ddpm_k1, ddpm_launches, ddpm_ok = phase_ddpm(card,
-                                                                 args.seed)
-    lap("20 DDPM wrapper")
-    ok &= export_ok and ddpm_ok
+    ok &= export_ok
 
     # 21. the demo path: data.prepare, the x8 demo config, 64x64 kernels
     gc.collect()
@@ -5684,19 +6163,25 @@ def main(argv=None) -> int:
     ok &= quant_ok
 
     # 23. the exact rewrites: Upsample forms, fold, skip_concat, conv_split
+    # (beside phase 26's chain worker)
     gc.collect()
     torch.cuda.empty_cache()
+    chain = start_chain_worker(args.seed)
     detail["rewrites"], rewrite_k1_launches, rw_ok = phase_rewrites(
         card, args.seed)
-    lap("23 rewrites")
+    lap("23 rewrites (beside 26's worker)")
     ok &= rw_ok
 
-    # 24. NAFNet's layout modes; 25. the native decoder; 26. chained
-    # train steps (its profiles last)
+    # 26. chained train steps (its profiles last)
     gc.collect()
     torch.cuda.empty_cache()
-    detail["slice"], chain_nodes, sl_ok = phase_slice(card, args.seed)
-    lap("24-26 NAFNet modes, decoder, chained steps")
+    detail["slice"], chain_nodes, sl_ok = phase_slice(card, args.seed,
+                                                      naf_decode, chain)
+    # the train config's chain, under -dist in phase 18's rank
+    chain_nodes[f"-dist {DIST_CHAIN_CONFIG} n={CHAIN_N}"] = detail[
+        "dist"].get("chain", {}).get("parity", {}).get(
+            "kernels_per_replay", {}).get("gn_swish_apply_kernel")
+    lap("26 chained steps")
     ok &= sl_ok
     demo = detail["demo"]
     k3_512, k2_512 = detail["k512"]["k3"], detail["k512"]["k2"]

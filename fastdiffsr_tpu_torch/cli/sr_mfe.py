@@ -43,8 +43,9 @@ cli/sr_mfe.py:183). ``train.steps_per_call`` (or
 device-cache loop into one call, on CUDA one CUDA-graph replay
 (``train.make_cached_train_step``), with the same draws and arithmetic
 as n calls; :func:`steps_per_call` clamps n as JAX does, so that every
-print, validation and checkpoint lands on a call edge. ``-dist`` with a
-chain above 1 on CUDA raises (ROADMAP.md queue 1 item 7e-dist). The
+print, validation and checkpoint lands on a call edge. Under ``-dist``
+the replay holds the gradients' all-reduce too (the bare net, averaged
+by ``parallel.average_gradients`` in place of DDP's backward). The
 device cache is uploaded ``FASTDIFFSR_TPU_UPLOAD_CHUNK`` tiles (1024 by
 default) at a time into a preallocated device tensor
 (:func:`upload_chunked`). ``-debug``

@@ -15,7 +15,12 @@ gdp          x0          discrete_t       hr            l2       1000
 the training loss (:meth:`DiffusionEngine.training_loss`, with the
 optional image-space SSIM term) and the ancestral sampler. PyTorch runs
 eagerly, so the T steps are a Python loop around the denoiser instead of
-one ``lax.scan`` program.
+one ``lax.scan`` program. Each sampler is one step update of (carry,
+denoiser output, the step's constants, its noise) and its constants
+stacked in loop order, as JAX's ``consts`` are; the loop calls it, and
+so does :meth:`DiffusionEngine.sample_scan`, the one-scan form that the
+serving export traces for a long sampler, with its noise drawn inside by
+:func:`counter_normal` from one int64 seed per image.
 
 Noise: JAX keys become ``torch.Generator``s. The sampler takes one
 generator per image and draws that image's initial noise and then one
@@ -40,6 +45,7 @@ Layout is NHWC throughout.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -103,6 +109,63 @@ def normal_per_generator(generators: Sequence[torch.Generator], shape,
     return torch.stack([torch.randn(tuple(shape), generator=g, device=device,
                                     dtype=torch.float32)
                         for g in generators])
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 of int64 ``x`` in [0, 2^32) and a 32-bit constant,
+    by the 16-bit halves of ``c``: no product reaches 2^49, so nothing
+    relies on the wraparound of a signed overflow."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijection of [0, 2^32) whose every output bit depends on every
+    input bit (C. Wellons' ``lowbias32`` integer hash)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def counter_normal(seeds: torch.Tensor, index, shape) -> torch.Tensor:
+    """(B, *shape) float32 standard normal draws, row i a function of
+    (``seeds[i]``, ``index``, element) alone: a counter-based stream of
+    integer tensor ops that a traced program computes as the eager code
+    does. Each element hashes (seed, index, 2 * element + j) for j = 0, 1
+    into two 32-bit uniforms in (0, 1), which Box-Muller maps to a normal
+    (in float64). ``seeds`` are int64 (all 64 bits count); ``index`` an
+    int or a 0-d int64 tensor in [0, 2^32). The stream is neither
+    ``torch.Generator``'s nor JAX's threefry."""
+    n = math.prod(shape)
+    s = seeds.to(torch.int64)
+    key = _mix32(_mix32(_mix32(s & _M32) ^ ((s >> 32) & _M32))
+                 ^ (index & _M32))
+    e = torch.arange(2 * n, device=s.device, dtype=torch.int64)
+    h = _mix32(_mix32(key[:, None] ^ e) ^ 0x9E3779B9)
+    u = ((h.double() + 0.5) / 2.0 ** 32).reshape(s.shape[0], n, 2)
+    z = torch.sqrt(-2.0 * torch.log(u[..., 0])) * torch.cos(
+        2.0 * math.pi * u[..., 1])
+    return z.float().reshape(s.shape[0], *shape)
+
+
+def counter_noise(seeds: torch.Tensor, steps: int, shape,
+                  by_timestep: bool = False):
+    """What :meth:`DiffusionEngine.sample_scan` draws from ``seeds``, as
+    the Python loops take it: (init_noise (B,*shape) at index 0,
+    noise_seq (steps,B,*shape) or None), step k's draw at index k + 1 in
+    loop order; ``by_timestep`` lays an ancestral sequence out by
+    timestep (step k at T-1-k)."""
+    init = counter_normal(seeds, 0, shape)
+    if not steps:
+        return init, None
+    seq = [counter_normal(seeds, k + 1, shape) for k in range(steps)]
+    if by_timestep:
+        seq.reverse()
+    return init, torch.stack(seq)
 
 
 class DiffusionEngine:
@@ -254,17 +317,6 @@ class DiffusionEngine:
             return torch.cat([cond, x], dim=-1)
         return torch.cat([x, cond], dim=-1)
 
-    def predict_start_from_noise(self, x_t, t_idx: int, noise):
-        b = self.buffers
-        return (b.sqrt_recip_alphas_cumprod[t_idx] * x_t
-                - b.sqrt_recipm1_alphas_cumprod[t_idx] * noise)
-
-    def q_posterior(self, x_start, x_t, t_idx: int):
-        b = self.buffers
-        mean = (b.posterior_mean_coef1[t_idx] * x_start
-                + b.posterior_mean_coef2[t_idx] * x_t)
-        return mean, b.posterior_log_variance_clipped[t_idx]
-
     def _start(self, cond, shape, generators, init_noise,
                need_generators: bool):
         """(x_T, shape, device) of a reverse process: ``init_noise`` or
@@ -300,67 +352,62 @@ class DiffusionEngine:
             x0 = torch.clamp(x0, -1.0, 1.0)
         return x0
 
-    def _ancestral_step(self, x, model_out, t: int, noise):
-        """One reverse step of the posterior q(x_{t-1} | x_t, x0): x0 from
-        the output (clipped where the spec says so), then the posterior
-        mean plus ``noise`` at the posterior's scale (none at t = 0)."""
+    # one step of each sampler: update(carry, model_out, c, noise) -> carry,
+    # where the carry is (x,) ((x, x0 of the step before) for DPM-Solver++),
+    # c one step's constants and noise its draw (None where it draws none)
+
+    def _ancestral_update(self, carry, model_out, c, noise):
+        """The posterior q(x_{t-1} | x_t, x0): x0 from the output (clipped
+        where the spec says so), then the posterior mean plus ``noise`` at
+        the posterior's scale (none at t = 0)."""
+        x, = carry
         if self.spec.prediction == "x0":
             x_recon = model_out
         else:
-            x_recon = self.predict_start_from_noise(x, t, model_out)
+            x_recon = c["recip"] * x - c["recipm1"] * model_out
         if self.spec.clip_denoised:
             x_recon = torch.clamp(x_recon, -1.0, 1.0)
-        mean, log_var = self.q_posterior(x_recon, x, t)
-        nonzero = 1.0 if t > 0 else 0.0
-        return mean + nonzero * noise * torch.exp(0.5 * log_var)
+        mean = c["coef1"] * x_recon + c["coef2"] * x
+        return (mean + c["nonzero"] * noise * torch.exp(0.5 * c["log_var"]),)
 
-    def _level(self, t: int, noise_level: torch.Tensor, bsz: int, device):
+    def _ddim_update(self, carry, model_out, c, noise):
+        x, = carry
+        x0 = self._start_estimate(x, model_out, c["sqrt_a_t"],
+                                  c["sqrt_1m_a_t"])
+        # eps re-derived from the (possibly clipped) x0
+        eps = (x - c["sqrt_a_t"] * x0) / c["sqrt_1m_a_t_safe"]
+        x = c["sqrt_a_prev"] * x0 + c["dir_coef"] * eps
+        if noise is not None:   # the deterministic path draws no noise
+            x = x + c["sigma"] * noise
+        return (x,)
+
+    def _dpm_update(self, carry, model_out, c, noise):
+        x, x0_prev = carry
+        x0 = self._start_estimate(x, model_out, c["sqrt_a_t"],
+                                  c["sqrt_1m_a_t"])
+        d = c["w_cur"] * x0 + c["w_prev"] * x0_prev
+        return (c["coef_x"] * x + c["coef_D"] * d, x0)
+
+    def _levels(self, ts, noise_level: torch.Tensor) -> torch.Tensor:
+        """The denoiser's level at each step: the timestep (discrete-t
+        conditioning) or ``noise_level``."""
         if self.spec.conditioning == "discrete_t":
-            return torch.full((bsz,), float(t), device=device)
-        return noise_level.expand(bsz)
+            return torch.as_tensor(np.asarray(ts, np.float32),
+                                   device=noise_level.device)
+        return noise_level
 
-    @torch.no_grad()
-    def sample(self,
-               denoise_fn: DenoiseFn,
-               cond: Optional[torch.Tensor],
-               generators: Optional[Sequence[torch.Generator]] = None,
-               shape: Optional[tuple] = None,
-               init_noise: Optional[torch.Tensor] = None,
-               noise_seq: Optional[torch.Tensor] = None,
-               return_trajectory: bool = False):
-        """Ancestral reverse diffusion over t = T-1 ... 0.
-
-        ``cond`` is the bicubic-upsampled LR batch (B,H,W,C) in [-1, 1]
-        (None plus ``shape`` for unconditional sampling). ``generators``
-        holds one generator per image; ``init_noise`` (B,H,W,C) and
-        ``noise_seq`` (T,B,H,W,C, indexed by timestep t) override the
-        draws. Returns the final image, folded back through
-        :func:`res2img` when the target space is the residual and
-        ``cond`` is given; with ``return_trajectory``, (final, trajectory):
-        the (T,B,H,W,C) stack of every x_{t-1} in sampling order (t = T-1
-        ... 0), each folded back the same way, so its last frame is the
-        final image.
-        """
+    def _ancestral_consts(self, ts) -> dict:
+        """The ancestral steps' constants at the timesteps ``ts``, stacked
+        in loop order (JAX's ``consts``)."""
         b = self.buffers
-        x, shape, device = self._start(
-            cond, shape, generators, init_noise,
-            init_noise is None or noise_seq is None)
-        bsz = shape[0]
-        frames = []
-        for t in range(b.num_timesteps - 1, -1, -1):
-            level = self._level(t, b.sqrt_alphas_cumprod_prev[t + 1], bsz,
-                                device)
-            model_out = denoise_fn(self._pack(x, cond), level).float()
-            if noise_seq is not None:
-                noise = noise_seq[t].to(device, torch.float32)
-            else:
-                noise = normal_per_generator(generators, shape[1:], device)
-            x = self._ancestral_step(x, model_out, t, noise)
-            if return_trajectory:
-                frames.append(self._finish(x, cond))
-        if return_trajectory:
-            return frames[-1], torch.stack(frames)
-        return self._finish(x, cond)
+        t = torch.as_tensor(np.asarray(ts, np.int64), device=b.betas.device)
+        return {"level": self._levels(ts, b.sqrt_alphas_cumprod_prev[t + 1]),
+                "recip": b.sqrt_recip_alphas_cumprod[t],
+                "recipm1": b.sqrt_recipm1_alphas_cumprod[t],
+                "coef1": b.posterior_mean_coef1[t],
+                "coef2": b.posterior_mean_coef2[t],
+                "log_var": b.posterior_log_variance_clipped[t],
+                "nonzero": (t > 0).float()}
 
     def _subsequence(self, steps: Optional[int]):
         """JAX's timestep subsequence: descending ``ts`` of ``steps`` (T
@@ -382,23 +429,7 @@ class DiffusionEngine:
         return {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
                 for k, v in arrays.items()}
 
-    @torch.no_grad()
-    def sample_ddim(self,
-                    denoise_fn: DenoiseFn,
-                    cond: Optional[torch.Tensor],
-                    generators: Optional[Sequence[torch.Generator]] = None,
-                    steps: Optional[int] = None,
-                    eta: float = 0.0,
-                    shape: Optional[tuple] = None,
-                    init_noise: Optional[torch.Tensor] = None,
-                    noise_seq: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-        """DDIM (Song et al., ICLR 2021) on the timestep subsequence of
-        :meth:`_subsequence`: ``steps`` UNet evals (T when None),
-        deterministic when ``eta == 0``. With ``eta > 0`` each step adds
-        ``sigma_k`` times a fresh draw from each image's generator, or
-        ``noise_seq[k]`` ((steps,B,H,W,C), indexed by step in loop
-        order). ``init_noise`` overrides the initial draw."""
+    def _ddim_consts(self, steps: Optional[int], eta: float) -> dict:
         ts, _, a_t, a_prev = self._subsequence(steps)
         sigma = (eta * np.sqrt((1 - a_prev) / (1 - a_t))
                  * np.sqrt(1 - a_t / a_prev))
@@ -408,43 +439,10 @@ class DiffusionEngine:
             dir_coef=np.sqrt(np.maximum(1 - a_prev - sigma ** 2, 0.0)),
             sigma=sigma)
         c["sqrt_1m_a_t_safe"] = torch.clamp(c["sqrt_1m_a_t"], min=1e-8)
-        noisy = eta != 0.0
-        x, shape, device = self._start(
-            cond, shape, generators, init_noise,
-            init_noise is None or (noisy and noise_seq is None))
-        bsz = shape[0]
-        for k, t in enumerate(ts):
-            level = self._level(t, c["sqrt_a_t"][k], bsz, device)
-            model_out = denoise_fn(self._pack(x, cond), level).float()
-            x0 = self._start_estimate(x, model_out, c["sqrt_a_t"][k],
-                                      c["sqrt_1m_a_t"][k])
-            # eps re-derived from the (possibly clipped) x0
-            eps = (x - c["sqrt_a_t"][k] * x0) / c["sqrt_1m_a_t_safe"][k]
-            x = c["sqrt_a_prev"][k] * x0 + c["dir_coef"][k] * eps
-            if noisy:   # the deterministic path draws no noise
-                noise = (noise_seq[k].to(device, torch.float32)
-                         if noise_seq is not None
-                         else normal_per_generator(generators, shape[1:],
-                                                   device))
-                x = x + c["sigma"][k] * noise
-        return self._finish(x, cond)
+        c["level"] = self._levels(ts, c["sqrt_a_t"])
+        return c
 
-    @torch.no_grad()
-    def sample_dpm(self,
-                   denoise_fn: DenoiseFn,
-                   cond: Optional[torch.Tensor],
-                   generators: Optional[Sequence[torch.Generator]] = None,
-                   steps: Optional[int] = None,
-                   shape: Optional[tuple] = None,
-                   init_noise: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
-        """DPM-Solver++(2M) (Lu et al. 2022, arXiv:2211.01095, Algorithm
-        2): the deterministic multistep second-order solver of the
-        probability-flow ODE in data prediction, on the same timestep
-        subsequence as :meth:`sample_ddim`. The first step (no history)
-        and the final one (t_prev = -1, h = inf) are first order, i.e.
-        the DDIM eta=0 update. The generators draw only the initial
-        noise."""
+    def _dpm_consts(self, steps: Optional[int]) -> dict:
         ts, t_prev, a_cur, a_prev = self._subsequence(steps)
         al_cur, sg_cur = np.sqrt(a_cur), np.sqrt(1.0 - a_cur)
         al_prev, sg_prev = np.sqrt(a_prev), np.sqrt(1.0 - a_prev)
@@ -471,19 +469,164 @@ class DiffusionEngine:
             w_prev[k] = -1.0 / (2.0 * r)
         c = self._consts(sqrt_a_t=al_cur, sqrt_1m_a_t=sg_cur, coef_x=coef_x,
                          coef_D=coef_D, w_cur=w_cur, w_prev=w_prev)
+        c["level"] = self._levels(ts, c["sqrt_a_t"])
+        return c
+
+    def _program(self, sampler: str, steps: Optional[int] = None,
+                 eta: float = 0.0):
+        """(constants stacked in loop order, step update, whether a step
+        draws noise, whether the carry holds DPM's x0 history) of a
+        sampler: what its Python loop and :meth:`sample_scan` run."""
+        if sampler == "ancestral":
+            T = self.buffers.num_timesteps
+            return (self._ancestral_consts(range(T - 1, -1, -1)),
+                    self._ancestral_update, True, False)
+        if sampler == "ddim":
+            return (self._ddim_consts(steps, eta), self._ddim_update,
+                    eta != 0.0, False)
+        if sampler == "dpm":
+            return self._dpm_consts(steps), self._dpm_update, False, True
+        raise ValueError(f"sampler={sampler!r} (want 'ancestral', 'ddim' "
+                         "or 'dpm')")
+
+    def _loop(self, program, denoise_fn, cond, x, noise_at, on_step=None):
+        """A sampler's reverse loop from ``x``: one denoiser call and one
+        update per step, step k's noise from ``noise_at(k)`` (called
+        after the denoiser, only where the sampler draws)."""
+        consts, update, noisy, history = program
+        carry = (x, torch.zeros_like(x)) if history else (x,)
+        for k in range(len(consts["level"])):
+            c = {name: v[k] for name, v in consts.items()}
+            x = carry[0]
+            model_out = denoise_fn(self._pack(x, cond),
+                                   c["level"].expand(x.shape[0])).float()
+            carry = update(carry, model_out, c, noise_at(k) if noisy
+                           else None)
+            if on_step is not None:
+                on_step(carry[0])
+        return carry[0]
+
+    @torch.no_grad()
+    def sample(self,
+               denoise_fn: DenoiseFn,
+               cond: Optional[torch.Tensor],
+               generators: Optional[Sequence[torch.Generator]] = None,
+               shape: Optional[tuple] = None,
+               init_noise: Optional[torch.Tensor] = None,
+               noise_seq: Optional[torch.Tensor] = None,
+               return_trajectory: bool = False):
+        """Ancestral reverse diffusion over t = T-1 ... 0.
+
+        ``cond`` is the bicubic-upsampled LR batch (B,H,W,C) in [-1, 1]
+        (None plus ``shape`` for unconditional sampling). ``generators``
+        holds one generator per image; ``init_noise`` (B,H,W,C) and
+        ``noise_seq`` (T,B,H,W,C, indexed by timestep t) override the
+        draws. Returns the final image, folded back through
+        :func:`res2img` when the target space is the residual and
+        ``cond`` is given; with ``return_trajectory``, (final, trajectory):
+        the (T,B,H,W,C) stack of every x_{t-1} in sampling order (t = T-1
+        ... 0), each folded back the same way, so its last frame is the
+        final image.
+        """
+        T = self.buffers.num_timesteps
+        x, shape, device = self._start(
+            cond, shape, generators, init_noise,
+            init_noise is None or noise_seq is None)
+
+        def noise_at(k):
+            if noise_seq is not None:
+                return noise_seq[T - 1 - k].to(device, torch.float32)
+            return normal_per_generator(generators, shape[1:], device)
+
+        frames = []
+        x = self._loop(self._program("ancestral"), denoise_fn, cond, x,
+                       noise_at, (lambda x: frames.append(
+                           self._finish(x, cond)))
+                       if return_trajectory else None)
+        if return_trajectory:
+            return frames[-1], torch.stack(frames)
+        return self._finish(x, cond)
+
+    @torch.no_grad()
+    def sample_ddim(self,
+                    denoise_fn: DenoiseFn,
+                    cond: Optional[torch.Tensor],
+                    generators: Optional[Sequence[torch.Generator]] = None,
+                    steps: Optional[int] = None,
+                    eta: float = 0.0,
+                    shape: Optional[tuple] = None,
+                    init_noise: Optional[torch.Tensor] = None,
+                    noise_seq: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """DDIM (Song et al., ICLR 2021) on the timestep subsequence of
+        :meth:`_subsequence`: ``steps`` UNet evals (T when None),
+        deterministic when ``eta == 0``. With ``eta > 0`` each step adds
+        ``sigma_k`` times a fresh draw from each image's generator, or
+        ``noise_seq[k]`` ((steps,B,H,W,C), indexed by step in loop
+        order). ``init_noise`` overrides the initial draw."""
+        x, shape, device = self._start(
+            cond, shape, generators, init_noise,
+            init_noise is None or (eta != 0.0 and noise_seq is None))
+
+        def noise_at(k):
+            if noise_seq is not None:
+                return noise_seq[k].to(device, torch.float32)
+            return normal_per_generator(generators, shape[1:], device)
+
+        return self._finish(self._loop(self._program("ddim", steps, eta),
+                                       denoise_fn, cond, x, noise_at), cond)
+
+    @torch.no_grad()
+    def sample_dpm(self,
+                   denoise_fn: DenoiseFn,
+                   cond: Optional[torch.Tensor],
+                   generators: Optional[Sequence[torch.Generator]] = None,
+                   steps: Optional[int] = None,
+                   shape: Optional[tuple] = None,
+                   init_noise: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """DPM-Solver++(2M) (Lu et al. 2022, arXiv:2211.01095, Algorithm
+        2): the deterministic multistep second-order solver of the
+        probability-flow ODE in data prediction, on the same timestep
+        subsequence as :meth:`sample_ddim`. The first step (no history)
+        and the final one (t_prev = -1, h = inf) are first order, i.e.
+        the DDIM eta=0 update. The generators draw only the initial
+        noise."""
         x, shape, device = self._start(cond, shape, generators, init_noise,
                                        init_noise is None)
-        bsz = shape[0]
-        x0_prev = torch.zeros_like(x)
-        for k, t in enumerate(ts):
-            level = self._level(t, c["sqrt_a_t"][k], bsz, device)
-            model_out = denoise_fn(self._pack(x, cond), level).float()
-            x0 = self._start_estimate(x, model_out, c["sqrt_a_t"][k],
-                                      c["sqrt_1m_a_t"][k])
-            d = c["w_cur"][k] * x0 + c["w_prev"][k] * x0_prev
-            x = c["coef_x"][k] * x + c["coef_D"][k] * d
-            x0_prev = x0
-        return self._finish(x, cond)
+        return self._finish(self._loop(self._program("dpm", steps),
+                                       denoise_fn, cond, x, None), cond)
+
+    def sample_scan(self, denoise_fn: DenoiseFn, cond: torch.Tensor,
+                    seeds: torch.Tensor, sampler: str = "ancestral",
+                    steps: Optional[int] = None,
+                    eta: float = 0.0) -> torch.Tensor:
+        """The sampler as one ``torch._higher_order_ops.scan`` over its
+        stacked per-step constants and the step's draw index, the form the
+        serving export traces for a long sampler (one UNet eval in the
+        graph, whatever T). The scan carries only the map (and DPM's x0
+        history) and emits nothing per step. The noise is drawn inside:
+        :func:`counter_normal` of ``seeds`` (B,) int64, index 0 the
+        initial map and k + 1 step k's draw, which :func:`counter_noise`
+        lays out as the Python loops take it. For tracing (eager calls
+        take the loops)."""
+        from torch._higher_order_ops.scan import scan
+        consts, update, noisy, history = self._program(sampler, steps, eta)
+        shape = tuple(cond.shape[1:])
+        x = counter_normal(seeds, 0, shape)
+        xs = dict(consts, index=torch.arange(
+            1, len(consts["level"]) + 1, device=x.device))
+
+        def body(carry, c):
+            x = carry[0]
+            model_out = denoise_fn(self._pack(x, cond),
+                                   c["level"].expand(x.shape[0])).float()
+            noise = counter_normal(seeds, c["index"], shape) if noisy else None
+            return update(carry, model_out, c, noise), ()
+
+        carry, _ = scan(body, (x, torch.zeros_like(x)) if history else (x,),
+                        xs)
+        return self._finish(carry[0], cond)
 
     @torch.no_grad()
     def interpolate(self, denoise_fn: DenoiseFn, x1: torch.Tensor,
@@ -517,12 +660,7 @@ class DiffusionEngine:
         n1, n2 = draw(noise1, x1.shape), draw(noise2, x2.shape)
         sa, s1m = b.sqrt_alphas_cumprod[t], b.sqrt_one_minus_alphas_cumprod[t]
         x = (1 - lam) * (sa * x1 + s1m * n1) + lam * (sa * x2 + s1m * n2)
-        bsz = x1.shape[0]
-        for t_idx in range(t - 1, -1, -1):
-            level = self._level(t_idx, b.sqrt_alphas_cumprod_prev[t_idx + 1],
-                                bsz, device)
-            model_out = denoise_fn(x, level).float()
-            noise = draw(None if noise_seq is None else noise_seq[t_idx],
-                         x.shape)
-            x = self._ancestral_step(x, model_out, t_idx, noise)
-        return x
+        program = (self._ancestral_consts(range(t - 1, -1, -1)),
+                   self._ancestral_update, True, False)
+        return self._loop(program, denoise_fn, None, x, lambda k: draw(
+            None if noise_seq is None else noise_seq[t - 1 - k], x.shape))

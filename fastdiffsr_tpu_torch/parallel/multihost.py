@@ -17,7 +17,8 @@ unchanged: :func:`data_parallel` wraps a net in
 ``DistributedDataParallel`` (gradients averaged over the ranks in the
 backward), :func:`broadcast_from_main` is ``replicate`` (every rank
 takes rank 0's tensors), :func:`all_reduce_mean` / :func:`all_reduce_sum`
-reduce logged scalars and metric sums.
+reduce logged scalars and metric sums. :func:`average_gradients` is
+DDP's averaging without DDP, for the chained train step's CUDA graph.
 """
 
 from __future__ import annotations
@@ -140,6 +141,23 @@ def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
     y = x.detach().clone()
     dist.all_reduce(y)
     return y / dist.get_world_size()
+
+
+def average_gradients(params) -> None:
+    """Average the gradients of ``params`` over the ranks in place, as DDP
+    does: each scaled by 1/W (the reducer's factor), then summed by one
+    all-reduce over ``WORLD`` of a flat buffer of them. Nothing without a
+    process group. It keeps no host state between calls, so a CUDA graph
+    can hold it (the chained train step's, ``train.steps``), and runs
+    eagerly on gloo as on NCCL."""
+    if not dist.is_initialized():
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    flat.mul_(1.0 / dist.get_world_size())
+    dist.all_reduce(flat, group=dist.group.WORLD)
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
 
 
 def all_reduce_sum(x) -> np.ndarray:

@@ -15,6 +15,8 @@ are captured once into a ``torch.cuda.CUDAGraph`` and every later call
 is one replay of it (:class:`_CapturedSteps`), which leaves no host gap
 between the kernels (the FastDiffSR step at 256x256, batch 4, leaves the
 device idle for 0.143 of its time when it is launched from Python).
+Under a process group the captured steps run the bare net and average
+its gradients themselves (``parallel.average_gradients``), as DDP does.
 
 Under a ``torch.distributed`` group of W ranks a rank's batch is its
 ``parallel.rank_rows`` block of the global batch. Every rank draws the
@@ -40,6 +42,7 @@ DPM-Solver++) around a denoiser.
 
 from __future__ import annotations
 
+import gc
 import warnings
 from typing import Callable, Dict, Optional
 
@@ -49,7 +52,8 @@ import torch.distributed as dist
 
 from ..diffusion.engine import DiffusionEngine
 from ..ops.quant import shared_activation_scale
-from ..parallel import all_reduce_mean, rank, rank_rows, world_size
+from ..parallel import (all_reduce_mean, average_gradients, rank,
+                        rank_rows, world_size)
 from .state import TrainState
 
 
@@ -64,12 +68,26 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(_step_seed(seed, step))
 
 
+def _rank_seed(seed: int, r: int) -> int:
+    return int(np.random.SeedSequence([int(seed), 3, int(r)])
+               .generate_state(1, np.uint64)[0])
+
+
 def rank_generator(generator: torch.Generator, r: int) -> torch.Generator:
     """A stream of rank ``r``'s own, derived from ``generator``'s seed."""
-    state = np.random.SeedSequence(
-        [int(generator.initial_seed()), 3, int(r)]).generate_state(
-            1, np.uint64)[0]
-    return torch.Generator(device=generator.device).manual_seed(int(state))
+    return torch.Generator(device=generator.device).manual_seed(
+        _rank_seed(generator.initial_seed(), r))
+
+
+def replay_seeds(seed: int, step: int, n: int, r: int, world: int) -> list:
+    """The seeds of the generators of ``n`` chained steps from ``step``
+    (:class:`_CapturedSteps`), per sub-step s: (the seed of
+    ``step_generator(seed, s)``, the seed of ``rank_generator`` of it for
+    rank ``r``, None in a world of 1, whose step draws its dropout from
+    the step's generator)."""
+    return [(_step_seed(seed, s),
+             _rank_seed(_step_seed(seed, s), r) if world > 1 else None)
+            for s in range(step, step + n)]
 
 
 def _ema_decay(ema_decay: float, ema_start: int, step: int) -> float:
@@ -78,11 +96,17 @@ def _ema_decay(ema_decay: float, ema_start: int, step: int) -> float:
 
 
 def _step_body(engine: DiffusionEngine, state: TrainState, batch, generator,
-               decay: torch.Tensor, noise=None, gamma=None, t=None) -> dict:
+               decay: torch.Tensor, noise=None, gamma=None, t=None,
+               net_gen=None) -> dict:
     """One optimizer step on ``state`` (without advancing ``state.step``):
     the loss, the backward, the update and the EMA with ``decay``, a 0-d
     float32 tensor on the net's device (so that a captured step reads the
-    decay of the step it replays)."""
+    decay of the step it replays). The dropout masks come from
+    ``net_gen``, else (in a world of 1) ``generator``, else
+    ``rank_generator(generator, rank)``. The forward runs
+    ``state.train_net``: DDP averages the gradients of a wrapped net; a
+    bare one's are averaged by :func:`parallel.average_gradients` (a
+    no-op without a process group; what a CUDA graph can hold)."""
     net = state.net
     net.train()
     world = world_size()
@@ -93,9 +117,9 @@ def _step_body(engine: DiffusionEngine, state: TrainState, batch, generator,
             generator, (x.shape[0] * world, *x.shape[1:]), x.device)
         noise, gamma, t = (draws[k][rows] if k in draws else None
                            for k in ("noise", "gamma", "t"))
-    net_gen = (generator if world == 1 or generator is None
-               else rank_generator(generator, rank()))
-
+    if net_gen is None:
+        net_gen = (generator if world == 1 or generator is None
+                   else rank_generator(generator, rank()))
     def denoise(x_in, level):
         return state.train_net(x_in, level, generator=net_gen)
 
@@ -105,6 +129,8 @@ def _step_body(engine: DiffusionEngine, state: TrainState, batch, generator,
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     named = list(net.named_parameters())
+    if state.train_net is net:
+        average_gradients([p for _, p in named])
     grads = [p.grad for _, p in named if p.grad is not None]
     grad_norm = torch.linalg.vector_norm(
         torch.stack(torch._foreach_norm(grads)))
@@ -165,10 +191,13 @@ def _assemble(data: Dict[str, torch.Tensor], batch_size: int,
     return out
 
 
-def _run_steps(engine, batch_size, state, data, gens, decays) -> dict:
-    """One cached step per (generator, decay), the metrics stacked."""
-    out = [_step_body(engine, state, _assemble(data, batch_size, g), g, d)
-           for g, d in zip(gens, decays)]
+def _run_steps(engine, batch_size, state, data, gens, decays,
+               net_gens=None) -> dict:
+    """One cached step per (generator, decay[, dropout generator]), the
+    metrics stacked."""
+    out = [_step_body(engine, state, _assemble(data, batch_size, g), g, d,
+                      net_gen=ng)
+           for g, d, ng in zip(gens, decays, net_gens or [None] * len(gens))]
     return {k: torch.stack([m[k] for m in out]) for k in out[0]}
 
 
@@ -190,25 +219,38 @@ def _eager_steps(engine, batch_size, state, data, seed, n, ema_decay,
 class _CapturedSteps:
     """``n`` cached train steps captured once into one CUDA graph.
 
+    The captured region is :meth:`run_eagerly`'s: n steps of the bare
+    ``state.net`` whose gradients :func:`parallel.average_gradients`
+    averages over the ranks (one all-reduce of a flat buffer on
+    ``dist.group.WORLD``, each gradient scaled by 1/W as DDP's reducer
+    scales it; nothing without a process group). Under ``-dist`` DDP's
+    wrapper is dropped from the state: its reducer keeps host state
+    between iterations (bucket rebuilds, ``prepare_for_backward``) that
+    a replay would not re-run, and AccumulateGrad nodes made on another
+    stream. A sub-step draws from its step's generator and, in
+    a world of W > 1, its dropout masks from a generator of its own:
+    each seeded as :func:`replay_seeds` says, to what
+    ``step_generator(seed, s)`` and ``rank_generator`` of it hold, so
+    the region computes what n unchained steps compute.
+
     The first call runs the n steps eagerly, on a side stream (PyTorch's
     warm-up before a capture: cuDNN's algorithm choice, the optimizer's
-    state and the kernel library are made there, not inside the graph),
-    then empties the allocator's cache and captures them with cuDNN's
-    autotuning off: a convolution takes the plan its shape was given in
-    the warm-up, and a shape cuDNN has no plan for gets its heuristics'
-    pick, never the timing runs of every candidate (which the graph would
-    replay each call). The cache is emptied because the allocator cannot
-    release cached blocks during a capture: a plan's workspace that does
-    not fit in what is left raises out of memory inside PyTorch's
-    convolution, which then takes (and keeps) another plan without a
-    word, and the graph computes other bits than the eager steps. Where
-    that still happens (the card's memory is held elsewhere) the
-    allocator's count of such errors rises over the capture, and a
-    RuntimeWarning says so. Every
-    later call re-seeds the n generators registered with the graph (``register_generator_state``) to
-    ``step_generator(seed, state.step + i)``, writes the n EMA decays
-    into a device buffer and replays the graph: the same draws and the
-    same arithmetic as n unchained steps. The graph holds the addresses
+    state, the kernel library and the process group's communicator are
+    made there, not inside the graph), then empties the allocator's
+    cache and captures them with cuDNN's autotuning off: a convolution
+    takes the plan its shape was given in the warm-up, and a shape cuDNN
+    has no plan for gets its heuristics' pick, never the timing runs of
+    every candidate (which the graph would replay each call). The cache
+    is emptied because the allocator cannot release cached blocks during
+    a capture: a plan's workspace that does not fit in what is left
+    raises out of memory inside PyTorch's convolution, which then takes
+    (and keeps) another plan without a word, and the graph computes
+    other bits than the eager steps. Where that still happens (the
+    card's memory is held elsewhere) the allocator's count of such
+    errors rises over the capture, and a RuntimeWarning says so. Every
+    later call re-seeds the generators registered with the graph
+    (``register_generator_state``), writes the n EMA decays into a
+    device buffer and replays the graph. The graph holds the addresses
     of the state's tensors and of ``data``: a call with another state or
     data raises. After a replay every parameter's version counter is
     advanced, as an in-place update would, so that a cache keyed on it
@@ -221,23 +263,58 @@ class _CapturedSteps:
         self.graph = None
         self.key = None
         self.out = None
-        self.gens = self.decays = None
+        self.gens = None
 
     def _key(self, state, data):
         return (id(state.net), id(state.optimizer),
                 tuple((k, v.data_ptr()) for k, v in sorted(data.items())))
 
-    def _decays(self, state):
-        return [_ema_decay(self.ema_decay, self.ema_start, state.step + i)
-                for i in range(self.n)]
+    def _generators(self, dev):
+        """(n step generators, n dropout generators (None in a world of
+        1), the n EMA decays' device buffer)."""
+        world = world_size()
+        return ([torch.Generator(device=dev) for _ in range(self.n)],
+                [torch.Generator(device=dev) if world > 1 else None
+                 for _ in range(self.n)],
+                torch.zeros(self.n, dtype=torch.float32, device=dev))
+
+    def _seed(self, gens, state, seed):
+        """Seed ``gens`` (:meth:`_generators`) for the n steps from
+        ``state.step``."""
+        steps, dropout, decays = gens
+        plan = replay_seeds(seed, state.step, self.n, rank(), world_size())
+        for g, d, (s_seed, r_seed) in zip(steps, dropout, plan):
+            g.manual_seed(s_seed)
+            if d is not None:
+                d.manual_seed(r_seed)
+        decays.copy_(torch.tensor(
+            [_ema_decay(self.ema_decay, self.ema_start, state.step + i)
+             for i in range(self.n)], dtype=torch.float32))
+
+    def _steps(self, state, data, gens):
+        steps, dropout, decays = gens
+        return _run_steps(self.engine, self.batch_size, state, data, steps,
+                          list(decays.unbind(0)), dropout)
+
+    def run_eagerly(self, state, data, seed):
+        """The captured region's n steps from ``state.step``, run eagerly
+        on generators seeded as a replay's are (the first call's warm-up;
+        on CPU tensors, what a replay computes); advances ``state.step``
+        and returns the stacked metrics. A DDP wrapper in
+        ``state.train_net`` is dropped first, for good: its reducer keeps
+        each parameter's AccumulateGrad node alive, made on the stream of
+        the wrap, and a capture on its own stream cannot depend on that
+        one; the bare net's steps average their gradients themselves."""
+        if state.train_net is not state.net:
+            state.train_net = state.net
+            gc.collect()
+        gens = self._generators(data["HR"].device)
+        self._seed(gens, state, seed)
+        out = self._steps(state, data, gens)
+        state.step += self.n
+        return out
 
     def __call__(self, state, data, seed):
-        if state.train_net is not state.net:
-            raise NotImplementedError(
-                "chained train steps (steps_per_call > 1) under a process "
-                "group: capturing DDP's backward in a CUDA graph is not "
-                "ported (ROADMAP.md queue 1 item 7e-dist); run without "
-                "-dist or with steps_per_call 1")
         dev = data["HR"].device
         if dev.type != "cuda":
             raise ValueError("a captured train step needs CUDA tensors, got "
@@ -247,10 +324,7 @@ class _CapturedSteps:
         if self._key(state, data) != self.key:
             raise ValueError("a captured train step replays on the state "
                              "and data it was captured with")
-        for i, g in enumerate(self.gens):
-            g.manual_seed(_step_seed(seed, state.step + i))
-        self.decays.copy_(torch.tensor(self._decays(state),
-                                       dtype=torch.float32))
+        self._seed(self.gens, state, seed)
         self.graph.replay()
         with torch.no_grad():
             for p in state.net.parameters():
@@ -263,26 +337,25 @@ class _CapturedSteps:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            metrics = _eager_steps(self.engine, self.batch_size, state, data,
-                                   seed, self.n, self.ema_decay,
-                                   self.ema_start)
+            metrics = self.run_eagerly(state, data, seed)
         torch.cuda.current_stream(dev).wait_stream(side)
-        self.gens = [torch.Generator(device=dev) for _ in range(self.n)]
-        self.decays = torch.zeros(self.n, dtype=torch.float32, device=dev)
+        self.gens = self._generators(dev)
         graph = torch.cuda.CUDAGraph()
-        for g in self.gens:
-            graph.register_generator_state(g)
+        for g in self.gens[0] + self.gens[1]:
+            if g is not None:
+                graph.register_generator_state(g)
         state.optimizer.zero_grad(set_to_none=True)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         ooms = torch.cuda.memory_stats(dev).get("num_ooms", 0)
         timed = torch.backends.cudnn.benchmark
         torch.backends.cudnn.benchmark = False
+        # under a process group, NCCL's watchdog thread polls its work's
+        # events, which a capture in the global mode forbids every thread
+        mode = "thread_local" if dist.is_initialized() else "global"
         try:
-            with torch.cuda.graph(graph):
-                self.out = _run_steps(self.engine, self.batch_size, state,
-                                      data, self.gens,
-                                      list(self.decays.unbind(0)))
+            with torch.cuda.graph(graph, capture_error_mode=mode):
+                self.out = self._steps(state, data, self.gens)
         finally:
             torch.backends.cudnn.benchmark = timed
         ooms = torch.cuda.memory_stats(dev).get("num_ooms", 0) - ooms
@@ -315,9 +388,9 @@ def make_cached_train_step(engine: DiffusionEngine, batch_size: int,
     ``step_generator(seed, state.step + i)``, and the metrics come back
     stacked with leading dimension ``n_sub`` when it is above 1. With
     ``n_sub > 1`` and ``data`` on CUDA the n steps are one CUDA-graph
-    replay per call after the first call (:class:`_CapturedSteps`, which
-    raises where it cannot capture); otherwise they are a loop of
-    unchained steps."""
+    replay per call after the first call (:class:`_CapturedSteps`; under
+    a process group too, averaging the gradients itself in place of
+    DDP); otherwise they are a loop of unchained steps."""
     if n_sub < 1:
         raise ValueError(f"n_sub={n_sub} (want >= 1)")
     captured = _CapturedSteps(engine, batch_size, n_sub, ema_decay,

@@ -1,7 +1,9 @@
 """Chained train steps of the device-cache loop on the CPU: the clamp of
 ``cli.sr_mfe.steps_per_call`` against the JAX CLI's rule, ``n_sub``
-steps per call bit-equal to ``n_sub`` unchained calls, the CLI chained
-by FASTDIFFSR_TPU_STEPS_PER_CALL, its warning without the device cache,
+steps per call bit-equal to ``n_sub`` unchained calls, the captured
+region (run eagerly) of a DDP-wrapped state bit-equal to unchained
+steps, a replay's re-seeding plan per rank, the CLI chained by
+FASTDIFFSR_TPU_STEPS_PER_CALL, its warning without the device cache,
 and the chunked device-cache upload. Small nets (inner 8, 16x16), two
 threads."""
 
@@ -171,17 +173,82 @@ def test_graph_chain_needs_cuda_and_n_sub_at_least_one():
         make_cached_train_step(eng, 2, n_sub=0)
 
 
+class _Wrapper(torch.nn.Module):
+    """A stand-in for DDP's wrapper that the captured region must not
+    call."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.module = net
+
+    def forward(self, *args, **kwargs):
+        raise AssertionError("the captured region called the wrapper")
+
+
 def test_graph_chain_refuses_a_ddp_wrapped_net():
-    """A state whose train_net wraps the net (DDP under -dist) is refused
-    by the captured chain, naming ROADMAP item 7e-dist, before anything
-    runs."""
+    """A state whose train_net wraps the net (DDP under -dist) is taken
+    by the chained step's captured region, which drops the wrapper and
+    runs the bare net (the wrapper raises if called): two calls of the
+    region, run eagerly, equal four unchained steps of an unwrapped state
+    bit for bit (parameters, EMA, losses), dropout on. Without a process
+    group no gradient is all-reduced (the 2-rank case:
+    tests/test_torch_dist_train.py)."""
     eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
                           ScheduleBuffers.create(SCHED, device="cpu"))
+    data = _data()
+    a, b = _state(), _state()
+    a.train_net = _Wrapper(a.net)
+    region = _CapturedSteps(eng, 4, 2, 0.9, 3)
+    got = torch.cat([region.run_eagerly(a, data, 5)["l_pix"]
+                     for _ in range(2)])
+    single = make_cached_train_step(eng, 4, ema_decay=0.9, ema_start=3)
+    want = torch.stack([single(b, data, 5)[1]["l_pix"] for _ in range(4)])
+    assert a.step == b.step == 4 and a.train_net is a.net
+    assert torch.equal(got, want)
+    pb = dict(b.net.named_parameters())
+    for k, p in a.net.named_parameters():
+        assert torch.equal(p, pb[k]), k
+        assert torch.equal(a.ema_params[k], b.ema_params[k]), k
+
+
+@pytest.mark.parametrize("world,r", [(1, 0), (2, 0), (2, 1), (4, 3)])
+def test_replay_reseeds_each_rank_as_unchained_steps(world, r, monkeypatch):
+    """The re-seeding plan of a replay: sub-step s of rank r draws from
+    step_generator(seed, s) and its dropout from rank_generator of it
+    for rank r (at W > 1; at W = 1 from the step's generator), and the
+    generators and EMA decays the region seeds hold exactly that."""
+    from fastdiffsr_tpu_torch.train import steps
+
+    seed, start, n = 11, 5, 3
+    plan = steps.replay_seeds(seed, start, n, r, world)
+    assert len(plan) == n
+    for i, (s_seed, r_seed) in enumerate(plan):
+        g = steps.step_generator(seed, start + i, "cpu")
+        assert s_seed == g.initial_seed()
+        if world == 1:
+            assert r_seed is None
+        else:
+            assert r_seed == steps.rank_generator(g, r).initial_seed()
+    monkeypatch.setattr(steps, "world_size", lambda: world)
+    monkeypatch.setattr(steps, "rank", lambda: r)
+    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                          ScheduleBuffers.create(SCHED, device="cpu"))
+    region = _CapturedSteps(eng, 2, n, 0.9, start + 1)
     st = _state()
-    st.train_net = torch.nn.Sequential(st.net)
-    with pytest.raises(NotImplementedError, match="item 7e-dist"):
-        _CapturedSteps(eng, 2, 2, 0.9999, 5000)(st, _data(), 0)
-    assert st.step == 0
+    st.step = start
+    gens, dropout, decays = region._generators(torch.device("cpu"))
+    region._seed((gens, dropout, decays), st, seed)
+    for i, (s_seed, r_seed) in enumerate(plan):
+        assert gens[i].initial_seed() == s_seed
+        assert torch.equal(
+            torch.rand(4, generator=gens[i]),
+            torch.rand(4, generator=steps.step_generator(seed, start + i,
+                                                         "cpu")))
+        if world == 1:
+            assert dropout[i] is None
+        else:
+            assert dropout[i].initial_seed() == r_seed
+    assert decays.tolist() == [0.0, pytest.approx(0.9), pytest.approx(0.9)]
 
 
 def _config(tmp_path, name, **train):

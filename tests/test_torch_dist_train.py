@@ -10,7 +10,10 @@ the order of float32 sums (the gradient is the mean of two half-batch
 means). Losses agree within 1e-5 relative; the parameters and EMA after
 3 steps within 2e-5 absolute (lr 2e-3: a rounding-size gradient
 difference moves Adam's normalised update by far less than that except
-where the gradient is ~eps, which these nets do not show).
+where the gradient is ~eps, which these nets do not show). The chained
+step's captured region (the bare net and one explicit all-reduce of its
+gradients, run eagerly on gloo) equals DDP's unchained steps bit for
+bit, dropout on.
 
 The samplers: a rank samples its ``sample_rows`` of the batch with the
 images' own generators, so the ranks' rows concatenated equal the
@@ -58,6 +61,29 @@ def test_two_rank_train_steps_equal_one(case, tmp_path):
         np.testing.assert_array_equal(ranks[0][1][k], ranks[1][1][k])
     assert any(not np.array_equal(want_p[k], want_p[k.replace("p/", "ema/")])
                for k in want_p if k.startswith("p/"))
+
+
+def test_two_rank_chained_steps_equal_ddp_steps(tmp_path):
+    """2 gloo ranks: the chained train step's captured region run eagerly
+    (the bare net, its gradients averaged by one explicit all-reduce,
+    each sub-step's dropout from the rank generator its replay seeds),
+    2 calls chained by 2, against 4 DDP-wrapped unchained steps from the
+    same state: losses, gradient norms, parameters and EMA bit for bit
+    on each rank, and the ranks bit-equal to each other (1/2 scales
+    exactly, so the arithmetic is DDP's)."""
+    ranks = W.launch("chain", 2, tmp_path / "out")
+    for res, arrays in ranks:
+        assert res["chained/step"] == res["unchained/step"] == 4
+        for k in ("l_pix", "grad_norm"):
+            assert res[f"chained/{k}"] == res[f"unchained/{k}"], k
+        for k, v in arrays.items():
+            if k.startswith("chained/"):
+                np.testing.assert_array_equal(
+                    v, arrays[k.replace("chained/", "unchained/", 1)],
+                    err_msg=k)
+    assert ranks[0][0] == ranks[1][0]
+    for k, v in ranks[0][1].items():
+        np.testing.assert_array_equal(v, ranks[1][1][k], err_msg=k)
 
 
 @pytest.fixture

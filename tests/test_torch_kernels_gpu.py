@@ -712,3 +712,164 @@ def test_chained_train_step_replays_eager_steps(cuda):
     assert k1_per_step > 0
     for kernel in ("gn_swish_apply_kernel", "channel_stats_kernel"):
         assert sum(kernel in n for n in names) == 3 * k1_per_step, kernel
+
+
+def _tiny_train_state(cuda):
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import (FastDiffSRUNet,
+                                                             init_params)
+    from fastdiffsr_tpu_torch.train import create_train_state, make_optimizer
+    net = init_params(FastDiffSRUNet(inner_channel=32, norm_groups=8,
+                                     channel_mults=(1, 2), res_blocks=1,
+                                     dropout=0.2), 5).to(cuda)
+    return create_train_state(net, make_optimizer(net.parameters(),
+                                                  {"lr": 1e-3}))
+
+
+def test_chained_train_step_under_a_process_group_on_card(cuda):
+    """A one-rank NCCL group, the nets DDP-wrapped as under -dist: the
+    chained step (n_sub=3) captures the bare net with its gradients'
+    all-reduce and replays it; against 6 unchained DDP steps from the
+    same state (dropout on, the EMA starting inside the replay, cuDNN's
+    deterministic algorithms) the parameters, EMA and losses are
+    bit-equal, and a replay runs 3 x one step's K1 launches."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers)
+    from fastdiffsr_tpu_torch.train import make_cached_train_step
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    sched = {"schedule": "linear_cosine", "n_timestep": 20,
+             "linear_start": 1e-6, "linear_end": 1e-2}
+    eng = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                          ScheduleBuffers.create(sched, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    data = {k: torch.randint(0, 256, (8, 32, 32, 3), generator=g,
+                             device=cuda, dtype=torch.uint8)
+            for k in ("HR", "SR")}
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, b = _tiny_train_state(cuda), _tiny_train_state(cuda)
+        assert a.train_net is not a.net             # DDP
+        eager = make_cached_train_step(eng, 4, ema_decay=0.9, ema_start=4)
+        chained = make_cached_train_step(eng, 4, ema_decay=0.9, ema_start=4,
+                                         n_sub=3)
+        got = [chained(b, data, 9)[1]["l_pix"]]
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got.append(chained(b, data, 9)[1]["l_pix"])
+            torch.cuda.synchronize()
+        host = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        want = [eager(a, data, 9)[1]["l_pix"] for _ in range(6)]
+        k1_per_step = kernels.LAUNCHES["gn_swish"] // 6
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    assert not any(host.values())
+    assert a.step == b.step == 6
+    assert torch.equal(torch.cat(got), torch.stack(want))
+    pa = dict(a.net.named_parameters())
+    for k, p in b.net.named_parameters():
+        assert torch.equal(p, pa[k]), k
+        assert torch.equal(b.ema_params[k], a.ema_params[k]), k
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert k1_per_step > 0
+    for kernel in ("gn_swish_apply_kernel", "channel_stats_kernel"):
+        assert sum(kernel in n for n in names) == 3 * k1_per_step, kernel
+
+
+@pytest.mark.parametrize("variant", ["fastdiffsr", "ddpm"])
+def test_scan_export_runs_the_kernels_in_its_loop_on_card(cuda, variant):
+    """The serving export's scan form on the card (T=6 ancestral, a
+    symbolic batch traced at 2, run at 3): bit-equal to the unrolled
+    artifact fed the noise it drew from its seeds, its CPU copy
+    (``move_to_device_pass``) within 1e-5 of the in-process sampler on
+    the CPU fed that noise; the kernels of the
+    forward (fused FastDiffSR: K3 and K2; plain SR3: K1) launch from the
+    operators inside the loop, T or T + 1 evals' worth a call (torch
+    2.11's scan runs its body once more than T)."""
+    import copy
+
+    from fastdiffsr_tpu_torch import serving
+    from fastdiffsr_tpu_torch.cli.infer import make_denoiser
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers,
+                                                counter_noise)
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import (FastDiffSRUNet,
+                                                             init_params)
+    from fastdiffsr_tpu_torch.models.unet_sr3 import SR3UNet
+    from fastdiffsr_tpu_torch.train import make_sample_fn, pad_batch_with_keys
+
+    T, size = 6, 32
+    sched = {"schedule": "linear", "n_timestep": T, "linear_start": 1e-4,
+             "linear_end": 2e-1}
+    eng = DiffusionEngine(DiffusionSpec.for_variant(variant),
+                          ScheduleBuffers.create(sched, device=cuda))
+    cpu_eng = DiffusionEngine(DiffusionSpec.for_variant(variant),
+                              ScheduleBuffers.create(sched, device="cpu"))
+    fused = variant == "fastdiffsr"
+    if fused:
+        net = init_params(FastDiffSRUNet(inner_channel=32, norm_groups=8,
+                                         channel_mults=(1, 2),
+                                         res_blocks=1), 5)
+    else:
+        torch.manual_seed(5)
+        net = SR3UNet(inner_channel=32, norm_groups=8, channel_mults=(1, 2),
+                      attn_res=(16,), res_blocks=1, image_size=size)
+    net = net.to(cuda).eval()
+    loaded = []
+    for loop in (True, False):
+        ep, meta = serving.build_sample_export(eng, net, size, fused=fused,
+                                               loop=loop)
+        loaded.append(serving.ExportedSampler(ep, meta))
+    scan, unrolled = loaded
+    cond = torch.rand((3, size, size, 3), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda) * 2 - 1
+    gens = pad_batch_with_keys(cond.cpu().numpy(), 3, 4, 0, device=cuda)[1]
+    params = {k: v.detach() for k, v in net.state_dict().items()}
+    kernels.reset_launch_counts()
+    got = scan(params, cond, gens)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    init, seq = scan.sampler_noise(cond, pad_batch_with_keys(
+        cond.cpu().numpy(), 3, 4, 0, device=cuda)[1])
+    kernels.reset_launch_counts()
+    want = unrolled.call(params, cond, init, seq)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and got.shape == (3, size, size, 3)
+    assert torch.equal(got, want)
+    unrolled_launches = dict(kernels.LAUNCHES)
+    # the CPU copy (--platforms cuda,cpu: move_to_device_pass) against the
+    # in-process sampler on the CPU, both on the kernels' plain versions
+    cpu_ep, cpu_meta = serving.for_platform(scan.program, scan.meta, "cpu")
+    cpu_scan = serving.ExportedSampler(cpu_ep, cpu_meta)
+    seeds = scan.noise(cond, gens)[0].cpu()
+    cpu_got = cpu_scan.call({k: v.cpu() for k, v in params.items()},
+                            cond.cpu(), seeds)
+    cpu_net = copy.deepcopy(net).cpu()
+    init_c, seq_c = counter_noise(seeds, T, (size, size, 3), True)
+    cpu_want = make_sample_fn(cpu_eng, make_denoiser(cpu_net, fused,
+                                                     torch.float32))(
+        cond.cpu(), init_noise=init_c, noise_seq=seq_c)
+    assert cpu_got.device.type == "cpu"
+    assert (cpu_got - cpu_want).abs().max().item() <= 1e-5
+    names = (("fused_gn_swish_conv3x3", "channel_stats") if fused
+             else ("gn_swish",))
+    for k, v in launches.items():
+        per_eval = unrolled_launches[k] // T
+        assert unrolled_launches[k] == T * per_eval, (k, unrolled_launches)
+        assert v in (T * per_eval, (T + 1) * per_eval), (k, launches)
+        assert (per_eval > 0) == (k in names), (k, launches)

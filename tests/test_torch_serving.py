@@ -5,9 +5,12 @@ sampler with the same per-image generators and against the JAX
 package's sampler with the same injected noise; one symbolic-batch
 artifact at batches it was not traced at; a static batch; a second set
 of weights through the same artifact; the op registry a loading process
-needs; the CLI with --selftest. Also ``make_sample_fn``'s trajectory
-output and its refusal for DDIM and DPM-Solver++. Tolerance: float32,
-abs 1e-5, the JAX package's own round-trip bound."""
+needs; the CLI with --selftest. The scan form (``loop=True``, noise
+from seeds) of the fused UNet's sampler against the unrolled artifact,
+the in-process and the JAX sampler, at other batches and weights; ddpm's
+T=1000 sampler as one scan. Also ``make_sample_fn``'s trajectory output
+and its refusal for DDIM and DPM-Solver++. Tolerance: float32, abs
+1e-5, the JAX package's own round-trip bound."""
 
 import json
 import subprocess
@@ -274,15 +277,122 @@ def test_refusals(tiny, tmp_path):
     with pytest.raises(ValueError, match="platform 'tpu'"):
         serving.export_sampler({}, str(tmp_path / "x.pt2"),
                                platforms=["tpu"])
-    long = DiffusionEngine(DiffusionSpec.for_variant("ddpm"),
-                           ScheduleBuffers.create(
-                               {"schedule": "linear", "n_timestep": 1000,
-                                "linear_start": 1e-4, "linear_end": 2e-2},
-                               device="cpu"))
-    with pytest.raises(ValueError, match="--sampler ddim --steps N"):
-        serving.build_sample_export(long, net, SIZE)
     with pytest.raises(ValueError, match="sampler='euler'"):
         serving.build_sample_export(eng, net, SIZE, sampler="euler")
+
+
+def _scan_nodes(ep):
+    """Nodes of the program's graph and of its scan body."""
+    return len(ep.graph.nodes) + sum(len(m.graph.nodes) for m in
+                                     ep.graph_module.children())
+
+
+def test_ddpm_t1000_exports_as_one_loop(tmp_path):
+    """ddpm's own T=1000 ancestral sampler (above MAX_EXPORT_STEPS): one
+    scan whose graph does not grow with T (the same nodes as at T=8), its
+    noise from seeds; all 1000 steps of the loaded artifact against the
+    in-process sampler fed the same draws (MixNet)."""
+    def ddpm(t):
+        return DiffusionEngine(DiffusionSpec.for_variant("ddpm"),
+                               ScheduleBuffers.create(
+                                   {"schedule": "linear", "n_timestep": t,
+                                    "linear_start": 1e-4,
+                                    "linear_end": 2e-2}, device="cpu"))
+    long, net = ddpm(1000), MixNet()
+    ep, meta = serving.build_sample_export(long, net, SIZE)
+    assert (meta["loop"], meta["noise"], meta["evals"]) == (
+        "scan", "counter", 1000)
+    short, _ = serving.build_sample_export(ddpm(8), net, SIZE, loop=True)
+    assert _scan_nodes(ep) == _scan_nodes(short)
+    path = str(tmp_path / "ddpm_t1000.pt2")
+    serving.save_exported(ep, meta, path)
+    loaded = serving.load_exported(path)
+    cond, (cond_t, gens) = _inputs(2, seed=4)
+    got = loaded(_params(net), cond_t, gens)
+    init, seq = loaded.sampler_noise(cond_t, _inputs(2, seed=4)[1][1])
+    assert seq.shape == (1000, 2, SIZE, SIZE, 3)
+    want = make_sample_fn(long, lambda x, lv: net(x, lv))(
+        cond_t, init_noise=init, noise_seq=seq)
+    assert torch.isfinite(got).all() and got.abs().max() > 0.1
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.fixture(scope="module")
+def scan_unet(tiny, tmp_path_factory):
+    """The tiny UNet's ancestral sampler in the scan form (fused forward,
+    float32, symbolic batch traced at 2), saved and loaded."""
+    _, _, _, eng, net = tiny
+    ep, meta = serving.build_sample_export(eng, net, SIZE, fused=True,
+                                           loop=True)
+    path = str(tmp_path_factory.mktemp("serving_scan") / "scan_unet.pt2")
+    serving.save_exported(ep, meta, path)
+    return serving.load_exported(path)
+
+
+def test_scan_unet_equals_unrolled_and_jax(tiny, artifacts, scan_unet):
+    """The scan form of the fused UNet's sampler against the unrolled
+    artifact fed the noise it drew (bit for bit), the in-process sampler
+    fed it (ATOL) and JAX's engine.sample fed it (UNET_JAX_ATOL); K3 and
+    K2 as their operators in the scan's body, one eval's worth, where
+    the unrolled graph holds T of them."""
+    jeng, flax_net, params, eng, net = tiny
+    unrolled = artifacts["unet", "ancestral"][1]
+    cond, (cond_t, gens) = _inputs(3, seed=6)
+    got = scan_unet(_params(net), cond_t, gens)
+    init, seq = scan_unet.sampler_noise(cond_t, _inputs(3, seed=6)[1][1])
+    assert torch.equal(got, unrolled.call(_params(net), cond_t, init, seq))
+    want = make_sample_fn(eng, make_denoiser(net, True, torch.float32))(
+        cond_t, init_noise=init, noise_seq=seq)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=ATOL)
+    jwant = jeng.sample(
+        lambda x_in, lv: flax_net.apply({"params": params}, x_in, lv,
+                                        deterministic=True),
+        jnp.asarray(cond), jax.random.PRNGKey(0),
+        init_noise=jnp.asarray(init.numpy()),
+        noise_seq=jnp.asarray(seq.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=0,
+                               atol=UNET_JAX_ATOL)
+
+    def count(gm, op):
+        return sum(n.target == op for n in gm.graph.nodes)
+
+    top = scan_unet.program.graph_module
+    body, = list(top.children())
+    for op in (torch.ops.fdsr.fused_gn_swish_conv3x3.default,
+               torch.ops.fdsr.channel_stats.default):
+        assert count(top, op) == 0 and count(body, op) > 0
+        assert count(unrolled.program.graph_module, op) == 4 * count(body,
+                                                                     op)
+
+
+def test_scan_unet_batches_and_second_weights(tiny, scan_unet):
+    """The scan artifact at batches 1 and 5 (traced at 2) and with other
+    weights, against the in-process sampler fed its draws; image 3 of the
+    batch of 5 alone gives its image (its draws follow its seed only)."""
+    _, _, _, eng, net = tiny
+    other = FastDiffSRUNet(**KW).eval()
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for k, v in other.state_dict().items():
+            v.copy_(_params(net)[k]
+                    + 0.05 * torch.randn(v.shape, generator=gen))
+    outs = {}
+    for b, tnet in ((1, net), (5, net), (5, other)):
+        cond, (cond_t, gens) = _inputs(b, seed=b)
+        got = scan_unet(_params(tnet), cond_t, gens)
+        init, seq = scan_unet.sampler_noise(cond_t,
+                                            _inputs(b, seed=b)[1][1])
+        want = make_sample_fn(eng, make_denoiser(tnet, True, torch.float32))(
+            cond_t, init_noise=init, noise_seq=seq)
+        assert got.shape == (b, SIZE, SIZE, 3)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=ATOL)
+        outs[b, tnet is other] = (got, cond_t)
+    got5, cond5 = outs[5, False]
+    alone = scan_unet(_params(net), cond5[3:4], _inputs(5, seed=5)[1][1][3:4])
+    np.testing.assert_allclose(alone.numpy(), got5[3:4].numpy(), rtol=0,
+                               atol=ATOL)
+    assert (outs[5, True][0] - got5).abs().max() > 1e-3
 
 
 @pytest.mark.parametrize("sampler", ["ddim", "dpm"])

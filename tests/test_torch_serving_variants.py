@@ -7,8 +7,11 @@ saved and loaded, is held against the in-process sampler with the same
 per-image generators (abs 1e-5) and against the JAX package's
 ``sample_ddim`` on the same weights and initial noise (abs 1e-4: Flax's
 GroupNorm takes two-pass statistics, K1's plain version one pass).
-Every Flax leaf is seeded (``jax.eval_shape`` gives the tree; no init
-program is compiled), then converted with the port's converter."""
+The same UNet's ancestral sampler in the serving export's scan form
+(noise from seeds, K1 inside the scan's body) against the in-process
+sampler and JAX's ``engine.sample`` fed the artifact's draws. Every Flax
+leaf is seeded (``jax.eval_shape`` gives the tree; no init program is
+compiled), then converted with the port's converter."""
 
 import numpy as np
 import pytest
@@ -151,3 +154,54 @@ def test_sr3_artifact_matches_jax_ddim(sr3):
         init_noise=jnp.asarray(init.numpy())))
     assert np.abs(want).max() > 0.1
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=JAX_ATOL)
+
+
+@pytest.fixture(scope="module")
+def sr3_scan(sr3, tmp_path_factory):
+    """The SR3 UNet's ancestral sampler (T=50, the schedule's own) in the
+    scan form on the plain forward, saved and loaded, and its program."""
+    *_, eng, net, _, _ = sr3
+    ep, meta = serving.build_sample_export(eng, net, SIZE, loop=True)
+    path = str(tmp_path_factory.mktemp("serving_sr3_scan") / "scan.pt2")
+    serving.save_exported(ep, meta, path)
+    return serving.load_exported(path), ep
+
+
+def test_sr3_scan_runs_k1_in_its_body(sr3, sr3_scan):
+    """The scan form of the plain forward: K1 as fdsr::gn_swish in the
+    scan's body, once per eager K1 call of one eval, none outside it."""
+    net = sr3[4]
+    loaded, ep = sr3_scan
+    assert (loaded.meta["loop"], loaded.meta["evals"]) == ("scan", 50)
+    with torch.no_grad(), _CountK1() as mode:
+        net(torch.zeros((1, SIZE, SIZE, 6)), torch.ones((1,)))
+    body, = list(ep.graph_module.children())
+    k1 = torch.ops.fdsr.gn_swish.default
+    assert [n.target for n in ep.graph.nodes].count(k1) == 0
+    assert [n.target for n in body.graph.nodes].count(k1) == mode.calls > 0
+
+
+def test_sr3_scan_matches_inprocess_and_jax(sr3, sr3_scan):
+    """All 50 ancestral steps of the scan artifact against the in-process
+    sampler (ATOL) and JAX's engine.sample on the Flax SR3 UNet
+    (JAX_ATOL), both fed the draws the artifact made from its seeds."""
+    jeng, flax_net, params, eng, net, _, _ = sr3
+    loaded = sr3_scan[0]
+    cond, (cond_t, gens) = _inputs(2, seed=2)
+    got = loaded(_params(net), cond_t, gens)
+    init, seq = loaded.sampler_noise(cond_t, _inputs(2, seed=2)[1][1])
+    want = make_sample_fn(eng, make_denoiser(net, False, torch.float32))(
+        cond_t, init_noise=init, noise_seq=seq)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=ATOL)
+
+    def denoise(x_in, level):
+        return flax_net.apply({"params": params}, x_in, level,
+                              deterministic=True)
+
+    jwant = np.asarray(jeng.sample(
+        denoise, jnp.asarray(cond), jax.random.PRNGKey(0),
+        init_noise=jnp.asarray(init.numpy()),
+        noise_seq=jnp.asarray(seq.numpy())))
+    assert np.abs(jwant).max() > 0.1
+    np.testing.assert_allclose(got.numpy(), jwant, rtol=0, atol=JAX_ATOL)

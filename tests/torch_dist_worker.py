@@ -9,7 +9,8 @@ writes this rank's result to ``<out_dir>/rank{RANK}.json`` (arrays to
 each with its own timeout, so a hang fails the test instead of eating the
 suite's time. The cases that test a module (``train_step``, ``sample``,
 ``supervised``, ``gan``) are plain functions that the tests also call in
-their own process, without a process group, as the one-rank reference.
+their own process, without a process group, as the one-rank reference;
+``chain`` holds two arms in one process.
 """
 
 from __future__ import annotations
@@ -133,6 +134,56 @@ def train_step_case(steps: int = 3, batch: int = 4, cached: bool = False,
     arrays.update({f"ema/{k}": v.numpy() for k, v in
                    state.ema_params.items()})
     return {"l_pix": losses}, arrays
+
+
+def chain_case(chain: int = 2, calls: int = 2, batch: int = 4):
+    """Two states of the tiny UNet with dropout 0.2 from one seed, each
+    DDP-wrapped under the group: one takes ``calls`` calls of the chained
+    step's captured region run eagerly (``_CapturedSteps.run_eagerly``:
+    the bare net, ``parallel.average_gradients``, per-sub-step
+    generators seeded by ``replay_seeds``), the other ``chain * calls``
+    unchained DDP steps; both on a device-resident set of 6 tiles with
+    the EMA starting inside the second call. Returns both runs' losses
+    and gradient norms, and their parameters and EMA."""
+    import torch
+
+    from fastdiffsr_tpu_torch.diffusion import (DiffusionEngine,
+                                                DiffusionSpec,
+                                                ScheduleBuffers)
+    from fastdiffsr_tpu_torch.models.unet_fastdiffsr import unet_from_config
+    from fastdiffsr_tpu_torch.train import (create_train_state,
+                                            make_cached_train_step,
+                                            make_optimizer)
+    from fastdiffsr_tpu_torch.train.steps import _CapturedSteps
+
+    engine = DiffusionEngine(DiffusionSpec.for_variant("fastdiffsr"),
+                             ScheduleBuffers.create(SCHEDULE, device="cpu"))
+    rng = np.random.default_rng(0)
+    data = {k: torch.from_numpy(rng.integers(0, 256, (6, 16, 16, 3),
+                                             dtype=np.uint8))
+            for k in ("HR", "SR")}
+    ema = dict(ema_decay=0.5, ema_start=chain + 1)
+    res, arrays = {}, {}
+    for arm in ("chained", "unchained"):
+        net = unet_from_config({**TINY_UNET, "dropout": 0.2}, device="cpu",
+                               seed=0)
+        state = create_train_state(net, make_optimizer(net.parameters(),
+                                                       {"lr": 2e-3}))
+        if arm == "chained":
+            region = _CapturedSteps(engine, batch, chain, **ema)
+            ms = [region.run_eagerly(state, data, 7) for _ in range(calls)]
+        else:
+            step = make_cached_train_step(engine, batch, **ema)
+            ms = [step(state, data, 7)[1] for _ in range(chain * calls)]
+            ms = [{k: v.reshape(1) for k, v in m.items()} for m in ms]
+        for k in ("l_pix", "grad_norm"):
+            res[f"{arm}/{k}"] = torch.cat([m[k] for m in ms]).tolist()
+        res[f"{arm}/step"] = state.step
+        arrays.update({f"{arm}/p/{k}": v.detach().numpy()
+                       for k, v in net.state_dict().items()})
+        arrays.update({f"{arm}/ema/{k}": v.numpy()
+                       for k, v in state.ema_params.items()})
+    return res, arrays
 
 
 def sample_case(batch: int = 4, height: int = 16, width: int = 16,
@@ -288,6 +339,7 @@ CASES = {
     "train_step": lambda a: (_join_cpu(), train_step_case())[1],
     "train_step_cached": lambda a: (_join_cpu(),
                                     train_step_case(cached=True))[1],
+    "chain": lambda a: (_join_cpu(), chain_case())[1],
     "sample": lambda a: (_join_cpu(), sample_case(*map(int, a)))[1],
     "quant_conv": lambda a: (_join_cpu(), quant_conv_case())[1],
     # the int8 UNet: FASTDIFFSR_TPU_QUANT is set in the ranks' environment
